@@ -1,0 +1,36 @@
+"""Weight bridge: the reference's parameters as the port's tensors.
+
+``params_from_numpy`` takes the JAX package's params pytree converted to
+numpy (``jax.tree.map(np.asarray, params)``: stacked ``layers`` axis,
+``[K, N]`` weights) and returns the same dict of torch tensors. JAX bf16
+arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+rejects; every array goes through float32 (exact for bf16 and fp16) and is
+cast back to its own type on the torch side.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .configs import dtype_of
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    t = torch.from_numpy(np.array(a, dtype=np.float32))     # a writable copy
+    return t.to(device=device, dtype=dtype_of(a.dtype.name))
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def params_from_numpy(np_params: dict, cfg, device="cpu") -> dict:
+    """Reference params (numpy leaves) -> the port's params on ``device``."""
+    L = np.asarray(np_params["layers"]["attn_norm"]).shape[0]
+    if L != cfg.n_layers:
+        raise ValueError(f"params hold {L} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+    return _convert(np_params, torch.device(device))

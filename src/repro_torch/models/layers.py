@@ -1,0 +1,221 @@
+"""Shared model layers (plain functions over parameter dicts).
+
+Attention is blockwise with an online softmax in fp32, written as plain
+torch ops (einsum, masking) the way ``repro.models.layers`` computes it.
+Products that the reference takes with ``preferred_element_type=float32``
+are taken here on fp32 copies of the operands, which gives the same exact
+products of bf16/fp16 values.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs import dtype_of
+from ..core.partition import matmul_any
+
+NEG_INF = -1e30
+_POS_PAD = int(np.iinfo(np.int32).max)     # kv_pos of padded slots: masked
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 statistics; the scaled tensor stays in the compute dtype."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    scale = torch.rsqrt(var + eps).to(x.dtype)
+    return x * scale * w.to(x.dtype)
+
+
+def rope_freqs(dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [S] or [B, S]; freqs: [D/2] fp32, the
+    :func:`rope_freqs` table on x's device (built once per forward pass by
+    the caller, so no layer copies it to the device again)."""
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                # [B, S, D/2]
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def blockwise_attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
+                        block_k: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV blocks (GQA-aware), fp32 accumulation.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D]; q_pos: [Sq] or [B, Sq]
+    absolute positions; kv_pos: [Sk]. Causal masking is positional
+    (kv_pos <= q_pos), which also masks unwritten cache slots.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    if q_pos.ndim == 1:
+        q_pos = q_pos[None, :].expand(B, Sq)
+
+    block_k = min(block_k, Sk)
+    pad = (block_k - Sk % block_k) % block_k
+    if pad:                               # pad KV to a block multiple; padded
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))  # slots get kv_pos = INT_MAX
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=_POS_PAD)
+        Sk += pad
+    max_kv_pos = None if causal else kv_pos[-1 - pad]
+    masked = causal or bool(pad)
+
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=q.device)
+    for i in range(Sk // block_k):
+        sl = slice(i * block_k, (i + 1) * block_k)
+        k_b, v_b, p_b = k[:, sl], v[:, sl], kv_pos[sl]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_b.float()) * scale
+        if masked:
+            if causal:
+                mask = p_b[None, None, :] <= q_pos[:, :, None]      # [B,Sq,bk]
+            else:  # bidirectional but padded: validity only
+                mask = (p_b <= max_kv_pos)[None, None, :].expand(B, Sq, block_k)
+            mask = mask[:, :, None, None, :]
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        if masked:
+            p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(v_b.dtype).float(), v_b.float())
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def dense_attention(q, k, v, *, q_pos, kv_pos, causal: bool = True) -> torch.Tensor:
+    """Reference O(S^2)-memory attention (oracle for tests)."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), k.float()) / math.sqrt(D)
+    if causal:
+        if q_pos.ndim == 1:
+            q_pos = q_pos[None, :].expand(B, Sq)
+        mask = kv_pos[None, None, :] <= q_pos[:, :, None]
+        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------- attention --
+
+def init_attention(cfg, generator: torch.Generator, device, n_layers: int) -> dict:
+    """Stacked ``[L, ...]`` attention weights, ``[K, N]`` layout, drawn one
+    layer at a time so the fp32 draw never exceeds one layer's size."""
+    d, hd = cfg.d_model, cfg.head_dim
+    s = 1.0 / math.sqrt(d)
+    shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    p = {name: normal_stack(n_layers, shape, s, cfg.param_dtype, generator,
+                            device)
+         for name, shape in shapes.items()}
+    if cfg.qk_norm:
+        dt = dtype_of(cfg.param_dtype)
+        p["q_norm"] = torch.ones((n_layers, hd), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((n_layers, hd), dtype=dt, device=device)
+    return p
+
+
+def normal_stack(n: int, shape, scale: float, dtype_name: str,
+                 generator: torch.Generator, device) -> torch.Tensor:
+    """``n`` stacked draws of ``N(0, 1) * scale``, cast to ``dtype_name``."""
+    out = torch.empty((n, *shape), dtype=dtype_of(dtype_name), device=device)
+    for i in range(n):
+        out[i] = torch.randn(shape, generator=generator, device=device) * scale
+    return out
+
+
+def _qkv_rope(p: dict, x, cfg, positions, hetero_ctx, freqs):
+    """Shared projection front-end: q/k/v matmuls, qk-norm, RoPE at the
+    tokens' absolute positions."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    mm = hetero_ctx.matmul if hetero_ctx is not None else matmul_any
+    q = mm(x, p["wq"], name="wq").reshape(B, S, cfg.n_heads, hd)
+    k = mm(x, p["wk"], name="wk").reshape(B, S, cfg.n_kv_heads, hd)
+    v = mm(x, p["wv"], name="wv").reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, freqs)
+    k = apply_rope(k, positions, freqs)
+    return q, k, v, mm
+
+
+def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
+                    freqs, hetero_ctx=None):
+    """GQA attention over one layer of the paged KV pool.
+
+    Logical position ``t`` of request ``b`` lives at physical slot
+    ``block_table[b, t // BS] * BS + t % BS`` of the flat pool. New K/V are
+    written there IN PLACE (the pool tensors are updated, not copied — the
+    reference's functional ``.at[idx].set``); reads gather the request's
+    pages into a ``[B, NBmax*BS]`` view whose slot index is the logical
+    position, so the positional causal mask hides stale contents and the
+    null block. pool: {"k","v": [NB, BS, Hkv, D]}; block_table: [B, NBmax]
+    (0 = null block); freqs: the RoPE table. Returns (out, pool).
+    """
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    NB, BS, Hkv, D = pool["k"].shape
+    q, k, v, mm = _qkv_rope(p, x, cfg, positions, hetero_ctx, freqs)
+
+    pos = (positions if positions.ndim == 2
+           else positions[None, :].expand(B, S)).long()
+    table = block_table.long()
+    blk = torch.gather(table, 1, pos // BS)                   # [B, S]
+    flat_idx = (blk * BS + pos % BS).reshape(-1)              # [B*S]
+    fk = pool["k"].view(NB * BS, Hkv, D)
+    fv = pool["v"].view(NB * BS, Hkv, D)
+    fk[flat_idx] = k.reshape(B * S, Hkv, D).to(fk.dtype)
+    fv[flat_idx] = v.reshape(B * S, Hkv, D).to(fv.dtype)
+
+    NBmax = table.shape[1]
+    ck = pool["k"][table].reshape(B, NBmax * BS, Hkv, D)
+    cv = pool["v"][table].reshape(B, NBmax * BS, Hkv, D)
+    kv_pos = torch.arange(NBmax * BS, dtype=torch.long, device=x.device)
+    o = blockwise_attention(q, ck, cv, q_pos=pos, kv_pos=kv_pos, causal=True,
+                            block_k=cfg.attn_block_k)
+    out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
+    return out, pool
+
+
+# ---------------------------------------------------------------------- ffn --
+
+def init_swiglu(cfg, generator: torch.Generator, device, n_layers: int) -> dict:
+    d, d_ff = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+    return {
+        "w_gate": normal_stack(n_layers, (d, d_ff), s, cfg.param_dtype,
+                               generator, device),
+        "w_up": normal_stack(n_layers, (d, d_ff), s, cfg.param_dtype,
+                             generator, device),
+        "w_down": normal_stack(n_layers, (d_ff, d), 1.0 / math.sqrt(d_ff),
+                               cfg.param_dtype, generator, device),
+    }
+
+
+def swiglu(p: dict, x, hetero_ctx=None) -> torch.Tensor:
+    mm = hetero_ctx.matmul if hetero_ctx is not None else matmul_any
+    g = mm(x, p["w_gate"], name="w_gate")
+    u = mm(x, p["w_up"], name="w_up")
+    return mm(F.silu(g) * u, p["w_down"], name="w_down")

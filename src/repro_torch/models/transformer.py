@@ -1,0 +1,142 @@
+"""Decoder-only dense transformer over a paged KV pool.
+
+Parameters are a dict shaped like the reference's pytree: stacked per-layer
+tensors under ``layers`` (leading axis L), weights in ``[K, N]`` layout
+(``y = x @ w``). The layer loop is a Python loop over the stacked axis;
+each iteration reads views, never copies.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs import dtype_of
+from ..core.partition import matmul_any
+from ..device import resolve_device
+from .layers import (init_attention, init_swiglu, normal_stack,
+                     paged_attention, rms_norm, rope_freqs, swiglu)
+
+
+def init_params(cfg, generator: torch.Generator | None = None, *,
+                device="cuda") -> dict:
+    """Random-init parameters on ``device`` (the card unless ``"cpu"`` is
+    asked for), drawn from ``generator`` — a generator on that device,
+    seeded 0 when None. The reference's initializer scales (embedding 0.02,
+    fan-in for the projections); not the reference's random numbers."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    dt = dtype_of(cfg.param_dtype)
+    d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    params = {
+        "embed": normal_stack(1, (v, d), 0.02, cfg.param_dtype, generator,
+                              device)[0],
+        "final_norm": torch.ones((d,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = normal_stack(1, (d, v), 1.0 / math.sqrt(d),
+                                      cfg.param_dtype, generator, device)[0]
+    params["layers"] = {
+        "attn_norm": torch.ones((L, d), dtype=dt, device=device),
+        "attn": init_attention(cfg, generator, device, L),
+        "ffn_norm": torch.ones((L, d), dtype=dt, device=device),
+        "ffn": init_swiglu(cfg, generator, device, L),
+    }
+    return params
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tensors."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def _layer(lp, x, cfg, *, positions, pool, block_table, hetero_ctx, freqs):
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    attn_out, pool = paged_attention(lp["attn"], h, cfg, positions=positions,
+                                     pool=pool, block_table=block_table,
+                                     hetero_ctx=hetero_ctx, freqs=freqs)
+    x = x + attn_out
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx)
+
+
+def _embed(params, tokens, cfg):
+    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+def _head_matrix(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def _head_logits(params, x, cfg, hetero_ctx=None):
+    """LM-head matmul — a partitionable site like any other ("head")."""
+    if hetero_ctx is not None:
+        y = hetero_ctx.matmul(x, _head_matrix(params, cfg), name="head")
+    else:
+        y = matmul_any(x, _head_matrix(params, cfg))
+    return y.float()
+
+
+def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
+                     dtype=torch.bfloat16, device="cpu") -> dict:
+    """Shared KV page pool ``[L, num_blocks, block_size, Hkv, D]`` per
+    tensor. Block 0 is the null block (see serving/paged_cache.py)."""
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
+                      hetero_ctx=None):
+    """All layers over the paged pool, which is updated in place."""
+    freqs = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)).to(
+        x.device)
+    for i in range(cfg.n_layers):
+        layer_pool = {"k": pool["k"][i], "v": pool["v"][i]}
+        x = _layer(layer_params(params["layers"], i), x, cfg,
+                   positions=positions, pool=layer_pool,
+                   block_table=block_table, hetero_ctx=hetero_ctx,
+                   freqs=freqs)
+    return x, pool
+
+
+def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
+                  hetero_ctx=None):
+    """Prefill a prompt chunk into the request's pages. tokens: [B, S];
+    block_table: [B, NBmax]; ``start_index`` an int (uniform batch) or a
+    [B] tensor of per-lane starts. Returns (last-token logits [B, 1, V],
+    pool)."""
+    S = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    if isinstance(start_index, int):
+        positions = torch.arange(start_index, start_index + S,
+                                 dtype=torch.long, device=x.device)
+    else:
+        start = torch.as_tensor(start_index, device=x.device).long()
+        steps = torch.arange(S, dtype=torch.long, device=x.device)
+        positions = (start[:, None] + steps[None, :] if start.ndim == 1
+                     else start + steps)
+    x, pool = _run_layers_paged(params, x, cfg, positions=positions,
+                                pool=pool, block_table=block_table,
+                                hetero_ctx=hetero_ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head_logits(params, x[:, -1:, :], cfg, hetero_ctx), pool
+
+
+def paged_decode_step(params, token, pool, cfg, *, block_tables, lengths,
+                      hetero_ctx=None):
+    """One batched decode step over the page pool. token: [B, 1];
+    block_tables: [B, NBmax]; lengths: [B] per-request write positions.
+    Inactive lanes (length 0, null table) sink writes into the null block.
+    Returns (logits [B, 1, V], pool)."""
+    x = _embed(params, token, cfg)
+    positions = lengths[:, None].long()
+    x, pool = _run_layers_paged(params, x, cfg, positions=positions,
+                                pool=pool, block_table=block_tables,
+                                hetero_ctx=hetero_ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head_logits(params, x, cfg, hetero_ctx), pool
+
