@@ -11,16 +11,21 @@ on failure:
      every CUDA source of the port built with nvcc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, over the
      conformance shapes and the serving path's own shapes, in fp32, bf16
-     and fp16, both stationary orders and strided operands, within the
-     reference's DTYPE_TOL; kernel, plain and library timings with CUDA
-     events;
+     and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
+     stationary orders with strided operands, the int8 and W4A16 GEMMs on
+     codes from the port's quantizers, direct and as a column slice of a
+     wider code tensor, through HeteroCtx's padding; kernel, plain and
+     library timings with CUDA events;
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
-     port on the CPU, gives the same greedy tokens;
-  4. the slice at full width: llama3-8b (32 layers, bf16, seeded random
+     port on the CPU, gives the same greedy tokens, with fp weights and with
+     int8 / W4A16 weights crossed with a bf16 / int8 KV pool; each kernel
+     launches exactly where the plan sends work to it;
+  4. the slices at full width: llama3-8b (32 layers, bf16, seeded random
      weights) served through PagedBatcher(engine_mode="hetero-tensor",
-     sync="device", window=8), against the engine_mode=None arm on the same
-     weights and prompts.
+     sync="device", window=8) against the engine_mode=None arm on the same
+     weights and prompts, three times: fp weights, int8 weights with an int8
+     KV pool, W4A16 weights with the bf16 pool.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +57,13 @@ PATH_CASES = (
     ("path_wq_m128", 128, 4096, 2048),
     ("path_wgate_m256", 256, 4096, 7168),
 )
+# the same sites' aligned blocks under the quantized plans (int8 and w4a16
+# alike), each a column slice of the full [4096, n_full] code tensor
+QUANT_PATH_CASES = (
+    ("path_wq_m128", 128, 4096, 2560, 4096),
+    ("path_wgate_m256", 256, 4096, 8960, 14336),
+)
+WEIGHT_FORMATS = ("int8", "w4a16")
 DTYPE_TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 4e-3}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -182,6 +194,125 @@ def phase_kernels() -> dict:
     return {"timings": timings, "worst": worst}
 
 
+def _quant_tools(fmt: str):
+    """(wrapper, quantizer, plain version) of one weight format."""
+    from repro_torch.kernels.hetero_matmul import ops
+    from repro_torch.kernels.hetero_matmul.ref import (q4_matmul_ref,
+                                                       quant_matmul_ref)
+    if fmt == "int8":
+        return ops.mxu_quant_matmul, ops.quantize_weight, quant_matmul_ref
+    return ops.mxu_q4_matmul, ops.quantize_weight_int4, q4_matmul_ref
+
+
+def _library_int8(x, wq, scale):
+    """``torch._weight_int8pack_mm`` (codes [N, K], scales in x's type) as
+    a yardstick, prepared outside the timed call; None, with the reason
+    logged, where the card's PyTorch has no CUDA kernel for it."""
+    import torch
+    op = getattr(torch, "_weight_int8pack_mm", None)
+    if op is None:
+        log("[kernels] library: torch._weight_int8pack_mm is absent")
+        return None
+    w_nk = wq.T.contiguous()
+    s_x = scale.to(x.dtype)
+    try:
+        y = op(x, w_nk, s_x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[kernels] library: torch._weight_int8pack_mm does not run on "
+            f"CUDA here: {str(e).splitlines()[0][:160]}")
+        return None
+    return y, lambda: op(x, w_nk, s_x)
+
+
+def phase_quant_kernels() -> dict:
+    """The int8 and W4A16 GEMMs against their plain versions: every case x
+    dtype, codes from the port's quantizers of the unpadded weight, direct
+    and as a column slice of a twice-wider code tensor, through
+    HeteroCtx._mxu (the production padding: odd K, ragged M and N)."""
+    import torch
+    from repro_torch.configs import dtype_of
+    from repro_torch.core.partition import HeteroCtx, QuantWeight
+    from repro_torch.kernels.hetero_matmul.ref import matmul_ref
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ctx = HeteroCtx(mode="mxu")
+    worst, n_checks = {}, 0
+    cases = CONFORMANCE_CASES + tuple(c[:4] for c in QUANT_PATH_CASES)
+    for fmt in WEIGHT_FORMATS:
+        wrapper, quantize, _ = _quant_tools(fmt)
+        for name, M, K, N in cases:
+            x32 = torch.randn((M, K), generator=g, device="cuda")
+            w32 = torch.randn((K, 2 * N), generator=g, device="cuda")
+            wide = QuantWeight(*quantize(w32), fmt, K)
+            forms = {"direct": QuantWeight(*quantize(w32[:, :N]), fmt, K),
+                     "sliced": wide.slice_n(0, N)}
+            for dname, tol in DTYPE_TOL.items():
+                x = x32.to(dtype_of(dname))
+                for form, qw in forms.items():
+                    before = wrapper.launches
+                    y = ctx._mxu(x, qw)
+                    ref = matmul_ref(x, qw.dequant(torch.float32))
+                    torch.cuda.synchronize()
+                    if wrapper.launches != before + 1:
+                        raise AssertionError(f"{fmt} {name}: the kernel was "
+                                             "not launched")
+                    e = rel_err(y, ref)
+                    n_checks += 1
+                    worst[(fmt, dname)] = max(worst.get((fmt, dname), 0.0), e)
+                    if not e <= tol:
+                        raise AssertionError(
+                            f"quant_matmul {fmt} {name} {dname} {form}: "
+                            f"rel_err {e:.3g} > {tol}")
+    for (fmt, dname), e in sorted(worst.items()):
+        log(f"[kernels] quant_matmul {fmt:5s} {dname:8s}: worst rel_err "
+            f"{e:.3g} <= {DTYPE_TOL[dname]}")
+    log(f"[kernels] {n_checks} quantized checks passed")
+
+    # timing at the path's shapes, bf16, on the column slice the weight
+    # strategy passes (the codes of the full weight live in one tensor)
+    timings = {fmt: [] for fmt in WEIGHT_FORMATS}
+    for fmt in WEIGHT_FORMATS:
+        wrapper, quantize, plain = _quant_tools(fmt)
+        for name, M, K, N, n_full in QUANT_PATH_CASES:
+            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            wq_full, s_full = quantize(torch.randn(
+                (K, n_full), generator=g, device="cuda"))
+            wq, s = wq_full[:, :N], s_full[:N]
+            y = wrapper(x, wq, s)
+            ref = plain(x, wq, s)
+            torch.cuda.synchronize()
+            row = {
+                "case": name, "M": M, "K": K, "N": N, "dtype": "bfloat16",
+                "format": fmt, "codes_from": [K, n_full],
+                "max_abs_err": float((y.float() - ref.float()).abs().max()),
+                "rel_err": rel_err(y, ref),
+                "ms": cuda_time_ms(lambda: wrapper(x, wq, s)),
+                "plain_ms": cuda_time_ms(lambda: plain(x, wq, s)),
+                "library_ms": None,
+            }
+            if fmt == "int8":
+                lib = _library_int8(x, wq, s)
+                if lib is not None:
+                    row["library_ms"] = cuda_time_ms(lib[1])
+                    row["library_rel_err_vs_plain"] = rel_err(lib[0], ref)
+                    row["library_note"] = ("torch._weight_int8pack_mm: codes "
+                                           "[N,K], scales in bf16")
+            else:
+                row["library_note"] = (
+                    "none: torch._weight_int4pack_mm takes grouped scales "
+                    "with zero points in its own packing, another function")
+            w_bytes = K * N * (1.0 if fmt == "int8" else 0.5)
+            nbytes = (M * K + M * N) * 2 + w_bytes + N * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            timings[fmt].append(row)
+            log(f"[kernels] time {json.dumps(row)}")
+    return {"timings": timings, "worst": worst}
+
+
 # ------------------------------------------------------------------ phase 3 --
 
 def _smoke_prompts(vocab: int):
@@ -191,25 +322,56 @@ def _smoke_prompts(vocab: int):
 
 
 def _serve(cfg, params, prompts, *, device, engine_mode, sync, window,
-           decode_width, new_tokens):
+           decode_width, new_tokens, weight_quant=None, kv_quant=None):
     from repro_torch.serving.scheduler import PagedBatcher, Request
     max_len = max(len(p) for p in prompts) + new_tokens + 8
     per_req = -(-max_len // 32)
     cb = PagedBatcher(cfg, params, num_blocks=1 + len(prompts) * per_req,
                       block_size=32, max_blocks_per_seq=per_req,
                       decode_width=decode_width, sync=sync, window=window,
-                      engine_mode=engine_mode, device=device)
+                      engine_mode=engine_mode, weight_quant=weight_quant,
+                      kv_quant=kv_quant, device=device)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     return cb, reqs
 
 
-def phase_tokens() -> int:
-    """fp32 smoke model: every engine mode x sync arm gives the same greedy
-    tokens, on the card and on the CPU. Returns the GEMM launches."""
+def _counters():
+    from repro_torch.kernels.hetero_matmul import ops
+    return {"hetero_matmul": ops.mxu_matmul,
+            "quant_matmul_int8": ops.mxu_quant_matmul,
+            "quant_matmul_q4": ops.mxu_q4_matmul}
+
+
+KERNEL_OF_FORMAT = {None: "hetero_matmul", "int8": "quant_matmul_int8",
+                    "w4a16": "quant_matmul_q4"}
+
+
+def _zero_counts() -> None:
+    for c in _counters().values():
+        c.launches = 0
+
+
+def _read_counts() -> dict:
+    return {k: c.launches for k, c in _counters().items()}
+
+
+# (weight_quant, kv_quant) arms of the smoke-model token phase
+TOKEN_FORMATS = ((None, None), ("int8", None), ("int8", "int8"),
+                 ("w4a16", None), ("w4a16", "int8"))
+
+
+def phase_tokens() -> None:
+    """fp32 smoke model, fp weights and then int8 / w4a16 weights with an
+    fp32 or int8 KV pool: within each format every engine mode x sync arm,
+    on the card and on the CPU, gives the same greedy tokens. The format's
+    kernel launches on the card in the mxu arms and wherever the
+    hetero-tensor plan keeps a site off xla_only (sync device; under sync
+    host the reference's 50 us T_sync keeps every smoke-size site there),
+    and no other kernel launches: on quantized weights every matmul site,
+    the untied head included, is quantized."""
     import torch
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.models.transformer import init_params
 
     cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
@@ -218,42 +380,41 @@ def phase_tokens() -> int:
                          device="cuda")
     cpu_params = _to_device(params, "cpu")
     prompts = _smoke_prompts(cfg.vocab_size)
-    outputs, launches = {}, 0
     arms = [("cuda", m, s) for m in (None, "xla", "mxu", "hetero-tensor")
             for s in ("host", "device")] + [("cpu", "hetero-tensor", "device")]
-    for device, mode, sync in arms:
-        cb, reqs = _serve(cfg, params if device == "cuda" else cpu_params,
-                          prompts, device=device, engine_mode=mode, sync=sync,
-                          window=4, decode_width=4, new_tokens=12)
-        ops.mxu_matmul.launches = 0
-        cb.run(reqs)
-        n = ops.mxu_matmul.launches
-        cb.kv.assert_drained()
-        arm = f"{device}/{mode}/{sync}"
-        outputs[arm] = [r.output for r in reqs]
-        log(f"[tokens] {arm}: {cb.stats()} gemm_launches={n}")
-        # mxu sends every prefill matmul to the kernel; hetero-tensor sends
-        # what its plan does not keep xla_only (under sync host the
-        # reference's 50 us T_sync keeps every smoke-size site there)
-        expect = device == "cuda" and (mode == "mxu" or (
-            mode == "hetero-tensor" and any(
-                d.strategy != "xla_only"
-                for d in cb.ctx.plan.decisions.values())))
-        if (n > 0) != expect:
-            raise AssertionError(f"{arm}: {n} GEMM launches, expected "
-                                 f"{'some' if expect else 'none'}")
-        if (device, mode, sync) == ("cuda", "hetero-tensor", "device") \
-                and n == 0:
-            raise AssertionError(f"{arm}: the GEMM kernel was never launched")
-        launches += n
-    first = next(iter(outputs.values()))
-    for arm, out in outputs.items():
-        if out != first:
-            raise AssertionError(f"[tokens] {arm} differs: {out} vs {first}")
-        if any(len(o) != 12 for o in out):
-            raise AssertionError(f"[tokens] {arm}: wrong token counts")
-    log(f"[tokens] {len(outputs)} arms token-identical; request 0: {first[0]}")
-    return launches
+    for fmt, kvq in TOKEN_FORMATS:
+        outputs = {}
+        for device, mode, sync in arms:
+            cb, reqs = _serve(cfg, params if device == "cuda" else cpu_params,
+                              prompts, device=device, engine_mode=mode,
+                              sync=sync, window=4, decode_width=4,
+                              new_tokens=12, weight_quant=fmt, kv_quant=kvq)
+            _zero_counts()
+            cb.run(reqs)
+            counts = _read_counts()
+            cb.kv.assert_drained()
+            arm = f"{fmt or 'fp'}/kv={kvq}/{device}/{mode}/{sync}"
+            outputs[arm] = [r.output for r in reqs]
+            log(f"[tokens] {arm}: {cb.stats()} launches {counts}")
+            expect = device == "cuda" and (mode == "mxu" or (
+                mode == "hetero-tensor" and any(
+                    d.strategy != "xla_only"
+                    for d in cb.ctx.plan.decisions.values())))
+            mine = counts[KERNEL_OF_FORMAT[fmt]]
+            if (mine > 0) != expect:
+                raise AssertionError(f"{arm}: {mine} launches of "
+                                     f"{KERNEL_OF_FORMAT[fmt]}, expected "
+                                     f"{'some' if expect else 'none'}")
+            if sum(counts.values()) != mine:
+                raise AssertionError(f"{arm}: another kernel launched: "
+                                     f"{counts}")
+        first = next(iter(outputs.values()))
+        for arm, out in outputs.items():
+            if out != first or any(len(o) != 12 for o in out):
+                raise AssertionError(f"[tokens] {arm} differs: {out} vs "
+                                     f"{first}")
+        log(f"[tokens] {fmt or 'fp'}/kv={kvq}: {len(outputs)} arms "
+            f"token-identical; request 0: {first[0]}")
 
 
 def _to_device(tree, device):
@@ -264,15 +425,22 @@ def _to_device(tree, device):
 
 # ------------------------------------------------------------------ phase 4 --
 
+# (label, weight_quant, kv_quant) of the full-width pairs
+FULL_PAIRS = (("fp", None, None), ("int8+kv8", "int8", "int8"),
+              ("w4a16", "w4a16", None))
+
+
 def phase_full(prompt_len: int = 300, new_tokens: int = 16,
                n_requests: int = 4) -> dict:
-    """llama3-8b at full width: the hetero-tensor arm and the engine-less
-    arm on the same seeded weights and prompts."""
+    """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
+    arm and the engine-less arm on the same seeded weights (quantized the
+    same way at construction) and prompts. Returns {label: hetero arm}."""
+    import gc
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import fence
-    from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.models.transformer import init_params
 
     cfg = get_config("llama3-8b")
@@ -291,83 +459,114 @@ def phase_full(prompt_len: int = 300, new_tokens: int = 16,
                for _ in range(n_requests)]
     log(f"[full] prompt lengths {[len(p) for p in prompts]}, "
         f"{new_tokens} new tokens each")
-    arms = {}
-    for mode in ("hetero-tensor", None):
-        cb, reqs = _serve(cfg, params, prompts, device="cuda",
-                          engine_mode=mode, sync="device", window=8,
-                          decode_width=8, new_tokens=new_tokens)
-        timers = _instrument(cb)
-        torch.cuda.reset_peak_memory_stats()
-        fence(params["embed"])
-        ops.mxu_matmul.launches = 0
-        t0 = time.perf_counter()
-        cb.run(reqs)
-        fence(params["embed"])
-        wall = time.perf_counter() - t0
-        launches = ops.mxu_matmul.launches
-        cb.kv.assert_drained()
-        tok = sum(len(r.output) for r in reqs)
-        arm = {
-            "engine_mode": mode, "wall_s": wall, "tokens": tok,
-            "tok_per_s": tok / wall, "prefill_s": timers["prefill"],
-            "decode_s": timers["decode"], "stats": cb.stats(),
-            "gemm_launches": launches, "outputs": [r.output for r in reqs],
-            "first_logits": timers["first_logits"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "pool_bytes": cb.kv.pool_bytes(),
-        }
-        if cb.ctx is not None:
-            plan = cb.ctx.plan
-            arm["strategies"] = dict(Counter(d.strategy
-                                             for d in plan.decisions.values()))
-            arm["decisions_m256"] = {
-                s: f"{d.strategy}:{d.n_split}" for (s, m), d in
-                plan.decisions.items() if m == 256}
-        arms[mode] = arm
-        log(f"[full] engine={mode}: {tok} tokens in {wall:.3f}s "
-            f"({tok / wall:.1f} tok/s); prefill {timers['prefill']:.3f}s, "
-            f"decode {timers['decode']:.3f}s; {cb.stats()}; gemm_launches="
-            f"{launches}; peak {arm['peak_mem_gb']:.2f} GB; pool "
-            f"{arm['pool_bytes'] / 1e9:.3f} GB")
-        if "strategies" in arm:
-            log(f"[full] plan strategies {arm['strategies']}; at M=256 "
-                f"{arm['decisions_m256']}")
-        for r in reqs:
-            if len(r.output) != new_tokens:
-                raise AssertionError(f"request {r.rid}: {len(r.output)} tokens")
-    het, base = arms["hetero-tensor"], arms[None]
-    if het["gemm_launches"] <= 0:
-        raise AssertionError("hetero-tensor arm never launched the GEMM")
-    for rid in range(n_requests):
-        a = het["first_logits"][rid]
-        b = base["first_logits"][rid]
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise AssertionError(f"request {rid}: non-finite logits")
-        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-        log(f"[full] request {rid}: first-token logits cos {cos:.6f}, "
-            f"rel_err {rel_err(a, b):.3g}")
-        if cos < 0.99:
-            raise AssertionError(f"request {rid}: cosine {cos:.4f} < 0.99")
-    same = sum(x == y for o1, o2 in zip(het["outputs"], base["outputs"])
-               for x, y in zip(o1, o2))
-    total = sum(len(o) for o in het["outputs"])
-    log(f"[full] identical tokens hetero-tensor vs engine=None: "
-        f"{same}/{total} ({same / total:.3f})")
-    _profile(cfg, params, prompts, new_tokens)
-    return het
+    hetero, fp_logits = {}, None
+    for label, wq, kvq in FULL_PAIRS:
+        arms = {}
+        for mode in ("hetero-tensor", None):
+            t0 = time.perf_counter()
+            cb, reqs = _serve(cfg, params, prompts, device="cuda",
+                              engine_mode=mode, sync="device", window=8,
+                              decode_width=8, new_tokens=new_tokens,
+                              weight_quant=wq, kv_quant=kvq)
+            fence(params["embed"])
+            setup = time.perf_counter() - t0
+            timers = _instrument(cb)
+            torch.cuda.reset_peak_memory_stats()
+            fence(params["embed"])
+            _zero_counts()
+            t0 = time.perf_counter()
+            cb.run(reqs)
+            fence(params["embed"])
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            cb.kv.assert_drained()
+            tok = sum(len(r.output) for r in reqs)
+            arm = {
+                "pair": label, "weight_quant": wq, "kv_quant": kvq,
+                "engine_mode": mode, "wall_s": wall, "setup_s": setup,
+                "tokens": tok, "tok_per_s": tok / wall,
+                "prefill_s": timers["prefill"], "decode_s": timers["decode"],
+                "stats": cb.stats(), "launches": counts,
+                "gemm_launches": counts[KERNEL_OF_FORMAT[wq]],
+                "outputs": [r.output for r in reqs],
+                "first_logits": timers["first_logits"],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "pool_bytes": cb.kv.pool_bytes(),
+            }
+            if cb.ctx is not None:
+                plan = cb.ctx.plan
+                arm["strategies"] = dict(Counter(
+                    d.strategy for d in plan.decisions.values()))
+                arm["decisions_m256"] = {
+                    s: f"{d.strategy}:{d.n_split}" for (s, m), d in
+                    plan.decisions.items() if m == 256}
+            arms[mode] = arm
+            log(f"[full] {label} engine={mode}: {tok} tokens in {wall:.3f}s "
+                f"({tok / wall:.1f} tok/s); prefill {timers['prefill']:.3f}s, "
+                f"decode {timers['decode']:.3f}s; setup {setup:.1f}s; "
+                f"{cb.stats()}; launches {counts}; peak "
+                f"{arm['peak_mem_gb']:.2f} GB; pool "
+                f"{arm['pool_bytes'] / 1e9:.3f} GB")
+            if "strategies" in arm:
+                log(f"[full] {label} plan strategies {arm['strategies']}; at "
+                    f"M=256 {arm['decisions_m256']}")
+            for r in reqs:
+                if len(r.output) != new_tokens:
+                    raise AssertionError(f"{label} request {r.rid}: "
+                                         f"{len(r.output)} tokens")
+            del cb, reqs
+            gc.collect()
+            torch.cuda.empty_cache()
+        het, base = arms["hetero-tensor"], arms[None]
+        if het["gemm_launches"] <= 0:
+            raise AssertionError(f"{label}: hetero-tensor arm never launched "
+                                 f"{KERNEL_OF_FORMAT[wq]}")
+        if sum(het["launches"].values()) != het["gemm_launches"] \
+                or sum(base["launches"].values()) != 0:
+            raise AssertionError(f"{label}: launches outside the plan: "
+                                 f"{het['launches']}, {base['launches']}")
+        for rid in range(n_requests):
+            a = het["first_logits"][rid]
+            b = base["first_logits"][rid]
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"{label} request {rid}: non-finite "
+                                     "logits")
+            cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+            msg = (f"[full] {label} request {rid}: first-token logits cos "
+                   f"{cos:.6f}, rel_err {rel_err(a, b):.3g}")
+            if fp_logits is not None:      # quantized vs fp weights: quality
+                msg += (", cos vs fp weights " + "%.6f" % float(
+                    torch.nn.functional.cosine_similarity(
+                        a, fp_logits[rid], dim=0)))
+            log(msg)
+            if cos < 0.99:
+                raise AssertionError(f"{label} request {rid}: cosine "
+                                     f"{cos:.4f} < 0.99")
+        same = sum(x == y for o1, o2 in zip(het["outputs"], base["outputs"])
+                   for x, y in zip(o1, o2))
+        total = sum(len(o) for o in het["outputs"])
+        log(f"[full] {label} identical tokens hetero-tensor vs engine=None: "
+            f"{same}/{total} ({same / total:.3f})")
+        if wq is None:
+            fp_logits = base["first_logits"]
+        _profile(cfg, params, prompts, new_tokens, label, wq, kvq)
+        hetero[label] = het
+    return hetero
 
 
-def _profile(cfg, params, prompts, new_tokens: int) -> None:
-    """One more hetero-tensor run under torch.profiler (after the timed
-    arms, so its overhead touches no reported time): device time by kernel
-    and the device's busy share of the run's wall time."""
+def _profile(cfg, params, prompts, new_tokens: int, label: str,
+             weight_quant, kv_quant) -> None:
+    """One more hetero-tensor run of a pair under torch.profiler (after the
+    timed arms, so its overhead touches no reported time): device time by
+    kernel and the device's busy share of the run's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sync import fence
 
     cb, reqs = _serve(cfg, params, prompts, device="cuda",
                       engine_mode="hetero-tensor", sync="device", window=8,
-                      decode_width=8, new_tokens=new_tokens)
+                      decode_width=8, new_tokens=new_tokens,
+                      weight_quant=weight_quant, kv_quant=kv_quant)
     fence(params["embed"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -386,12 +585,12 @@ def _profile(cfg, params, prompts, new_tokens: int) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log("[profile] torch.profiler saw no device time")
+        log(f"[profile] {label}: torch.profiler saw no device time")
         return
-    log(f"[profile] hetero-tensor run: wall {wall:.3f}s (profiled), device "
-        f"busy {busy:.3f}s ({busy / wall:.3f} of wall)")
+    log(f"[profile] {label} hetero-tensor run: wall {wall:.3f}s (profiled), "
+        f"device busy {busy:.3f}s ({busy / wall:.3f} of wall)")
     for us, n, key in rows[:12]:
-        log(f"[profile] {us / 1e3:10.2f} ms {n:7d}x  {key[:90]}")
+        log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]}")
 
 
 def _leaves(tree):
@@ -456,28 +655,39 @@ def main() -> int:
 
     card = phase_card_and_build()
     kern = phase_kernels()
+    qkern = phase_quant_kernels()
     phase_tokens()
     full = phase_full()
 
-    wg = next(r for r in kern["timings"] if r["case"] == "path_wgate_m256")
-    kernels = {"kernels": [{
-        "name": "hetero_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/hetero_matmul.cu",
-        "replaces": "src/repro/kernels/hetero_matmul/kernel.py:78",
-        "launches": full["gemm_launches"],
-        "max_abs_err": wg["max_abs_err"],
-        "ms": wg["ms"],
-        "kernel_ms": wg["ms"],
-        "plain_ms": wg["plain_ms"],
-        "bound_ms": wg["bound_ms"],
-        "bound_by": wg["bound_by"],
-        "library_ms": wg["library_ms"],
-        "shape": [wg["M"], wg["K"], wg["N"]],
-        "dtype": wg["dtype"],
-    }]}
-    log(f"[summary] card {card}; tok/s {full['tok_per_s']:.2f}; total "
-        f"{time.perf_counter() - t_start:.1f}s")
+    def entry(name, source, replaces, row, launches):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "shape": [row["M"], row["K"], row["N"]],
+                "dtype": row["dtype"]}
+
+    def wgate(rows):
+        return next(r for r in rows if r["case"] == "path_wgate_m256")
+
+    kernels = {"kernels": [
+        entry("hetero_matmul", "src/repro_torch/csrc/hetero_matmul.cu",
+              "src/repro/kernels/hetero_matmul/kernel.py:78",
+              wgate(kern["timings"]), full["fp"]["gemm_launches"]),
+        entry("quant_matmul_int8", "src/repro_torch/csrc/quant_matmul.cu",
+              "src/repro/kernels/hetero_matmul/kernel.py:173",
+              wgate(qkern["timings"]["int8"]),
+              full["int8+kv8"]["gemm_launches"]),
+        entry("quant_matmul_q4", "src/repro_torch/csrc/quant_matmul.cu",
+              "src/repro/kernels/hetero_matmul/kernel.py:146",
+              wgate(qkern["timings"]["w4a16"]),
+              full["w4a16"]["gemm_launches"]),
+    ]}
+    log(f"[summary] card {card}; tok/s "
+        + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in full.items())
+        + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

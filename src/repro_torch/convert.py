@@ -4,8 +4,12 @@
 numpy (``jax.tree.map(np.asarray, params)``: stacked ``layers`` axis,
 ``[K, N]`` weights) and returns the same dict of torch tensors. JAX bf16
 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-rejects; every array goes through float32 (exact for bf16 and fp16) and is
-cast back to its own type on the torch side.
+rejects; every float array goes through float32 (exact for bf16 and fp16)
+and is cast back to its own type on the torch side. Quantized params (the
+reference's ``quantize_params``, then ``jax.tree.map(np.asarray, ...)``)
+carry the reference's ``QuantWeight`` nodes, recognised by their fields
+(``wq``, ``scale``, ``fmt``, ``k``): their int8 codes cross byte for byte
+into the port's :class:`QuantWeight`.
 """
 from __future__ import annotations
 
@@ -13,10 +17,15 @@ import numpy as np
 import torch
 
 from .configs import dtype_of
+from .core.partition import QuantWeight
+
+_QUANT_FIELDS = ("wq", "scale", "fmt", "k")
 
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.kind in "iub":                               # codes, as they are
+        return torch.from_numpy(np.array(a)).to(device)
     t = torch.from_numpy(np.array(a, dtype=np.float32))     # a writable copy
     return t.to(device=device, dtype=dtype_of(a.dtype.name))
 
@@ -24,6 +33,9 @@ def _tensor(a, device) -> torch.Tensor:
 def _convert(tree, device):
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, f) for f in _QUANT_FIELDS):
+        return QuantWeight(_tensor(tree.wq, device),
+                           _tensor(tree.scale, device), tree.fmt, tree.k)
     return _tensor(tree, device)
 
 

@@ -108,6 +108,10 @@ def combine_dual(parts_a: tuple[float, int], parts_b: tuple[float, int],
     return max(ca, cb, mem_us)
 
 
+# bytes a weight element streams from memory, by storage format
+WEIGHT_BYTES_PER_EL = {None: 2.0, "int8": 1.0, "w4a16": 0.5}
+
+
 def mxu_matmul_time_us(M: int, K: int, N: int, spec: TPUSpec = V5E,
                        *, bytes_per_el: int = 2,
                        w_bytes_per_el: float | None = None) -> float:

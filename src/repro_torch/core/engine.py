@@ -19,16 +19,21 @@ from .solver import PartitionPlan, PartitionSolver
 
 
 def build_plan(cfg, *, sync_mode: str = "fast",
-               table: Optional[LatencyTable] = None
+               table: Optional[LatencyTable] = None,
+               weight_quant: Optional[str] = None
                ) -> tuple[LatencyTable, PartitionPlan]:
-    """Profile (analytic, the reference's cost model) and solve."""
-    table = table or profile_analytic(cfg)
-    solver = PartitionSolver(table, sync_mode=sync_mode)
+    """Profile (analytic, the reference's cost model) and solve.
+    ``weight_quant`` (None | 'int8' | 'w4a16') prices the weight stream at
+    the quantized bytes, so a quantized deployment gets its own plan."""
+    table = table or profile_analytic(cfg, weight_quant=weight_quant)
+    solver = PartitionSolver(table, sync_mode=sync_mode,
+                             weight_quant=weight_quant)
     return table, solver.solve(cfg)
 
 
-def build_hetero_ctx(cfg, mode: str, *, sync_mode: str = "fast") -> HeteroCtx:
+def build_hetero_ctx(cfg, mode: str, *, sync_mode: str = "fast",
+                     weight_quant: Optional[str] = None) -> HeteroCtx:
     """Profile + solve + wrap in the HeteroCtx covering every matmul site,
     the LM head included."""
-    _, plan = build_plan(cfg, sync_mode=sync_mode)
+    _, plan = build_plan(cfg, sync_mode=sync_mode, weight_quant=weight_quant)
     return HeteroCtx(mode=mode, plan=plan)

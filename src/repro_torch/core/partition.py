@@ -18,6 +18,12 @@ The two halves of a split run one after the other on the current stream;
 two-stream concurrency is later work. Weights keep the reference's
 ``[K, N]`` layout, and slices and transposes reach the kernel as strided
 views, never as copies.
+
+A weight may be a :class:`QuantWeight` (int8 or packed int4 codes with a
+per-column scale): the aligned path then launches the dequantizing GEMMs
+(``mxu_quant_matmul`` / ``mxu_q4_matmul``), the flexible path and the
+plan-free ``matmul_any`` dequantize first, and every strategy splits it by
+columns with ``slice_n``.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.hetero_matmul.ops import mxu_matmul
+from ..kernels.hetero_matmul.ops import (mxu_matmul, mxu_q4_matmul,
+                                         mxu_quant_matmul)
+from ..kernels.hetero_matmul.ref import unpack_int4
 from .characteristics import mxu_matmul_time_us
 from .solver import Decision, PartitionPlan
 
@@ -46,8 +54,77 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     return F.pad(x, pad)
 
 
-def matmul_any(x: torch.Tensor, w: torch.Tensor, name: Optional[str] = None):
-    """Plan-free matmul — the model code's path when no HeteroCtx is given."""
+def _pad_vec(v: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad a 1-D tensor up to a multiple of ``mult`` (no copy when
+    already aligned)."""
+    r = v.shape[0] % mult
+    return v if r == 0 else F.pad(v, (0, mult - r))
+
+
+class QuantWeight:
+    """A quantized weight that goes wherever an fp weight does.
+
+    Per-output-channel symmetric quantization in one of two formats:
+
+      * ``int8``  — ``wq`` int8 ``[..., K, N]``, ``scale`` f32 ``[..., N]``
+      * ``w4a16`` — ``wq`` int8 ``[..., ceil(K/2), N]``, two int4 codes per
+        byte along K (rows 2r, 2r+1 -> low, high nibble), the same scale
+
+    ``k`` is the LOGICAL contraction dim (the int4 packer zero-pads odd K).
+    Leading axes stack layers: ``qw[i]`` is layer ``i``'s weight, a view.
+    """
+
+    def __init__(self, wq: torch.Tensor, scale: torch.Tensor, fmt: str,
+                 k: int):
+        if fmt not in ("int8", "w4a16"):
+            raise ValueError(f"unknown weight format {fmt!r}")
+        self.wq = wq
+        self.scale = scale
+        self.fmt = fmt
+        self.k = int(k)
+
+    @property
+    def shape(self) -> tuple:
+        """Logical ``[..., K, N]`` shape (what the fp weight would report)."""
+        return (*self.wq.shape[:-2], self.k, self.wq.shape[-1])
+
+    @property
+    def n(self) -> int:
+        return self.wq.shape[-1]
+
+    def __getitem__(self, i: int) -> "QuantWeight":
+        """Layer ``i`` of a stacked weight (views of codes and scales)."""
+        return QuantWeight(self.wq[i], self.scale[i], self.fmt, self.k)
+
+    def to(self, device) -> "QuantWeight":
+        return QuantWeight(self.wq.to(device), self.scale.to(device),
+                           self.fmt, self.k)
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        """Dequantize-then-cast expansion (the flexible path's operand and
+        the kernels' oracle)."""
+        if self.fmt == "int8":
+            q = self.wq.float()
+        else:
+            q = unpack_int4(self.wq)[..., :self.k, :].float()
+        return (q * self.scale.float()[..., None, :]).to(dtype)
+
+    def slice_n(self, a: int, b: int) -> "QuantWeight":
+        """Column slice (views): packing runs along K, so any split point
+        of N is representable."""
+        return QuantWeight(self.wq[..., :, a:b], self.scale[..., a:b],
+                           self.fmt, self.k)
+
+
+def _weight_cols(w, a: int, b: int):
+    return w.slice_n(a, b) if isinstance(w, QuantWeight) else w[:, a:b]
+
+
+def matmul_any(x: torch.Tensor, w, name: Optional[str] = None):
+    """Plan-free matmul over fp or quantized weights — the model code's
+    path when no HeteroCtx is given (a QuantWeight dequantizes first)."""
+    if isinstance(w, QuantWeight):
+        return x @ w.dequant(x.dtype)
     return x @ w
 
 
@@ -60,7 +137,11 @@ class HeteroCtx:
     # ---------------------------------------------------------- primitives --
     def _mxu(self, x2, w):
         """Aligned-path matmul (output-stationary, the reference's order)
-        with stage padding + NPU-2 order exchange."""
+        with stage padding + NPU-2 order exchange. A QuantWeight goes to
+        the dequantizing kernels instead; the exchange is fp-only (packed
+        codes cannot become the streamed operand)."""
+        if isinstance(w, QuantWeight):
+            return self._mxu_quant(x2, w)
         M, K = x2.shape
         N = w.shape[1]
         use_exchange = mxu_matmul_time_us(N, K, M) < mxu_matmul_time_us(M, K, N)
@@ -72,7 +153,25 @@ class HeteroCtx:
             y = mxu_matmul(xp, wp)
         return y[:M, :N]
 
+    def _mxu_quant(self, x2, w: QuantWeight):
+        """Stage padding for the quantized kernels: codes pad with 0 and
+        scales with 0 (the padded columns are sliced off); x pads along K
+        with zeros, so code rows past the logical K add nothing. Packed
+        int4 rows pad to a multiple of 64, i.e. half the padded K."""
+        M, N = x2.shape[0], w.n
+        xp = _pad_to(_pad_to(x2, ALIGN, 0), ALIGN, 1)
+        sp = _pad_vec(w.scale, ALIGN)
+        if w.fmt == "int8":
+            wqp = _pad_to(_pad_to(w.wq, ALIGN, 0), ALIGN, 1)
+            y = mxu_quant_matmul(xp, wqp, sp)
+        else:
+            wqp = _pad_to(_pad_to(w.wq, ALIGN // 2, 0), ALIGN, 1)
+            y = mxu_q4_matmul(xp, wqp, sp)
+        return y[:M, :N]
+
     def _xla(self, x2, w):
+        if isinstance(w, QuantWeight):
+            return x2 @ w.dequant(x2.dtype)
         return x2 @ w.to(x2.dtype)
 
     # ------------------------------------------------------------ dispatch --
@@ -113,8 +212,8 @@ class HeteroCtx:
             return self._mxu(x2, w)     # _mxu pads M internally (stage padding)
         if s == "weight":
             n = min(dec.n_split, N - 1)
-            y1 = self._mxu(x2, w[:, :n])
-            y2 = self._xla(x2, w[:, n:])
+            y1 = self._mxu(x2, _weight_cols(w, 0, n))
+            y2 = self._xla(x2, _weight_cols(w, n, N))
             return torch.cat([y1, y2], dim=-1)
         if s == "act":
             b = min(dec.m_bucket, M - 1) if dec.m_bucket < M else M - ALIGN
@@ -125,8 +224,8 @@ class HeteroCtx:
         if s == "hybrid":
             b = max(min(dec.m_bucket, M - 1), 1)
             n = min(dec.n_split, N - 1)
-            y1a = self._mxu(x2[:b], w[:, :n])
-            y1b = self._xla(x2[:b], w[:, n:])
+            y1a = self._mxu(x2[:b], _weight_cols(w, 0, n))
+            y1b = self._xla(x2[:b], _weight_cols(w, n, N))
             y2 = self._xla(x2[b:], w)
             return torch.cat([torch.cat([y1a, y1b], dim=-1), y2], dim=0)
         raise ValueError(f"unknown strategy {s}")

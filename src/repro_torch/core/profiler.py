@@ -9,11 +9,13 @@ around each bucket edge.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Iterable
 
-from .characteristics import (TPUSpec, V5E, mxu_matmul_time_us,
-                              xla_matmul_time_us)
+from .characteristics import (WEIGHT_BYTES_PER_EL, TPUSpec, V5E,
+                              mxu_matmul_time_us, xla_matmul_time_us)
 
 STANDARD_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 PROBE_MS = (1, 8, 32, 64, 96, 128, 192, 256, 320, 384, 512, 768, 1024,
@@ -41,6 +43,7 @@ class LatencyTable:
     spec: TPUSpec = V5E
     entries: dict = field(default_factory=dict)
     sites: dict = field(default_factory=dict)
+    weight_quant: str | None = None   # None | "int8" | "w4a16" (storage)
 
     def lookup(self, site: str, M: int, path: str) -> float:
         key = (site, M, path)
@@ -54,7 +57,8 @@ class LatencyTable:
         if not ms:
             K, N = self.sites[site]
             f = mxu_matmul_time_us if path == "mxu" else xla_matmul_time_us
-            return f(M, K, N, self.spec)
+            return f(M, K, N, self.spec,
+                     w_bytes_per_el=WEIGHT_BYTES_PER_EL[self.weight_quant])
         if path == "mxu":
             # stage model: latency of the next bucketed M (staircase)
             m_up = next((m for m in ms if m >= M), ms[-1])
@@ -70,12 +74,36 @@ class LatencyTable:
         return tlo + w * (thi - tlo)
 
 
+    def save(self, path) -> None:
+        Path(path).write_text(json.dumps({
+            "spec": self.spec.name, "weight_quant": self.weight_quant,
+            "sites": {k: list(v) for k, v in self.sites.items()},
+            "entries": [[s, m, p, t] for (s, m, p), t in
+                        self.entries.items()]}))
+
+    @classmethod
+    def load(cls, path, spec: TPUSpec = V5E) -> "LatencyTable":
+        data = json.loads(Path(path).read_text())
+        t = cls(spec=spec, weight_quant=data.get("weight_quant"))
+        t.sites = {k: tuple(v) for k, v in data["sites"].items()}
+        for s, m, p, v in data["entries"]:
+            t.entries[(s, int(m), p)] = float(v)
+        return t
+
+
 def profile_analytic(cfg, spec: TPUSpec = V5E,
-                     Ms: Iterable[int] = PROBE_MS) -> LatencyTable:
-    table = LatencyTable(spec=spec)
+                     Ms: Iterable[int] = PROBE_MS, *,
+                     weight_quant: str | None = None) -> LatencyTable:
+    """``weight_quant`` prices the weight stream at its storage bytes per
+    element (int8 1 B, w4a16 0.5 B): memory-bound entries drop, compute-
+    bound ones barely move, and the solver re-plans around the shift."""
+    wb = WEIGHT_BYTES_PER_EL[weight_quant]
+    table = LatencyTable(spec=spec, weight_quant=weight_quant)
     table.sites = model_weight_shapes(cfg)
     for site, (K, N) in table.sites.items():
         for M in Ms:
-            table.entries[(site, M, "mxu")] = mxu_matmul_time_us(M, K, N, spec)
-            table.entries[(site, M, "xla")] = xla_matmul_time_us(M, K, N, spec)
+            table.entries[(site, M, "mxu")] = mxu_matmul_time_us(
+                M, K, N, spec, w_bytes_per_el=wb)
+            table.entries[(site, M, "xla")] = xla_matmul_time_us(
+                M, K, N, spec, w_bytes_per_el=wb)
     return table

@@ -26,8 +26,9 @@ from dataclasses import asdict, dataclass, field
 from pathlib import Path
 from typing import Optional
 
-from .characteristics import (TPUSpec, V5E, combine_dual, mxu_matmul_parts,
-                              sync_cost_us, xla_matmul_parts)
+from .characteristics import (WEIGHT_BYTES_PER_EL, TPUSpec, V5E,
+                              combine_dual, mxu_matmul_parts, sync_cost_us,
+                              xla_matmul_parts)
 from .profiler import STANDARD_BUCKETS, LatencyTable
 
 ALIGN = 128
@@ -51,6 +52,9 @@ class PartitionPlan:
     arch: str
     sync_mode: str
     decisions: dict = field(default_factory=dict)   # (site, M) -> Decision
+    # weight storage the plan was solved for (None | int8 | w4a16): the
+    # weight stream's bytes move the splits, so plans do not interchange
+    weight_quant: Optional[str] = None
 
     def decision(self, site: str, M: int) -> Optional[Decision]:
         return self.decisions.get((site, M))
@@ -70,12 +74,14 @@ class PartitionPlan:
     def save(self, path) -> None:
         Path(path).write_text(json.dumps({
             "arch": self.arch, "sync_mode": self.sync_mode,
+            "weight_quant": self.weight_quant,
             "decisions": [asdict(d) for d in self.decisions.values()]}))
 
     @classmethod
     def load(cls, path) -> "PartitionPlan":
         data = json.loads(Path(path).read_text())
-        plan = cls(arch=data["arch"], sync_mode=data["sync_mode"])
+        plan = cls(arch=data["arch"], sync_mode=data["sync_mode"],
+                   weight_quant=data.get("weight_quant"))
         for d in data["decisions"]:
             dec = Decision(**d)
             plan.decisions[(dec.site, dec.M)] = dec
@@ -84,17 +90,24 @@ class PartitionPlan:
 
 class PartitionSolver:
     def __init__(self, table: LatencyTable, spec: TPUSpec = V5E,
-                 *, sync_mode: str = "fast"):
+                 *, sync_mode: str = "fast", weight_quant: str | None = None):
         self.table = table
         self.spec = spec
         self.sync_mode = sync_mode
+        # the weights' storage format; by default the table's, so the
+        # table-backed and the analytic candidates price the same bytes
+        self.weight_quant = weight_quant if weight_quant is not None \
+            else table.weight_quant
+        self._w_bpe = WEIGHT_BYTES_PER_EL[self.weight_quant]
 
     def solve_site(self, site: str, M: int) -> Decision:
         K, N = self.table.sites[site]
         t_sync = sync_cost_us(self.sync_mode, self.spec)
         lut = self.table.lookup
-        mxu = lambda m, n: mxu_matmul_parts(m, K, n, self.spec)   # noqa: E731
-        xla = lambda m, n: xla_matmul_parts(m, K, n, self.spec)   # noqa: E731
+        mxu = lambda m, n: mxu_matmul_parts(                       # noqa: E731
+            m, K, n, self.spec, w_bytes_per_el=self._w_bpe)
+        xla = lambda m, n: xla_matmul_parts(                       # noqa: E731
+            m, K, n, self.spec, w_bytes_per_el=self._w_bpe)
 
         cands: list[Decision] = []
         aligned_m = M % ALIGN == 0
@@ -149,7 +162,8 @@ class PartitionSolver:
     def solve(self, cfg, Ms=(1, 64, 128, 192, 256, 300, 320, 512, 1024,
                              2048, 4096)) -> PartitionPlan:
         """Solve every (site, M) on the token-count grid ``Ms``."""
-        plan = PartitionPlan(arch=cfg.name, sync_mode=self.sync_mode)
+        plan = PartitionPlan(arch=cfg.name, sync_mode=self.sync_mode,
+                             weight_quant=self.weight_quant)
         for site in self.table.sites:
             for M in sorted(Ms):
                 plan.decisions[(site, M)] = self.solve_site(site, M)

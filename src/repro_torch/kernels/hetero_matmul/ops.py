@@ -1,10 +1,17 @@
-"""Wrapper of the aligned-path GEMM (``csrc/hetero_matmul.cu``).
+"""Wrappers of the aligned-path GEMMs (``csrc/hetero_matmul.cu``,
+``csrc/quant_matmul.cu``) and the weight quantizers.
 
 ``mxu_matmul(x, w)`` is the port of ``repro.kernels.hetero_matmul.ops
 .mxu_matmul``: ``[..., K] @ [K, N]`` with fp32 accumulation, all of M, K and
-N multiples of 128. A CUDA tensor launches the kernel or raises; only
-tensors that lie on the CPU take the plain version (``ref.matmul_ref``).
-``mxu_matmul.launches`` counts kernel launches.
+N multiples of 128. ``mxu_quant_matmul(x, wq, scale)`` and
+``mxu_q4_matmul(x, wq4, scale)`` are the weight-only quantized versions
+(int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``).
+A CUDA tensor launches the kernel or raises; only tensors that lie on the
+CPU take the plain version (``ref.py``). Each wrapper's ``.launches``
+counts its kernel's launches.
+
+``quantize_weight`` / ``quantize_weight_int4`` give the reference's codes
+and scales byte for byte (``repro.kernels.hetero_matmul.ops``).
 """
 from __future__ import annotations
 
@@ -12,7 +19,7 @@ import ctypes
 
 import torch
 
-from .ref import matmul_ref
+from .ref import matmul_ref, q4_matmul_ref, quant_matmul_ref, unpack_int4
 
 ALIGN = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -105,3 +112,145 @@ def mxu_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 
 mxu_matmul.launches = 0
+
+
+# ------------------------------------------------------------ quantizers --
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8: codes ``[K, N]`` in [-127, 127],
+    scale f32 ``[N]`` = amax / 127 (1.0 for an all-zero column)."""
+    w = w.float()
+    amax = w.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    wq = torch.clamp(torch.round(w / scale[None, :]), -127, 127)
+    return wq.to(torch.int8), scale
+
+
+def quantize_weight_int4(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """W4A16: per-column symmetric int4 codes in [-8, 7], two per byte along
+    K (rows 2r, 2r+1 -> low, high nibble); odd K is zero-padded first, so
+    the pad row is code 0. A column whose extreme is negative, and whose
+    largest positive still rounds inside +7 at the wider step
+    (``pos < 0.9375 * neg``), takes scale amax / 8, else amax / 7."""
+    w = w.float()
+    K, N = w.shape
+    if K % 2:
+        w = torch.cat([w, w.new_zeros((1, N))], dim=0)
+    pos = w.clamp(min=0.0).amax(dim=0)
+    neg = (-w).clamp(min=0.0).amax(dim=0)
+    amax = torch.maximum(pos, neg)
+    scale = torch.where(pos < 0.9375 * neg, amax / 8.0, amax / 7.0)
+    scale = torch.where(amax > 0, scale, 1.0)
+    q = torch.clamp(torch.round(w / scale[None, :]), -8, 7).to(torch.int32)
+    byte = (q[0::2] & 0x0F) | ((q[1::2] & 0x0F) << 4)           # 0..255
+    return torch.where(byte > 127, byte - 256, byte).to(torch.int8), scale
+
+
+def dequant_int4_ref(wq4: torch.Tensor, scale: torch.Tensor,
+                     k: int | None = None) -> torch.Tensor:
+    """Unpack-and-dequantize oracle; ``k`` recovers an odd logical K."""
+    q = unpack_int4(wq4).float()
+    if k is not None:
+        q = q[:k]
+    return q * scale.float()[None, :]
+
+
+# --------------------------------------------------- quantized GEMM wrappers --
+
+def _check_quant(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                 rows_per_k: int) -> None:
+    """``rows_per_k`` is 1 for int8 codes, 2 for packed int4 (K/2 rows)."""
+    if x.ndim != 2 or wq.ndim != 2 or scale.ndim != 1:
+        raise ValueError(f"expected x [M,K], codes 2-D, scale 1-D; got "
+                         f"{tuple(x.shape)}, {tuple(wq.shape)}, "
+                         f"{tuple(scale.shape)}")
+    M, K = x.shape
+    N = wq.shape[1]
+    if K % rows_per_k or wq.shape[0] != K // rows_per_k:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)}, codes "
+                         f"{tuple(wq.shape)} ({rows_per_k} K rows per row)")
+    if scale.shape[0] != N:
+        raise ValueError(f"scale {tuple(scale.shape)} for {N} columns")
+    if M % ALIGN or K % ALIGN or N % ALIGN:
+        raise ValueError(f"misaligned ({M},{K},{N}): every dim must be a "
+                         f"multiple of {ALIGN}")
+    if x.dtype not in _DTYPE_CODE or wq.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"unsupported dtypes x={x.dtype}, codes={wq.dtype}, "
+                        f"scale={scale.dtype}: x float32/bfloat16/float16, "
+                        "codes int8, scale float32")
+    if not (x.device == wq.device == scale.device):
+        raise ValueError(f"operands on different devices: {x.device}, "
+                         f"{wq.device}, {scale.device}")
+
+
+def _row_major_ld(t: torch.Tensor) -> int:
+    """Leading dimension of a row-major 2-D operand (a column slice keeps
+    its parent's); the quantized kernels take no transposed operand."""
+    ld, trans = operand_layout(t)
+    if trans:
+        raise ValueError(f"operand strides {t.stride()} for shape "
+                         f"{tuple(t.shape)} are not row-major")
+    return ld
+
+
+def _launch_quant(entry: str, x: torch.Tensor, wq: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    from ..build import load
+
+    lib = load("quant_matmul")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M, K = x.shape
+    N = wq.shape[1]
+    if scale.stride(0) != 1:
+        raise ValueError(f"scale stride {scale.stride()} is not unit")
+    ldx, ldw = _row_major_ld(x), _row_major_ld(wq)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        lib.quant_matmul_error_string.restype = ctypes.c_char_p
+        lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
+        msg = lib.quant_matmul_error_string(err).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
+    return y
+
+
+def _quant_dispatch(x, wq, scale, rows_per_k, plain, entry, counter):
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
+    _check_quant(x2, wq, scale, rows_per_k)
+    if x2.device.type == "cpu":
+        y = plain(x2, wq, scale)
+    elif x2.device.type == "cuda":
+        y = _launch_quant(entry, x2, wq, scale)
+        counter.launches += 1
+    else:
+        raise ValueError(f"unsupported device {x2.device}")
+    return y.reshape(*lead, wq.shape[1])
+
+
+def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """``[..., K] @ (wq * scale)`` on the aligned path: wq int8 ``[K, N]``
+    (row-major, may be a column slice), scale f32 ``[N]``; output in
+    ``x.dtype``. Shapes must be aligned."""
+    return _quant_dispatch(x, wq, scale, 1, quant_matmul_ref,
+                           "quant_matmul_int8", mxu_quant_matmul)
+
+
+def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """The W4A16 version of :func:`mxu_quant_matmul`: ``wq4`` int8
+    ``[K/2, N]`` holds two int4 codes per byte along K."""
+    return _quant_dispatch(x, wq4, scale, 2, q4_matmul_ref,
+                           "quant_matmul_q4", mxu_q4_matmul)
+
+
+mxu_quant_matmul.launches = 0
+mxu_q4_matmul.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the aligned-path GEMM (the kernel's oracle)."""
+"""Plain PyTorch versions of the aligned-path GEMMs (the kernels' oracles)."""
 from __future__ import annotations
 
 import torch
@@ -8,3 +8,31 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None) -> torch.Ten
     """fp32 product, then a cast to ``out_dtype`` (default ``x.dtype``)."""
     out_dtype = out_dtype or x.dtype
     return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
+def quant_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                     *, out_dtype=None) -> torch.Tensor:
+    """Weight-only int8 product: wq int8 ``[K, N]``, scale f32 ``[N]``;
+    ``x @ (code * scale)`` in fp32, cast to ``out_dtype``."""
+    out_dtype = out_dtype or x.dtype
+    w = wq.float() * scale.float()[None, :]
+    return torch.matmul(x.float(), w).to(out_dtype)
+
+
+def unpack_int4(wq4: torch.Tensor) -> torch.Tensor:
+    """Packed int4 codes ``[K/2, N]`` -> int8 codes ``[K, N]``: packed row
+    ``r`` holds K rows ``2r`` (low nibble) and ``2r + 1`` (high nibble),
+    each sign-extended."""
+    w = wq4.to(torch.int32)
+    lo = ((w & 0xF) ^ 8) - 8            # the low nibble, sign-extended
+    hi = w >> 4                         # arithmetic shift of the byte
+    K2, N = wq4.shape[-2], wq4.shape[-1]
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *wq4.shape[:-2], 2 * K2, N).to(torch.int8)
+
+
+def q4_matmul_ref(x: torch.Tensor, wq4: torch.Tensor, scale: torch.Tensor,
+                  *, out_dtype=None) -> torch.Tensor:
+    """W4A16 product: unpack ``wq4`` (int8 ``[K/2, N]``), dequantize against
+    ``scale`` (f32 ``[N]``), fp32 product, cast to ``out_dtype``."""
+    return quant_matmul_ref(x, unpack_int4(wq4), scale, out_dtype=out_dtype)

@@ -12,6 +12,8 @@ seeded) and prints tok/s and the dispatch counts. Runs on the card unless
   --sync host       per-token host-synced decode (the baseline arm)
   --engine-mode M   solver-planned prefill: prefill matmuls run the
                     PartitionSolver plan through HeteroCtx (§4.1/4.2)
+  --weight-quant F  serve int8 or packed-int4 (w4a16) weights
+  --kv-quant int8   int8 KV pool with per-slot scales
   --stats           print the scheduler's stats() counter dict
 
 Only the paged batcher is ported: ``--batched --paged`` are required. The
@@ -48,6 +50,13 @@ def main(argv=None):
                     choices=["xla", "mxu", "hetero-layer", "hetero-tensor"],
                     help="route prefill matmuls through the HeteroCtx in "
                          "this mode")
+    ap.add_argument("--weight-quant", default=None,
+                    choices=["int8", "w4a16"],
+                    help="serve quantized weights: int8 or packed-int4 "
+                         "(W4A16) codes with per-output-channel scales")
+    ap.add_argument("--kv-quant", default=None, choices=["int8"],
+                    help="quantize the paged KV pool to int8 codes with "
+                         "per-token-slot scales")
     ap.add_argument("--eos-id", type=int, default=None, help="stop token id")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=300)
@@ -75,7 +84,8 @@ def main(argv=None):
                       max_blocks_per_seq=blocks_per_req,
                       decode_width=args.decode_width, sync=args.sync,
                       window=args.window, engine_mode=args.engine_mode,
-                      eos_id=args.eos_id, device=args.device)
+                      eos_id=args.eos_id, weight_quant=args.weight_quant,
+                      kv_quant=args.kv_quant, device=args.device)
     prompts = [rng.integers(0, cfg.vocab_size,
                             rng.integers(8, args.prompt_len)).astype(np.int32)
                for _ in range(args.requests)]
@@ -91,6 +101,8 @@ def main(argv=None):
              f"W={args.decode_width}, sync={args.sync}"
              + (f", window={args.window}" if args.sync == "device" else "")
              + (f", engine={args.engine_mode}" if args.engine_mode else "")
+             + (f", weights={args.weight_quant}" if args.weight_quant else "")
+             + (f", kv={args.kv_quant}" if args.kv_quant else "")
              + f", device={cb.device})")
     print(f"{label}: {args.requests} reqs, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s, peak concurrency {cb.peak_active})")

@@ -161,6 +161,30 @@ def _qkv_rope(p: dict, x, cfg, positions, hetero_ctx, freqs):
     return q, k, v, mm
 
 
+def quantize_kv_slot(x: torch.Tensor, scale_dtype=torch.bfloat16
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-slot symmetric int8 KV quantization: x ``[T, Hkv, D]`` ->
+    (codes int8 ``[T, Hkv, D]``, scale ``[T]`` in ``scale_dtype``).
+
+    The scale is rounded to its storage type BEFORE the codes are computed,
+    so codes quantize against the value the gather multiplies by and any
+    chunking of the same token stream writes the same bytes. An all-zero
+    slot stores scale 0 and dequantizes to exactly 0."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    s_stored = torch.where(amax > 0, amax / 127.0, 0.0).to(scale_dtype)
+    denom = torch.where(s_stored == 0, 1.0, s_stored.float())
+    codes = torch.clamp(torch.round(xf / denom[..., None, None]), -127, 127)
+    return codes.to(torch.int8), s_stored
+
+
+def dequant_kv_ref(codes: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """Expansion of int8 KV (codes ``[..., T, Hkv, D]`` x scale ``[..., T]``),
+    the gather's arithmetic."""
+    return (codes.float() * scale.float()[..., None, None]).to(dtype)
+
+
 def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
                     freqs, hetero_ctx=None):
     """GQA attention over one layer of the paged KV pool.
@@ -171,8 +195,10 @@ def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
     reference's functional ``.at[idx].set``); reads gather the request's
     pages into a ``[B, NBmax*BS]`` view whose slot index is the logical
     position, so the positional causal mask hides stale contents and the
-    null block. pool: {"k","v": [NB, BS, Hkv, D]}; block_table: [B, NBmax]
-    (0 = null block); freqs: the RoPE table. Returns (out, pool).
+    null block. pool: {"k","v": [NB, BS, Hkv, D]}, plus {"k_scale",
+    "v_scale": [NB, BS]} for an int8 pool, which quantizes on the write and
+    dequantizes in the gather; block_table: [B, NBmax] (0 = null block);
+    freqs: the RoPE table. Returns (out, pool).
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -184,14 +210,26 @@ def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
     table = block_table.long()
     blk = torch.gather(table, 1, pos // BS)                   # [B, S]
     flat_idx = (blk * BS + pos % BS).reshape(-1)              # [B*S]
-    fk = pool["k"].view(NB * BS, Hkv, D)
-    fv = pool["v"].view(NB * BS, Hkv, D)
-    fk[flat_idx] = k.reshape(B * S, Hkv, D).to(fk.dtype)
-    fv[flat_idx] = v.reshape(B * S, Hkv, D).to(fv.dtype)
+    # an int8 pool is recognised before any write: casting floats into its
+    # codes would silently truncate them
+    quant = "k_scale" in pool
+    for name, new in (("k", k), ("v", v)):
+        flat = pool[name].view(NB * BS, Hkv, D)
+        new = new.reshape(B * S, Hkv, D)
+        if quant:
+            sc = pool[f"{name}_scale"]
+            new, new_sc = quantize_kv_slot(new, sc.dtype)
+            sc.view(NB * BS)[flat_idx] = new_sc
+        flat[flat_idx] = new.to(flat.dtype)
 
     NBmax = table.shape[1]
     ck = pool["k"][table].reshape(B, NBmax * BS, Hkv, D)
     cv = pool["v"][table].reshape(B, NBmax * BS, Hkv, D)
+    if quant:
+        ck = dequant_kv_ref(ck, pool["k_scale"][table].reshape(
+            B, NBmax * BS), q.dtype)
+        cv = dequant_kv_ref(cv, pool["v_scale"][table].reshape(
+            B, NBmax * BS), q.dtype)
     kv_pos = torch.arange(NBmax * BS, dtype=torch.long, device=x.device)
     o = blockwise_attention(q, ck, cv, q_pos=pos, kv_pos=kv_pos, causal=True,
                             block_k=cfg.attn_block_k)

@@ -2,7 +2,8 @@
 
 ``build_model(cfg)`` returns a ``Model`` whose members are plain functions:
     init(generator=None, device="cuda") -> params
-    init_paged_cache(num_blocks=, block_size=, dtype=, device=) -> pool
+    init_paged_cache(num_blocks=, block_size=, dtype=, kv_quant=, device=)
+        -> pool
     paged_prefill(params, tokens, pool, block_table=, start_index=)
         -> (last_logits, pool)
     paged_decode_step(params, token, pool, block_tables=, lengths=)

@@ -47,7 +47,8 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
 
 
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tensors."""
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tensors
+    (a stacked QuantWeight indexes to its layer's codes and scales)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
 
@@ -80,13 +81,30 @@ def _head_logits(params, x, cfg, hetero_ctx=None):
 
 
 def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device="cpu") -> dict:
+                     dtype=torch.bfloat16, kv_quant: str | None = None,
+                     device="cuda") -> dict:
     """Shared KV page pool ``[L, num_blocks, block_size, Hkv, D]`` per
-    tensor. Block 0 is the null block (see serving/paged_cache.py)."""
+    tensor on ``device`` (the card unless ``"cpu"`` is asked for). Block 0
+    is the null block (see serving/paged_cache.py).
+
+    ``kv_quant='int8'`` stores int8 codes plus one bf16 scale per (layer,
+    slot, tensor): ``k_scale``/``v_scale`` ``[L, num_blocks, block_size]``,
+    written on scatter and read in the gather (layers.paged_attention).
+    Zero scales mark unwritten slots."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_quant is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_quant != "int8":
+        raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                   device=device)}
 
 
 def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
@@ -95,7 +113,7 @@ def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
     freqs = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)).to(
         x.device)
     for i in range(cfg.n_layers):
-        layer_pool = {"k": pool["k"][i], "v": pool["v"][i]}
+        layer_pool = {name: t[i] for name, t in pool.items()}
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    positions=positions, pool=layer_pool,
                    block_table=block_table, hetero_ctx=hetero_ctx,

@@ -1,7 +1,8 @@
 """Paged (block-table) KV cache: vLLM-style paging for the serving stack.
 
   * pool tensors ``k``/``v``: ``[L, num_blocks, block_size, Hkv, D]`` on the
-    device, updated in place by the paged model steps;
+    device, updated in place by the paged model steps (an int8 pool,
+    ``kv_quant='int8'``, adds bf16 ``k_scale``/``v_scale`` ``[L, NB, BS]``);
   * a host-side free-list :class:`BlockAllocator` hands blocks to requests;
   * each request owns a **block table** (``[max_blocks_per_seq]`` int32 of
     pool block ids) mapping logical token position ``t`` to physical slot
@@ -96,13 +97,15 @@ class SequenceBlocks:
 
 
 class PagedKVCache:
-    """Shared KV pool (``self.pool``, on ``device``) + allocator + per-request
-    block tables."""
+    """Shared KV pool (``self.pool``, on ``device``: the card unless
+    ``"cpu"`` is asked for) + allocator + per-request block tables."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int = 32,
                  max_blocks_per_seq: int | None = None,
-                 dtype=torch.bfloat16, device="cpu"):
+                 dtype=torch.bfloat16, kv_quant: str | None = None,
+                 device="cuda"):
         self.cfg = cfg
+        self.kv_quant = kv_quant
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_blocks_per_seq = (max_blocks_per_seq
@@ -110,7 +113,7 @@ class PagedKVCache:
                                    else num_blocks - 1)
         self.pool = transformer.init_paged_cache(
             cfg, num_blocks=num_blocks, block_size=block_size, dtype=dtype,
-            device=device)
+            kv_quant=kv_quant, device=device)
         self.allocator = BlockAllocator(num_blocks)
         self._reserved_unheld = 0      # promised at admission, not yet alloc'd
 
@@ -187,5 +190,6 @@ class PagedKVCache:
 
     # ------------------------------------------------------------- stats --
     def pool_bytes(self) -> int:
-        """Device bytes held by the pool tensors."""
+        """Device bytes held by the pool tensors, an int8 pool's scale
+        planes included."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())

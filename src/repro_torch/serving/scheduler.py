@@ -13,9 +13,12 @@ queue backfills. The HeteroInfer engine rides the serving path:
     matmuls run through a ``HeteroCtx`` holding the solver's plan. Decode
     stays on the flexible path, as in the reference.
 
+``weight_quant`` ('int8' | 'w4a16') serves quantized weights and
+``kv_quant='int8'`` an int8 KV pool (see :class:`PagedBatcher`).
+
 Greedy outputs are the same across engine modes and sync arms (the
 reference's invariant). Mixed batching, speculative decoding, the prefix
-cache, quantization, tensor parallelism and tracing are not ported yet.
+cache, tensor parallelism and tracing are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..configs import dtype_of
 from ..core.sync import paged_decode_window
 from ..device import resolve_device
 from ..models import build_model
+from ..models.quant import WEIGHT_FORMATS, quantize_params
 from .paged_cache import PagedKVCache, SequenceBlocks
 from .sampler import SamplerConfig, sample
 
@@ -76,6 +80,13 @@ class PagedBatcher:
     masked on the device; lengths and blocks are reconciled on the host
     after the window. Runs on ``device`` (the card unless ``"cpu"`` is
     asked for).
+
+    ``weight_quant`` in {'int8', 'w4a16'} quantizes the params at
+    construction: under an engine mode the prefill's aligned path launches
+    the dequantizing GEMMs, decode and the flexible path dequantize before
+    the product, so engine modes and sync arms stay token-identical.
+    ``kv_quant='int8'`` stores the pool as int8 codes with per-slot bf16
+    scales (quantize on write, dequantize in the gather).
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
@@ -84,22 +95,34 @@ class PagedBatcher:
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
                  sync: str = "host", window: int = 8,
                  engine_mode: str | None = None, eos_id: int | None = None,
-                 device="cuda"):
+                 weight_quant: str | None = None,
+                 kv_quant: str | None = None, device="cuda"):
         if sync not in ("host", "device"):
             raise ValueError(f"sync must be 'host' or 'device', got {sync!r}")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
+        if weight_quant is not None and weight_quant not in WEIGHT_FORMATS:
+            raise ValueError(f"weight_quant must be one of {WEIGHT_FORMATS} "
+                             f"(or None), got {weight_quant!r}")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be 'int8' or None, "
+                             f"got {kv_quant!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params if params is not None else self.model.init(
             self.generator, device=self.device)
+        self.weight_quant = weight_quant
+        self.kv_quant = kv_quant
+        if weight_quant is not None:
+            self.params = quantize_params(self.params, cfg, weight_quant)
         self.block_size = block_size
         self.kv = PagedKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
             max_blocks_per_seq=max_blocks_per_seq,
-            dtype=dtype_of(cfg.compute_dtype), device=self.device)
+            dtype=dtype_of(cfg.compute_dtype), kv_quant=kv_quant,
+            device=self.device)
         self.W = decode_width
         self.sampler = sampler
         self.lanes: list[Optional[_PagedLane]] = [None] * decode_width
@@ -113,7 +136,8 @@ class PagedBatcher:
             from ..core.engine import build_hetero_ctx
             self.ctx = build_hetero_ctx(
                 cfg, engine_mode,
-                sync_mode="fast" if sync == "device" else "host")
+                sync_mode="fast" if sync == "device" else "host",
+                weight_quant=weight_quant)
         else:
             self.ctx = None
         # host dispatches issued vs tokens produced: the fused-window win is

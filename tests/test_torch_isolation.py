@@ -61,18 +61,32 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_paged_cache
+    from repro_torch.serving.paged_cache import PagedKVCache
     from repro_torch.serving.scheduler import PagedBatcher
     cfg = get_smoke_config("llama3-8b")
+    quant = dict(weight_quant="w4a16", kv_quant="int8")
+    pool = dict(num_blocks=4, block_size=32)
     if torch.cuda.is_available():       # on a card the default is the card
         assert PagedBatcher(cfg).device.type == "cuda"
+        assert PagedBatcher(cfg, **quant).kv.pool["k"].is_cuda
+        assert init_paged_cache(cfg, **pool)["k"].is_cuda
+        assert PagedKVCache(cfg, **pool).pool["v"].is_cuda
         return
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        PagedBatcher(cfg)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        build_model(cfg).init()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--smoke", "--batched", "--paged", "--requests", "1"])
-    PagedBatcher(cfg, device="cpu")          # asked for: runs
+    for make in (lambda **kw: PagedBatcher(cfg, **kw),
+                 lambda **kw: PagedBatcher(cfg, **quant, **kw),
+                 lambda **kw: build_model(cfg).init(**kw),
+                 lambda **kw: init_paged_cache(cfg, **pool, **kw),
+                 lambda **kw: init_paged_cache(cfg, **pool, kv_quant="int8",
+                                               **kw),
+                 lambda **kw: PagedKVCache(cfg, **pool, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        make(device="cpu")                   # asked for: runs
+    for argv in ([], ["--weight-quant", "int8", "--kv-quant", "int8"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--smoke", "--batched", "--paged", "--requests", "1",
+                        *argv])
 
 
 def test_chip_smoke_refuses_alone_or_without_cuda(tmp_path):

@@ -53,7 +53,7 @@ def _prefill_ref(pair, tokens, ref_ctx=None):
 def _prefill_port(pair, tokens, ctx=None):
     model, params = pair[4:]
     tpool = model.init_paged_cache(num_blocks=NUM_BLOCKS, block_size=BLOCK,
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     tl, tpool = model.paged_prefill(params, torch.as_tensor(tokens).long(),
                                     tpool, block_table=torch.as_tensor(TABLE),
                                     hetero_ctx=ctx)

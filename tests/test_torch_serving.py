@@ -144,7 +144,8 @@ def test_allocator_null_block_and_double_free():
 
 def test_paged_cache_reserves_and_drains(port_params):
     cfg, _ = port_params
-    kv = PagedKVCache(cfg, num_blocks=9, block_size=32, dtype=torch.float32)
+    kv = PagedKVCache(cfg, num_blocks=9, block_size=32, dtype=torch.float32,
+                      device="cpu")
     seq = kv.open_sequence(prompt_tokens=40, total_tokens=100)
     assert len(seq.blocks) == 2 and seq.reserved == 4
     assert kv.n_free_unreserved == 8 - 4
