@@ -14,18 +14,33 @@ on failure:
      and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
      stationary orders with strided operands, the int8 and W4A16 GEMMs on
      codes from the port's quantizers, direct and as a column slice of a
-     wider code tensor, through HeteroCtx's padding; kernel, plain and
-     library timings with CUDA events;
+     wider code tensor, through HeteroCtx's padding; the flash- and
+     decode-attention kernels over the conformance grid (1/2/4 query heads
+     per kv head, causal and not, Sq == Sk and Sq < Sk, block-multiple and
+     ragged caches, lengths 1 / ragged / all, D = 16, odd and 128) and the
+     engine's shapes at llama3-8b; kernel, plain and library timings with
+     CUDA events;
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
      port on the CPU, gives the same greedy tokens, with fp weights and with
      int8 / W4A16 weights crossed with a bf16 / int8 KV pool; each kernel
-     launches exactly where the plan sends work to it;
+     launches exactly where the plan sends work to it; then the same model
+     through InferenceEngine, 4 prefill strategies x 4 engine modes x fast
+     and host sync, against the engine on the CPU, each attention kernel
+     launching as often as the chunks predict;
   4. the slices at full width: llama3-8b (32 layers, bf16, seeded random
      weights) served through PagedBatcher(engine_mode="hetero-tensor",
      sync="device", window=8) against the engine_mode=None arm on the same
      weights and prompts, three times: fp weights, int8 weights with an int8
-     KV pool, W4A16 weights with the bf16 pool.
+     KV pool, W4A16 weights with the bf16 pool; then the single-request
+     engine on the same weights (prompt 300, 16 new tokens, hetero
+     strategy) in three arms: hetero-tensor with fast sync (its decode loop
+     run with CUDA's sync debug mode set to error), xla with fast sync, and
+     hetero-tensor with host sync; then the first arm through the attention
+     kernels against the same arm through their plain versions, on the
+     first-token and first decode step logits (``attention_gate``;
+     ``scripts/attention_gate_mutants.py`` shows that wrong attentions
+     fail it).
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -313,6 +328,157 @@ def phase_quant_kernels() -> dict:
     return {"timings": timings, "worst": worst}
 
 
+def _attention_timing(kind: str, q, k, v, length=None) -> dict:
+    """Kernel, plain and library (SDPA) times of one attention call at a
+    path shape, with its bound. ``kind`` is "flash" (causal, bottom-right)
+    or "decode" (the first ``length`` rows of the cache)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Hkv = k.shape[2]
+    if kind == "flash":
+        Sq, Sk = q.shape[1], k.shape[1]
+        run = lambda: flash_attention(q, k, v)                   # noqa: E731
+        plain = lambda: attention_ref(q, k, v)                   # noqa: E731
+        pairs = sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq))
+        n_keys, shape = Sk, [B, Sq, Sk, Hq, Hkv, D]
+    else:
+        Smax = k.shape[1]
+        n = torch.full((1,), length, dtype=torch.int32, device=q.device)
+        run = lambda: decode_attention(q, k, v, n)               # noqa: E731
+        plain = lambda: decode_attention_ref(q, k, v, n)         # noqa: E731
+        pairs = length
+        qt = q[:, :, None, :].contiguous()
+        kt, vt = (t[:, :length].transpose(1, 2).contiguous() for t in (k, v))
+        mask = None
+        n_keys, shape = length, [B, Smax, length, Hq, Hkv, D]
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    row = {"kind": kind, "shape": shape, "dtype": str(q.dtype).split(".")[-1],
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "rel_err": rel_err(out, ref),
+           "ms": cuda_time_ms(run), "plain_ms": cuda_time_ms(plain)}
+    try:
+        lib = lambda: F.scaled_dot_product_attention(            # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib()
+        row["library_note"] = ("scaled_dot_product_attention(enable_gqa="
+                               "True" + (", explicit bottom-right mask)"
+                                         if mask is not None else ")"))
+    except TypeError:       # a PyTorch without enable_gqa: kv heads repeated
+        kt, vt = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kt, vt))
+        lib = lambda: F.scaled_dot_product_attention(            # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+        row["library_note"] = "scaled_dot_product_attention, kv repeated"
+    row["library_ms"] = cuda_time_ms(lib)
+    el = q.element_size()
+    nbytes = (2 * q.numel() + 2 * B * n_keys * Hkv * D) * el
+    flops = 4 * B * Hq * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[row["dtype"]] * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
+def phase_attention_kernels() -> dict:
+    """The flash- and decode-attention kernels against their plain versions
+    on the card: the conformance grid (M the sequence, K the head dim, plus
+    the smoke model's D = 16) x 1/2/4 query heads per kv head x dtype; flash
+    causal and not, at Sq == Sk and over a longer prefix (Sq < Sk); decode
+    over a block-multiple and a ragged cache, valid up to 1 row, a ragged
+    count and every row; then the engine's own shapes at llama3-8b, timed
+    against the plain version and SDPA."""
+    import torch
+    from repro_torch.configs import dtype_of
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst, n_checks = {}, 0
+
+    def check(name, kernel, out, ref, dname, before):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{name}: the kernel was not launched")
+        e = rel_err(out, ref)
+        n_checks += 1
+        key = (kernel.__name__, dname)
+        worst[key] = max(worst.get(key, 0.0), e)
+        if not e <= DTYPE_TOL[dname]:
+            raise AssertionError(f"{name} {dname}: rel_err {e:.3g} > "
+                                 f"{DTYPE_TOL[dname]}")
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    cases = CONFORMANCE_CASES + (("smoke_d16", 77, 16, 0),)
+    for name, M, K, _ in cases:
+        D, Hkv = min(K, 128), 2
+        for G in (1, 2, 4):
+            for dname in DTYPE_TOL:
+                dt = dtype_of(dname)
+                for Sk in (M, M + 37):
+                    q = randn(2, M, Hkv * G, D, dt=dt)
+                    k, v = randn(2, Sk, Hkv, D, dt=dt), randn(2, Sk, Hkv, D,
+                                                             dt=dt)
+                    for causal in (True, False):
+                        before = flash_attention.launches
+                        out = flash_attention(q, k, v, causal=causal)
+                        check(f"flash {name} G={G} Sk={Sk} causal={causal}",
+                              flash_attention, out,
+                              attention_ref(q, k, v, causal=causal), dname,
+                              before)
+                for Smax in (256, M + 11):
+                    q = randn(2, Hkv * G, D, dt=dt)
+                    k, v = randn(2, Smax, Hkv, D, dt=dt), randn(
+                        2, Smax, Hkv, D, dt=dt)
+                    for length in (1, Smax // 2 + 3, Smax):
+                        n = torch.full((1,), length, dtype=torch.int32,
+                                       device="cuda")
+                        before = decode_attention.launches
+                        out = decode_attention(q, k, v, n)
+                        check(f"decode {name} G={G} Smax={Smax} len={length}",
+                              decode_attention, out,
+                              decode_attention_ref(q, k, v, n), dname, before)
+    for (kname, dname), e in sorted(worst.items()):
+        log(f"[attention] {kname:16s} {dname:8s}: worst rel_err {e:.3g} <= "
+            f"{DTYPE_TOL[dname]}")
+    log(f"[attention] {n_checks} checks passed")
+
+    # the engine's shapes at llama3-8b (B = 1, prompt 300, 16 new tokens,
+    # hetero strategy: chunk 256 over 256 keys, chunk 44 over 300; decode
+    # over the 324-row cache at lengths 301..315), bf16
+    cfg_heads, D, bf16 = (32, 8), 128, torch.bfloat16
+    Hq, Hkv = cfg_heads
+    timings = []
+    for Sq, Sk in ((256, 256), (44, 300)):
+        q = randn(1, Sq, Hq, D, dt=bf16)
+        k, v = randn(1, Sk, Hkv, D, dt=bf16), randn(1, Sk, Hkv, D, dt=bf16)
+        timings.append(_attention_timing("flash", q, k, v))
+    q = randn(1, Hq, D, dt=bf16)
+    k, v = randn(1, 324, Hkv, D, dt=bf16), randn(1, 324, Hkv, D, dt=bf16)
+    for length in (301, 315):
+        timings.append(_attention_timing("decode", q, k, v, length))
+    for row in timings:
+        if not row["rel_err"] <= DTYPE_TOL["bfloat16"]:
+            raise AssertionError(f"[attention] path shape {row['shape']}: "
+                                 f"rel_err {row['rel_err']:.3g}")
+        log(f"[attention] time {json.dumps(row)}")
+    return {"timings": timings, "worst": worst}
+
+
 # ------------------------------------------------------------------ phase 3 --
 
 def _smoke_prompts(vocab: int):
@@ -337,10 +503,14 @@ def _serve(cfg, params, prompts, *, device, engine_mode, sync, window,
 
 
 def _counters():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.hetero_matmul import ops
     return {"hetero_matmul": ops.mxu_matmul,
             "quant_matmul_int8": ops.mxu_quant_matmul,
-            "quant_matmul_q4": ops.mxu_q4_matmul}
+            "quant_matmul_q4": ops.mxu_q4_matmul,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
 
 
 KERNEL_OF_FORMAT = {None: "hetero_matmul", "int8": "quant_matmul_int8",
@@ -417,6 +587,100 @@ def phase_tokens() -> None:
             f"token-identical; request 0: {first[0]}")
 
 
+ENGINE_MODES = ("xla", "mxu", "hetero-layer", "hetero-tensor")
+
+
+def attention_launches(chunks, n_layers: int, new_tokens: int) -> dict:
+    """Launches of each attention kernel in one ``generate``: every layer
+    of a chunk of more than one token runs the flash kernel, every layer of
+    a 1-token chunk or a decode step the decode kernel."""
+    multi = sum(1 for c, _ in chunks if c > 1)
+    single = len(chunks) - multi + new_tokens - 1
+    return {"flash_attention": multi * n_layers,
+            "decode_attention": single * n_layers}
+
+
+def gemm_launches(ctx, cfg, chunks) -> int:
+    """Launches of the aligned-path GEMM in one ``generate``'s prefill:
+    HeteroCtx sends a site to the kernel once unless its decision for the
+    chunk's M (the head's M is 1: the last token) is xla_only."""
+    if ctx is None or ctx.mode == "xla":
+        return 0
+    sites = [(s, cfg.n_layers) for s in ("wq", "wk", "wv", "wo", "w_gate",
+                                         "w_up", "w_down")] + [("head", 1)]
+    n = 0
+    for c, _ in chunks:
+        for site, count in sites:
+            M = 1 if site == "head" else c
+            if ctx.mode == "mxu":
+                hit = True
+            elif ctx.mode == "hetero-layer":
+                hit = M >= 128
+            else:
+                dec = ctx.plan.lookup(site, M)
+                hit = M >= 128 if dec is None else dec.strategy != "xla_only"
+            n += count * hit
+    return n
+
+
+def phase_engine_tokens(prompt_len: int = 77, new_tokens: int = 12,
+                        buckets=(32, 64)) -> None:
+    """fp32 smoke model through InferenceEngine: for each prefill strategy,
+    every engine mode x fast/host sync on the card gives the tokens the
+    engine gives on the CPU, and each attention kernel launches exactly as
+    often as the strategy's chunks predict."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import (PREFILL_STRATEGIES, InferenceEngine,
+                                         build_plan)
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
+                                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")
+    cpu_params = _to_device(params, "cpu")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               (1, prompt_len))
+    plans = {fast: build_plan(cfg, sync_mode="fast" if fast else "host")
+             for fast in (True, False)}
+    n_arms, outs = 0, {}
+    for strategy in PREFILL_STRATEGIES:
+        def engine(mode, fast, p, device):
+            table, plan = plans[fast]
+            return InferenceEngine(cfg, p, mode=mode, prefill_strategy=strategy,
+                                   fast_sync=fast, table=table, plan=plan,
+                                   buckets=buckets, device=device)
+        want = engine("hetero-tensor", True, cpu_params, "cpu").generate(
+            prompt, new_tokens).tolist()
+        for mode in ENGINE_MODES:
+            for fast in (True, False):
+                eng = engine(mode, fast, params, "cuda")
+                _zero_counts()
+                got = eng.generate(prompt, new_tokens).tolist()
+                counts = _read_counts()
+                chunks = eng._bucket_chunks(prompt_len)
+                expect = attention_launches(chunks, cfg.n_layers, new_tokens)
+                expect["hetero_matmul"] = gemm_launches(eng.ctx, cfg, chunks)
+                arm = f"{strategy}/{mode}/{'fast' if fast else 'host'}"
+                if got != want:
+                    raise AssertionError(f"[engine] {arm}: {got} vs the "
+                                         f"CPU's {want}")
+                for name, n in expect.items():
+                    if counts[name] != n:
+                        raise AssertionError(f"[engine] {arm}: {counts[name]}"
+                                             f" launches of {name}, expected "
+                                             f"{n}")
+                n_arms += 1
+                log(f"[engine] {arm}: chunks {chunks}, launches {counts}")
+        outs[strategy] = want
+        log(f"[engine] {strategy}: 8 card arms equal the CPU's tokens {want[0]}")
+    if len({str(o) for o in outs.values()}) != 1:
+        raise AssertionError(f"[engine] strategies differ: {outs}")
+    log(f"[engine] {n_arms} card arms token-identical to the CPU engine")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -430,14 +694,8 @@ FULL_PAIRS = (("fp", None, None), ("int8+kv8", "int8", "int8"),
               ("w4a16", "w4a16", None))
 
 
-def phase_full(prompt_len: int = 300, new_tokens: int = 16,
-               n_requests: int = 4) -> dict:
-    """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
-    arm and the engine-less arm on the same seeded weights (quantized the
-    same way at construction) and prompts. Returns {label: hetero arm}."""
-    import gc
-
-    import numpy as np
+def full_model():
+    """llama3-8b at full width, bf16, seeded random weights on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import fence
@@ -453,6 +711,20 @@ def phase_full(prompt_len: int = 300, new_tokens: int = 16,
     log(f"[full] {cfg.name}: {cfg.n_layers} layers, {cfg.n_params / 1e9:.2f} B "
         f"params, {n_bytes / 1e9:.2f} GB {cfg.param_dtype}, init "
         f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
+               n_requests: int = 4) -> dict:
+    """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
+    arm and the engine-less arm on the same seeded weights (quantized the
+    same way at construction) and prompts. Returns {label: hetero arm}."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.sync import fence
+
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size,
                             rng.integers(8, prompt_len)).astype(np.int32)
@@ -557,10 +829,7 @@ def phase_full(prompt_len: int = 300, new_tokens: int = 16,
 def _profile(cfg, params, prompts, new_tokens: int, label: str,
              weight_quant, kv_quant) -> None:
     """One more hetero-tensor run of a pair under torch.profiler (after the
-    timed arms, so its overhead touches no reported time): device time by
-    kernel and the device's busy share of the run's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    timed arms, so its overhead touches no reported time)."""
     from repro_torch.core.sync import fence
 
     cb, reqs = _serve(cfg, params, prompts, device="cuda",
@@ -568,11 +837,21 @@ def _profile(cfg, params, prompts, new_tokens: int, label: str,
                       decode_width=8, new_tokens=new_tokens,
                       weight_quant=weight_quant, kv_quant=kv_quant)
     fence(params["embed"])
+    _profiled(label, lambda: cb.run(reqs), params["embed"])
+
+
+def _profiled(label: str, run, anchor) -> None:
+    """``run()`` under torch.profiler: device time by kernel and the
+    device's busy share of the run's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.sync import fence
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cb.run(reqs)
-        fence(params["embed"])
+        run()
+        fence(anchor)
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():       # device-side events: kernels, copies
@@ -587,10 +866,214 @@ def _profile(cfg, params, prompts, new_tokens: int, label: str,
     if not rows:
         log(f"[profile] {label}: torch.profiler saw no device time")
         return
-    log(f"[profile] {label} hetero-tensor run: wall {wall:.3f}s (profiled), "
+    log(f"[profile] {label} run: wall {wall:.3f}s (profiled), "
         f"device busy {busy:.3f}s ({busy / wall:.3f} of wall)")
     for us, n, key in rows[:12]:
         log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]}")
+
+
+ENGINE_ARMS = (("hetero-tensor", True), ("xla", True), ("hetero-tensor", False))
+
+
+def _strict_decode(engine_module):
+    """Wrap the engine's ``generate_on_device`` so that it runs with CUDA's
+    sync debug mode set to error: any host sync inside the fast-sync
+    decode loop raises. Returns the function that undoes the wrap."""
+    import torch
+    inner = engine_module.generate_on_device
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine_module.generate_on_device = strict
+    return lambda: setattr(engine_module, "generate_on_device", inner)
+
+
+# Kernel-vs-plain gate on the full-width engine's logits (bf16): the same
+# arm with the attention kernels and with the plain versions must agree to
+# this cosine and relative error (PERF.md §2 gives the measured margins).
+ATTENTION_GATE_COS, ATTENTION_GATE_REL = 0.999, 0.05
+
+
+def _step_logits(eng, prompt) -> list:
+    """[first-token logits, first decode step's logits] of one
+    ``eng.generate(prompt, 2)``: the last prefill chunk's and the one
+    decode step's last-position logits, in fp32."""
+    import dataclasses
+
+    seen, prefill, model = [], eng._prefill, eng.model
+
+    def keep(fn):
+        def run(*a, **k):
+            logits, cache = fn(*a, **k)
+            seen.append(logits[0, -1].float())
+            return logits, cache
+        return run
+
+    eng._prefill = keep(prefill)
+    eng.model = dataclasses.replace(model, decode_step=keep(model.decode_step))
+    try:
+        eng.generate(prompt, 2)
+    finally:
+        eng._prefill, eng.model = prefill, model
+    return seen[-2:]
+
+
+def attention_gate(cfg, params, prompt, plain=None, *, check: bool = True
+                   ) -> dict:
+    """Arm 1 (hetero-tensor, fast sync, hetero strategy) on the card twice:
+    through the attention kernels, then with ``models.layers``' two
+    attention calls swapped for ``plain`` (the plain versions unless given),
+    on the same weights and prompt. This runs the kernels on the path's own
+    operands: strided per-layer cache views, D = 128 and the device length
+    ``index + 1``. Returns {"first" | "decode": {cos, rel_err, max_abs}}
+    and raises, when ``check``, if they disagree beyond the gate or a
+    kernel launched where it should not have."""
+    import torch
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+
+    eng = InferenceEngine(cfg, params, mode="hetero-tensor",
+                          prefill_strategy="hetero")
+    n_chunks = len(eng._bucket_chunks(prompt.shape[1]))
+    _zero_counts()
+    kernel = _step_logits(eng, prompt)
+    k_counts = _read_counts()
+    saved = layers.flash_attention, layers.decode_attention
+    layers.flash_attention, layers.decode_attention = \
+        plain or (attention_ref, decode_attention_ref)
+    _zero_counts()
+    try:
+        ref = _step_logits(eng, prompt)
+    finally:
+        layers.flash_attention, layers.decode_attention = saved
+    p_counts = _read_counts()
+    want = (n_chunks * cfg.n_layers, cfg.n_layers)
+    got = ((k_counts["flash_attention"], k_counts["decode_attention"]),
+           (p_counts["flash_attention"], p_counts["decode_attention"]))
+    if check and got != (want, (0, 0)):
+        raise AssertionError(f"[engine-full] attention gate launches "
+                             f"(kernels, plain) {got}, expected "
+                             f"{(want, (0, 0))}")
+    out = {}
+    for name, a, b in zip(("first", "decode"), kernel, ref):
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        out[name] = {"cos": cos, "rel_err": rel_err(a, b),
+                     "max_abs": float((a - b).abs().max())}
+        log(f"[engine-full] attention kernels vs plain, {name} logits: cos "
+            f"{cos:.6f}, rel_err {out[name]['rel_err']:.4g}, max |diff| "
+            f"{out[name]['max_abs']:.4g}")
+        if check and (not torch.isfinite(a).all() or cos < ATTENTION_GATE_COS
+                      or out[name]["rel_err"] > ATTENTION_GATE_REL):
+            raise AssertionError(f"[engine-full] attention kernels vs plain "
+                                 f"on the {name} logits: {out[name]}, gate "
+                                 f"cos >= {ATTENTION_GATE_COS}, rel_err <= "
+                                 f"{ATTENTION_GATE_REL}")
+    return out
+
+
+def phase_engine_full(cfg, params, prompt_len: int = 300,
+                      new_tokens: int = 16) -> dict:
+    """The single-request engine at full width on the phase-4 weights: one
+    seeded prompt, hetero strategy, three arms (ENGINE_ARMS). Each arm runs
+    once to meet its chunk lengths and once timed; the timed run of the
+    first arm decodes under the sync debug mode. Then ``attention_gate``
+    holds the first arm's attention kernels against their plain versions.
+    Returns {arm: result}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.engine import EngineStats, InferenceEngine
+    from repro_torch.core.sync import fence, measure_dispatch_overhead
+
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                               (1, prompt_len))
+    arms, base = {}, None
+    for mode, fast in ENGINE_ARMS:
+        label = f"{mode}/{'fast' if fast else 'host'}"
+        eng = InferenceEngine(cfg, params, mode=mode,
+                              prefill_strategy="hetero", fast_sync=fast)
+        prefill, first = eng._prefill, {}
+
+        def keep_logits(*a, **k):
+            logits, cache = prefill(*a, **k)
+            first["logits"] = logits[0, -1].float()
+            return logits, cache
+
+        eng._prefill = keep_logits
+        eng.generate(prompt, new_tokens)          # meets the chunk lengths
+        warm = eng.stats
+        eng.stats = EngineStats()
+        fence(params["embed"])
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        undo = _strict_decode(engine_mod) if label == "hetero-tensor/fast" \
+            else (lambda: None)
+        try:
+            out = eng.generate(prompt, new_tokens)
+        finally:
+            undo()
+        counts = _read_counts()
+        st = eng.stats
+        chunks = eng._bucket_chunks(prompt_len)
+        expect = attention_launches(chunks, cfg.n_layers, new_tokens)
+        expect["hetero_matmul"] = gemm_launches(eng.ctx, cfg, chunks)
+        for name, n in expect.items():
+            if counts[name] != n:
+                raise AssertionError(f"[engine-full] {label}: {counts[name]} "
+                                     f"launches of {name}, expected {n}")
+        logits = first["logits"]
+        if out.shape != (1, new_tokens) or not torch.isfinite(logits).all():
+            raise AssertionError(f"[engine-full] {label}: output "
+                                 f"{tuple(out.shape)} or non-finite logits")
+        arm = {"mode": mode, "fast_sync": fast, "chunks": chunks,
+               "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+               "tok_per_s": new_tokens / (st.prefill_s + st.decode_s),
+               **st.tokens_per_s(),
+               "first_call_compile_s": warm.compile_s,
+               "n_compiles": warm.n_compiles, "launches": counts,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "tokens": out[0].tolist(), "logits": logits}
+        arms[label] = arm
+        if mode == "xla":
+            base = arm
+        log(f"[engine-full] {label}: chunks {chunks}; prefill "
+            f"{st.prefill_s:.3f}s, decode {st.decode_s:.3f}s "
+            f"({arm['decode_tok_s']:.1f} decode tok/s, {arm['tok_per_s']:.2f}"
+            f" tok/s end to end); first calls {warm.compile_s:.2f}s over "
+            f"{warm.n_compiles} chunk lengths; launches {counts}; peak "
+            f"{arm['peak_mem_gb']:.2f} GB")
+    log("[engine-full] hetero-tensor/fast decode loop ran with sync debug "
+        "mode 'error': no host sync inside it")
+    for label, arm in arms.items():
+        cos = float(torch.nn.functional.cosine_similarity(
+            arm["logits"], base["logits"], dim=0))
+        same = sum(a == b for a, b in zip(arm["tokens"], base["tokens"]))
+        arm["cos_vs_xla"] = cos
+        log(f"[engine-full] {label}: first-token logits cos vs xla/fast "
+            f"{cos:.6f}, rel_err {rel_err(arm['logits'], base['logits']):.3g}"
+            f"; tokens equal to xla/fast {same}/{new_tokens}")
+        if cos < 0.99:
+            raise AssertionError(f"[engine-full] {label}: cosine {cos:.4f} "
+                                 "< 0.99")
+    arms["hetero-tensor/fast"]["attention_gate"] = attention_gate(
+        cfg, params, prompt)
+    fast, host = arms["hetero-tensor/fast"], arms["hetero-tensor/host"]
+    log(f"[engine-full] decode host/fast {host['decode_s'] / fast['decode_s']:.3f}"
+        f"; dispatch overhead {measure_dispatch_overhead():.1f} us "
+        "(median launch + sync)")
+    eng = InferenceEngine(cfg, params, mode="hetero-tensor",
+                          prefill_strategy="hetero")
+    eng.generate(prompt, new_tokens)
+    _profiled("engine hetero-tensor/fast",
+              lambda: eng.generate(prompt, new_tokens), params["embed"])
+    return arms
 
 
 def _leaves(tree):
@@ -656,8 +1139,12 @@ def main() -> int:
     card = phase_card_and_build()
     kern = phase_kernels()
     qkern = phase_quant_kernels()
+    attn = phase_attention_kernels()
     phase_tokens()
-    full = phase_full()
+    phase_engine_tokens()
+    cfg, params = full_model()
+    full = phase_full(cfg, params)
+    engine = phase_engine_full(cfg, params)
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -672,6 +1159,18 @@ def main() -> int:
     def wgate(rows):
         return next(r for r in rows if r["case"] == "path_wgate_m256")
 
+    def attention_entry(name, source, replaces, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": engine["hetero-tensor/fast"]["launches"][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "shape": row["shape"],
+                "dtype": row["dtype"]}
+
+    flash_row, decode_row = attn["timings"][0], attn["timings"][2]
+
     kernels = {"kernels": [
         entry("hetero_matmul", "src/repro_torch/csrc/hetero_matmul.cu",
               "src/repro/kernels/hetero_matmul/kernel.py:78",
@@ -684,9 +1183,22 @@ def main() -> int:
               "src/repro/kernels/hetero_matmul/kernel.py:146",
               wgate(qkern["timings"]["w4a16"]),
               full["w4a16"]["gemm_launches"]),
+        attention_entry("flash_attention",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:73",
+                        flash_row),
+        attention_entry("decode_attention",
+                        "src/repro_torch/csrc/decode_attention.cu",
+                        "src/repro/kernels/decode_attention/kernel.py:59",
+                        decode_row),
     ]}
+    if any(k["launches"] <= 0 for k in kernels["kernels"]):
+        raise AssertionError(f"a kernel never launched on its path: "
+                             f"{[(k['name'], k['launches']) for k in kernels['kernels']]}")
     log(f"[summary] card {card}; tok/s "
         + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in full.items())
+        + "; engine tok/s "
+        + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in engine.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

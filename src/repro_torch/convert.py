@@ -18,6 +18,7 @@ import torch
 
 from .configs import dtype_of
 from .core.partition import QuantWeight
+from .device import resolve_device
 
 _QUANT_FIELDS = ("wq", "scale", "fmt", "k")
 
@@ -39,10 +40,11 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
-def params_from_numpy(np_params: dict, cfg, device="cpu") -> dict:
-    """Reference params (numpy leaves) -> the port's params on ``device``."""
+def params_from_numpy(np_params: dict, cfg, device="cuda") -> dict:
+    """Reference params (numpy leaves) -> the port's params on ``device``
+    (the card unless ``"cpu"`` is asked for)."""
     L = np.asarray(np_params["layers"]["attn_norm"]).shape[0]
     if L != cfg.n_layers:
         raise ValueError(f"params hold {L} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
-    return _convert(np_params, torch.device(device))
+    return _convert(np_params, resolve_device(device))

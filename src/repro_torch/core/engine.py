@@ -1,21 +1,44 @@
-"""Offline phase of the HeteroInfer engine (paper §4.4, Fig 11 left half):
-profile the model's weight shapes, solve the per-(site, M) partitioning
-decisions, and wrap the plan in the HeteroCtx the models thread through
-every matmul.
+"""HeteroInfer inference engine (paper §4.4, Fig 11) on the card.
+
+Offline: profile the model's weight shapes, solve the per-(site, M)
+partitioning decisions, and wrap the plan in the HeteroCtx the models
+thread through every matmul. Online, per request: split the prompt by the
+prefill strategy for its actual length, prefill through the HeteroCtx, and
+decode with fast (on-device) or host synchronisation.
 
 Engine modes (the paper's evaluation arms):
   'xla'            — flexible path only
   'mxu'            — aligned path only, padded to 128
   'hetero-layer'   — per-op affinity by token count (§4.1)
   'hetero-tensor'  — solver-driven tensor partitioning (§4.2)
+
+Prefill strategies for dynamic lengths (paper §5.3.2 / Fig 14):
+  'online-prepare' — one chunk at the exact length
+  'padding'        — one chunk; the plan's PAD decisions pad inside matmuls
+  'pipe'           — standard-bucket chunks over the first S-1 tokens (the
+                     tail padded to the smallest bucket), then one exact
+                     1-token chunk
+  'hetero'         — standard-bucket chunks plus the ragged remainder
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
+import torch
+import torch.nn.functional as F
+
+from ..configs import dtype_of
+from ..device import resolve_device
+from ..models import build_model
+from ..serving.telemetry import MonotonicClock
 from .partition import HeteroCtx
-from .profiler import LatencyTable, profile_analytic
+from .profiler import STANDARD_BUCKETS, LatencyTable, profile_analytic
 from .solver import PartitionPlan, PartitionSolver
+from .sync import fence, generate_host_loop, generate_on_device
+
+PREFILL_STRATEGIES = ("online-prepare", "padding", "pipe", "hetero")
 
 
 def build_plan(cfg, *, sync_mode: str = "fast",
@@ -37,3 +60,139 @@ def build_hetero_ctx(cfg, mode: str, *, sync_mode: str = "fast",
     the LM head included."""
     _, plan = build_plan(cfg, sync_mode=sync_mode, weight_quant=weight_quant)
     return HeteroCtx(mode=mode, plan=plan)
+
+
+@dataclass
+class EngineStats:
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    compile_s: float = 0.0
+    n_compiles: int = 0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+
+    def tokens_per_s(self) -> dict:
+        return {
+            "prefill_tok_s": self.prefill_tokens / self.prefill_s
+            if self.prefill_s else 0.0,
+            "decode_tok_s": self.decode_tokens / self.decode_s
+            if self.decode_s else 0.0,
+        }
+
+
+class InferenceEngine:
+    """One request at a time over a dense KV cache sized to it.
+
+    Prefill runs through the HeteroCtx; decode runs without one, as in the
+    reference. Attention goes through the flash-attention kernel in
+    prefill and the decode-attention kernel in decode. Eager PyTorch traces
+    nothing, so ``stats.n_compiles`` counts what the reference's jit cache
+    counts, the distinct chunk lengths seen, and ``stats.compile_s`` is the
+    time of each such first call (which includes building and loading the
+    kernels on the first call of a process). Timing reads ``clock``
+    (``MonotonicClock`` unless one is injected)."""
+
+    def __init__(self, cfg, params=None, *, mode: str = "hetero-tensor",
+                 prefill_strategy: str = "hetero", fast_sync: bool = True,
+                 table: Optional[LatencyTable] = None,
+                 plan: Optional[PartitionPlan] = None,
+                 buckets: tuple = STANDARD_BUCKETS, clock=None,
+                 device="cuda"):
+        if prefill_strategy not in PREFILL_STRATEGIES:
+            raise ValueError(f"unknown prefill strategy {prefill_strategy!r}")
+        self.clock = clock if clock is not None else MonotonicClock()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg)
+        self.params = params if params is not None else self.model.init(
+            device=self.device)
+        self.mode = mode
+        self.prefill_strategy = prefill_strategy
+        self.fast_sync = fast_sync
+        self.buckets = tuple(sorted(buckets))
+        if plan is None:
+            self.table, self.plan = build_plan(
+                cfg, sync_mode="fast" if fast_sync else "host", table=table)
+        else:
+            self.table, self.plan = table or profile_analytic(cfg), plan
+        self.ctx = HeteroCtx(mode=mode, plan=self.plan)
+        self.stats = EngineStats()
+        self._prefill = partial(self.model.prefill, hetero_ctx=self.ctx)
+        self._seen_lengths: set[int] = set()
+
+    def _bucket_chunks(self, S: int) -> list[tuple[int, int]]:
+        """Split S into (chunk length, true tokens) pieces."""
+        if self.prefill_strategy in ("online-prepare", "padding"):
+            return [(S, S)]     # padding happens inside matmuls (PAD decisions)
+        chunks, rem = [], S
+        if self.prefill_strategy == "pipe":
+            rem = S - 1         # the last token gets an exact 1-token chunk
+        for b in sorted(self.buckets, reverse=True):
+            while rem >= b:
+                chunks.append((b, b))
+                rem -= b
+        if self.prefill_strategy == "pipe":
+            if rem:
+                chunks.append((min(self.buckets), rem))       # padded tail
+            chunks.append((1, 1))
+        elif rem:
+            chunks.append((rem, rem))   # hetero: ragged remainder
+        return chunks
+
+    def generate(self, prompt, max_new_tokens: int = 32) -> torch.Tensor:
+        """Greedy generation. prompt: [B, S] token ids (tensor or array).
+        Returns [B, max_new_tokens] on the engine's device."""
+        prompt = torch.as_tensor(prompt).to(self.device, torch.long)
+        B, S = prompt.shape
+        # pipe's padded tail writes up to min(buckets) - 1 slots past S
+        pad_headroom = (min(self.buckets) if self.prefill_strategy == "pipe"
+                        else 0)
+        cache = self.model.init_cache(
+            batch=B, max_len=S + max_new_tokens + pad_headroom,
+            dtype=dtype_of(self.cfg.compute_dtype), device=self.device)
+
+        t0 = self.clock.now()
+        idx, logits = 0, None
+        for c, take in self._bucket_chunks(S):
+            piece = prompt[:, idx: idx + take]
+            if take < c:                # pipe's padded tail
+                piece = F.pad(piece, (0, c - take))
+            new = c not in self._seen_lengths
+            if new:
+                self._seen_lengths.add(c)
+                self.stats.n_compiles += 1
+            tc = self.clock.now()
+            logits, cache = self._prefill(self.params, piece, cache,
+                                          start_index=idx)
+            if new:                     # the first call of a chunk length
+                fence(logits)
+                self.stats.compile_s += self.clock.now() - tc
+            idx += take
+        cache = {**cache, "index": torch.full((), S, dtype=torch.int32,
+                                              device=self.device)}
+        fence(logits)
+        self.stats.prefill_s += self.clock.now() - t0
+        self.stats.prefill_tokens += B * S
+
+        first = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        t0 = self.clock.now()
+        if max_new_tokens > 1:
+            gen = generate_on_device if self.fast_sync else generate_host_loop
+            toks, cache = gen(self.model, self.params, first, cache,
+                              max_new_tokens - 1)
+            out = torch.cat([first, toks], dim=1)
+        else:
+            out = first
+        fence(out)
+        self.stats.decode_s += self.clock.now() - t0
+        self.stats.decode_tokens += B * max_new_tokens
+        return out
+
+    def predicted_prefill_us(self, S: int) -> float:
+        """Solver-predicted prefill matmul latency for length S over all
+        layers (the LM head excluded), from the plan's latency table."""
+        solver = PartitionSolver(self.table, sync_mode="fast"
+                                 if self.fast_sync else "host")
+        total = sum(solver.solve_site(site, max(S, 1)).t_us
+                    for site in self.table.sites if site != "head")
+        return total * self.cfg.n_layers

@@ -31,9 +31,7 @@
 // then a cast pass writes the output type. wgmma, TMA and a pipeline are
 // later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 #include <type_traits>
 
@@ -47,19 +45,6 @@ constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
 constexpr int TM = 8;
 constexpr int TN = 8;
 constexpr int PAD = 4;         // shared row padding against bank conflicts
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 // Stage a KT x JT block of an operand into shared memory as fp32, k-major:
 // S[kk * LDS + j] = op(j0 + j, k0 + kk), where j is the operand's
@@ -223,8 +208,4 @@ extern "C" int hetero_matmul(const void* a, const void* b, void* c,
     case 2: return launch<__half>(a, b, c, scratch, M, N, K, lda, ldb, a_kc, b_kc, stationary, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* hetero_matmul_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

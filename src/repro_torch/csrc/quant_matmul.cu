@@ -32,9 +32,7 @@
 // replaces the TPU's sequential grid with its VMEM scratch accumulator.
 // wgmma on dequantized bf16 tiles, TMA and a pipeline are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 #include <cstdint>
 
@@ -47,19 +45,6 @@ constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
 constexpr int TM = 8;
 constexpr int TN = 8;
 constexpr int PAD = 4;         // shared row padding against bank conflicts
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 // Sign-extended nibbles of one packed byte, on 32-bit integers.
 __device__ __forceinline__ int nibble_lo(int8_t b) {
@@ -184,8 +169,4 @@ extern "C" int quant_matmul_q4(const void* x, const void* wq4,
                                void* stream) {
   return launch<true>(x, wq4, scale, y, M, N, K, ldx, ldw, dtype,
                       static_cast<cudaStream_t>(stream));
-}
-
-extern "C" const char* quant_matmul_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

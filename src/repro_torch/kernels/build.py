@@ -4,8 +4,10 @@ Each ``src/repro_torch/csrc/<name>.cu`` exports a plain C interface and
 compiles into ``build/kernels/lib<name>.so`` under the repository root (a
 directory git ignores), for ``sm_90a`` only. Building happens at first use,
 never at import, and only from the sources in the checkout: a library is
-rebuilt whenever its source is newer. There is no fallback: a failed build
-raises.
+rebuilt whenever its source or the shared ``csrc/common.cuh`` is newer.
+There is no fallback: a failed build raises. ``entry`` binds one C entry
+point for a wrapper: its launches go to the current stream, and a nonzero
+return raises with CUDA's name for the error.
 """
 from __future__ import annotations
 
@@ -14,14 +16,19 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("hetero_matmul", "quant_matmul")
+SOURCES = ("hetero_matmul", "quant_matmul", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], Callable[..., None]] = {}
 
 
 def _nvcc() -> str:
@@ -41,8 +48,10 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = library_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    lib = library_path(name)
+    newest = max(p.stat().st_mtime
+                 for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build(names=SOURCES) -> dict[str, str]:
@@ -81,3 +90,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, *argtypes) -> Callable[..., None]:
+    """``csrc/<name>.cu``'s C entry ``symbol`` (argument types ``argtypes``
+    but the trailing stream; it returns a ``cudaError_t``), bound once.
+    ``launch(device, *args)`` calls it on ``device``'s current stream and
+    raises with the library's ``repro_error_string`` if it fails."""
+    launch = _bound.get((name, symbol))
+    if launch is not None:
+        return launch
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    describe = lib.repro_error_string
+    describe.argtypes = [ctypes.c_int]
+    describe.restype = ctypes.c_char_p
+
+    def launch(device, *args) -> None:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: "
+                               f"{describe(err).decode()} ({err})")
+
+    _bound[(name, symbol)] = launch
+    return launch

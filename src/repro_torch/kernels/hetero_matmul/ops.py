@@ -64,13 +64,11 @@ def operand_layout(t: torch.Tensor) -> tuple[int, int]:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str) -> torch.Tensor:
-    from ..build import load
+    from ..build import entry
 
-    lib = load("hetero_matmul")
-    fn = lib.hetero_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    launch = entry("hetero_matmul", "hetero_matmul",
+                   *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 3,
+                   *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 4)
     M, K = x.shape
     N = w.shape[1]
     lda, trans_a = operand_layout(x)
@@ -79,17 +77,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str) -> torch.Tensor:
     scratch = None
     if stationary == "weight" and x.dtype != torch.float32:
         scratch = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                 scratch.data_ptr() if scratch is not None else None,
-                 M, N, K, lda, ldb, trans_a, trans_b, _DTYPE_CODE[x.dtype],
-                 _STATIONARY_CODE[stationary], stream)
-    if err != 0:
-        lib.hetero_matmul_error_string.restype = ctypes.c_char_p
-        lib.hetero_matmul_error_string.argtypes = [ctypes.c_int]
-        msg = lib.hetero_matmul_error_string(err).decode()
-        raise RuntimeError(f"hetero_matmul launch failed: {msg} ({err})")
+    launch(x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
+           scratch.data_ptr() if scratch is not None else None,
+           M, N, K, lda, ldb, trans_a, trans_b, _DTYPE_CODE[x.dtype],
+           _STATIONARY_CODE[stationary])
     mxu_matmul.launches += 1
     return y
 
@@ -194,41 +185,31 @@ def _row_major_ld(t: torch.Tensor) -> int:
     return ld
 
 
-def _launch_quant(entry: str, x: torch.Tensor, wq: torch.Tensor,
+def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
                   scale: torch.Tensor) -> torch.Tensor:
-    from ..build import load
+    from ..build import entry
 
-    lib = load("quant_matmul")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    launch = entry("quant_matmul", symbol, *[ctypes.c_void_p] * 4,
+                   *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2, ctypes.c_int)
     M, K = x.shape
     N = wq.shape[1]
     if scale.stride(0) != 1:
         raise ValueError(f"scale stride {scale.stride()} is not unit")
     ldx, ldw = _row_major_ld(x), _row_major_ld(wq)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        lib.quant_matmul_error_string.restype = ctypes.c_char_p
-        lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
-        msg = lib.quant_matmul_error_string(err).decode()
-        raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
+    launch(x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+           y.data_ptr(), M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype])
     return y
 
 
-def _quant_dispatch(x, wq, scale, rows_per_k, plain, entry, counter):
+def _quant_dispatch(x, wq, scale, rows_per_k, plain, symbol, counter):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
     _check_quant(x2, wq, scale, rows_per_k)
     if x2.device.type == "cpu":
         y = plain(x2, wq, scale)
     elif x2.device.type == "cuda":
-        y = _launch_quant(entry, x2, wq, scale)
+        y = _launch_quant(symbol, x2, wq, scale)
         counter.launches += 1
     else:
         raise ValueError(f"unsupported device {x2.device}")

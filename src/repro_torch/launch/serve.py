@@ -1,11 +1,24 @@
 """Serving launcher of the port:
 
+    python -m repro_torch.launch.serve --arch llama3-8b --mode hetero-tensor \\
+        --strategy hetero
     python -m repro_torch.launch.serve --arch llama3-8b --batched --paged \\
         --engine-mode hetero-tensor --sync device --window 8
 
-Drives ``PagedBatcher.run`` on seeded synthetic prompts (random weights,
-seeded) and prints tok/s and the dispatch counts. Runs on the card unless
-``--device cpu`` is given (use ``--smoke`` there).
+Without ``--batched`` it runs the single-request HeteroInfer engine
+(``InferenceEngine.generate`` on one seeded prompt of ``--prompt-len``
+tokens) and prints its prefill and decode tok/s; with ``--batched --paged``
+it drives ``PagedBatcher.run`` on seeded synthetic prompts and prints tok/s
+and the dispatch counts. Weights are random and seeded. Runs on the card
+unless ``--device cpu`` is given (use ``--smoke`` there).
+
+Engine options:
+
+  --mode M          engine mode: xla, mxu, hetero-layer, hetero-tensor
+  --strategy S      prefill strategy: online-prepare, padding, pipe, hetero
+  --no-fast-sync    host-driven decode, one host round-trip per token
+
+Paged batcher options:
 
   --sync device     fused-window decode: one host round-trip per --window
                     decode steps instead of per token (fast sync, §4.3)
@@ -16,9 +29,8 @@ seeded) and prints tok/s and the dispatch counts. Runs on the card unless
   --kv-quant int8   int8 KV pool with per-slot scales
   --stats           print the scheduler's stats() counter dict
 
-Only the paged batcher is ported: ``--batched --paged`` are required. The
-single-stream engine and the dense batcher, the async ingress and the
-other serving options of ``repro.launch.serve`` are not ported yet.
+The dense continuous batcher (``--batched`` alone), the async ingress and
+the other serving options of ``repro.launch.serve`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +44,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mode", default="hetero-tensor",
+                    choices=["xla", "mxu", "hetero-layer", "hetero-tensor"])
+    ap.add_argument("--strategy", default="hetero",
+                    choices=["online-prepare", "padding", "pipe", "hetero"])
+    ap.add_argument("--no-fast-sync", action="store_true")
     ap.add_argument("--batched", action="store_true")
     ap.add_argument("--paged", action="store_true",
                     help="use the paged (block-table) KV cache batcher")
@@ -66,17 +83,27 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if not (args.batched and args.paged):
-        ap.error("only the paged batcher is ported: add --batched --paged")
+    if args.batched and not args.paged:
+        ap.error("only the paged batcher is ported: add --paged")
+    if (args.sync == "device" or args.engine_mode or args.eos_id is not None
+            or args.weight_quant or args.kv_quant) and not args.batched:
+        ap.error("--sync device / --engine-mode / --eos-id / --weight-quant "
+                 "/ --kv-quant apply to the paged batcher: add --batched "
+                 "--paged")
     if args.prompt_len <= 8:
         ap.error("--prompt-len must be above 8")
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core.sync import fence
-    from repro_torch.serving.scheduler import PagedBatcher, Request
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rng = np.random.default_rng(0)
+    if not args.batched:
+        _run_engine(cfg, args, rng)
+        return
+
+    from repro_torch.core.sync import fence
+    from repro_torch.serving.scheduler import PagedBatcher, Request
+
     max_len = args.prompt_len + args.new_tokens + 8
     blocks_per_req = -(-max_len // args.block_size)
     num_blocks = args.max_blocks or 1 + args.requests * blocks_per_req
@@ -114,6 +141,20 @@ def main(argv=None):
           f"({cb.total_dispatches} host dispatches total)")
     if args.stats:
         print(f"  stats: {cb.stats()}")
+
+
+def _run_engine(cfg, args, rng) -> None:
+    """The single-request engine on one seeded prompt."""
+    from repro_torch.core.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, mode=args.mode, prefill_strategy=args.strategy,
+                          fast_sync=not args.no_fast_sync, device=args.device)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (1, args.prompt_len)).astype(np.int64)
+    toks = eng.generate(prompt, args.new_tokens)
+    print(f"mode={args.mode} strategy={args.strategy} "
+          f"fast_sync={not args.no_fast_sync} out={tuple(toks.shape)} "
+          f"device={eng.device} {eng.stats.tokens_per_s()}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Shared model layers (plain functions over parameter dicts).
 
-Attention is blockwise with an online softmax in fp32, written as plain
-torch ops (einsum, masking) the way ``repro.models.layers`` computes it.
-Products that the reference takes with ``preferred_element_type=float32``
-are taken here on fp32 copies of the operands, which gives the same exact
-products of bf16/fp16 values.
+Attention over the paged pool is blockwise with an online softmax in fp32,
+written as plain torch ops (einsum, masking) the way ``repro.models.layers``
+computes it. Attention over the dense cache goes through the flash- and
+decode-attention kernels. Products that the reference takes with
+``preferred_element_type=float32`` are taken here on fp32 copies of the
+operands, which gives the same exact products of bf16/fp16 values.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch.nn.functional as F
 
 from ..configs import dtype_of
 from ..core.partition import matmul_any
+from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
 _POS_PAD = int(np.iinfo(np.int32).max)     # kv_pos of padded slots: masked
@@ -30,6 +33,22 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 
 def rope_freqs(dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+
+
+_ROPE_TABLES: dict = {}
+
+
+def rope_table(cfg, device) -> torch.Tensor:
+    """The :func:`rope_freqs` table of ``cfg`` on ``device``, copied there
+    once per process: a forward pass reads it without a host-to-device
+    copy, which a decode loop with no host sync cannot afford."""
+    key = (cfg.head_dim, cfg.rope_theta, torch.device(device))
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        table = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)
+                                 ).to(device)
+        _ROPE_TABLES[key] = table
+    return table
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -159,6 +178,43 @@ def _qkv_rope(p: dict, x, cfg, positions, hetero_ctx, freqs):
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
     return q, k, v, mm
+
+
+def attention(p: dict, x, cfg, *, positions, cache: dict, cache_index,
+              freqs, hetero_ctx=None):
+    """GQA attention over one layer of the dense KV cache.
+
+    cache: {"k","v": [B, Smax, Hkv, D]}; new K/V are written at
+    ``cache_index`` IN PLACE (the reference's functional
+    ``dynamic_update_slice``). ``cache_index`` is an int (a prompt chunk's
+    start) or a one-element device tensor (the decode position, never read
+    on the host: the write is an ``index_copy_`` at that position). One
+    token (decode, or the pipe strategy's last 1-token chunk) attends over
+    the whole cache masked at ``cache_index + 1`` with the decode kernel; a
+    chunk of S > 1 tokens at an int start attends over the prefix
+    ``[0, start + S)`` with the causal flash kernel, aligned bottom-right.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v, mm = _qkv_rope(p, x, cfg, positions, hetero_ctx, freqs)
+    ck, cv = cache["k"], cache["v"]
+    if isinstance(cache_index, torch.Tensor):
+        if S != 1:
+            raise ValueError("a device cache index takes one token, got "
+                             f"{S}")
+        at = cache_index.reshape(1).long()
+        ck.index_copy_(1, at, k.to(ck.dtype))
+        cv.index_copy_(1, at, v.to(cv.dtype))
+    else:
+        ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+    if S == 1:
+        o = decode_attention(q[:, 0], ck, cv, cache_index + 1)[:, None]
+    else:
+        end = cache_index + S
+        o = flash_attention(q, ck[:, :end], cv[:, :end], causal=True)
+    out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
+    return out, cache
 
 
 def quantize_kv_slot(x: torch.Tensor, scale_dtype=torch.bfloat16

@@ -1,4 +1,4 @@
-"""Decoder-only dense transformer over a paged KV pool.
+"""Decoder-only dense transformer over a dense KV cache or a paged KV pool.
 
 Parameters are a dict shaped like the reference's pytree: stacked per-layer
 tensors under ``layers`` (leading axis L), weights in ``[K, N]`` layout
@@ -8,14 +8,15 @@ each iteration reads views, never copies.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
 from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
-from .layers import (init_attention, init_swiglu, normal_stack,
-                     paged_attention, rms_norm, rope_freqs, swiglu)
+from .layers import (attention, init_attention, init_swiglu, normal_stack,
+                     paged_attention, rms_norm, rope_table, swiglu)
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -53,12 +54,11 @@ def layer_params(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
-def _layer(lp, x, cfg, *, positions, pool, block_table, hetero_ctx, freqs):
+def _layer(lp, x, cfg, attend, hetero_ctx):
+    """One pre-norm block; ``attend(attn_params, h) -> (out, kv)`` is the
+    dense-cache or paged attention of this layer."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    attn_out, pool = paged_attention(lp["attn"], h, cfg, positions=positions,
-                                     pool=pool, block_table=block_table,
-                                     hetero_ctx=hetero_ctx, freqs=freqs)
-    x = x + attn_out
+    x = x + attend(lp["attn"], h)[0]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx)
 
@@ -78,6 +78,68 @@ def _head_logits(params, x, cfg, hetero_ctx=None):
     else:
         y = matmul_any(x, _head_matrix(params, cfg))
     return y.float()
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               device="cuda") -> dict:
+    """Dense KV cache ``[L, batch, max_len, Hkv, D]`` per tensor on
+    ``device`` (the card unless ``"cpu"`` is asked for), with the write
+    position ``index``, an int32 scalar on the same device."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _run_layers_dense(params, x, cfg, *, positions, cache, cache_index,
+                      hetero_ctx=None):
+    """All layers over the dense cache, which is updated in place."""
+    freqs = rope_table(cfg, x.device)
+    for i in range(cfg.n_layers):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _layer(layer_params(params["layers"], i), x, cfg,
+                   partial(attention, cfg=cfg, positions=positions,
+                           cache=layer_cache, cache_index=cache_index,
+                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
+    return x
+
+
+def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
+            hetero_ctx=None):
+    """Process a prompt (or a prompt chunk, for chunked prefill): write the
+    cache at ``[start_index, start_index + S)`` in place and return
+    (last-token logits ``[B, 1, V]``, cache with ``index = start + S``).
+    ``start_index`` is a host int."""
+    S = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(start_index, start_index + S, dtype=torch.long,
+                             device=x.device)
+    x = _run_layers_dense(params, x, cfg, positions=positions, cache=cache,
+                          cache_index=start_index, hetero_ctx=hetero_ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head_logits(params, x[:, -1:, :], cfg, hetero_ctx)
+    index = torch.full((), start_index + S, dtype=torch.int32,
+                       device=x.device)
+    return logits, {"k": cache["k"], "v": cache["v"], "index": index}
+
+
+def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
+    """One autoregressive step of a uniform batch. token: [B, 1]. The write
+    position ``cache["index"]`` is a device scalar and stays there: nothing
+    in the step reads it on the host. Returns (logits [B, 1, V], cache with
+    ``index + 1``)."""
+    idx = cache["index"]
+    if idx.ndim != 0:
+        raise NotImplementedError("per-slot cache indices (the dense "
+                                  "continuous batcher) are not ported")
+    x = _embed(params, token, cfg)
+    positions = idx.reshape(1).long()
+    x = _run_layers_dense(params, x, cfg, positions=positions, cache=cache,
+                          cache_index=idx, hetero_ctx=hetero_ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head_logits(params, x, cfg, hetero_ctx)
+    return logits, {"k": cache["k"], "v": cache["v"], "index": idx + 1}
 
 
 def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
@@ -110,14 +172,13 @@ def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
 def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
                       hetero_ctx=None):
     """All layers over the paged pool, which is updated in place."""
-    freqs = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)).to(
-        x.device)
+    freqs = rope_table(cfg, x.device)
     for i in range(cfg.n_layers):
         layer_pool = {name: t[i] for name, t in pool.items()}
         x = _layer(layer_params(params["layers"], i), x, cfg,
-                   positions=positions, pool=layer_pool,
-                   block_table=block_table, hetero_ctx=hetero_ctx,
-                   freqs=freqs)
+                   partial(paged_attention, cfg=cfg, positions=positions,
+                           pool=layer_pool, block_table=block_table,
+                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
     return x, pool
 
 

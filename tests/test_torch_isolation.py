@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,6 +88,43 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--smoke", "--batched", "--paged", "--requests", "1",
                         *argv])
+
+
+def test_weight_bridge_raises_without_cuda_unless_asked_for_cpu():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    cfg = get_smoke_config("llama3-8b").with_(n_layers=1)
+    np_params = {"layers": {"attn_norm": np.ones((1, cfg.d_model),
+                                                 np.float32)}}
+    if torch.cuda.is_available():       # on a card the default is the card
+        assert params_from_numpy(np_params, cfg)["layers"]["attn_norm"] \
+            .is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy(np_params, cfg)
+    out = params_from_numpy(np_params, cfg, "cpu")
+    assert out["layers"]["attn_norm"].device.type == "cpu"
+
+
+def test_engine_entry_points_raise_without_cuda_unless_asked_for_cpu():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.core.sync import measure_dispatch_overhead
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache
+    cfg = get_smoke_config("llama3-8b")
+    if torch.cuda.is_available():
+        assert InferenceEngine(cfg).device.type == "cuda"
+        assert init_cache(cfg, 1, 8)["index"].is_cuda
+        return
+    for make in (lambda **kw: InferenceEngine(cfg, **kw),
+                 lambda **kw: init_cache(cfg, 1, 8, **kw),
+                 lambda **kw: measure_dispatch_overhead(3, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        make(device="cpu")                   # asked for: runs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke", "--prompt-len", "12", "--new-tokens", "2"])
 
 
 def test_chip_smoke_refuses_alone_or_without_cuda(tmp_path):

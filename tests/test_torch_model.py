@@ -77,7 +77,7 @@ def test_convert_bf16_through_float32():
     w = np.asarray(jnp.asarray(np.linspace(-3, 3, 12, dtype=np.float32)
                                ).astype(jnp.bfloat16)).reshape(1, 3, 4)
     cfg = get_smoke_config("llama3-8b").with_(n_layers=1)
-    out = params_from_numpy({"layers": {"attn_norm": w}}, cfg)
+    out = params_from_numpy({"layers": {"attn_norm": w}}, cfg, "cpu")
     t = out["layers"]["attn_norm"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), w.astype(np.float32))
