@@ -18,16 +18,22 @@ on failure:
      decode-attention kernels over the conformance grid (1/2/4 query heads
      per kv head, causal and not, Sq == Sk and Sq < Sk, block-multiple and
      ragged caches, lengths 1 / ragged / all, D = 16, odd and 128) and the
-     engine's shapes at llama3-8b; kernel, plain and library timings with
-     CUDA events;
+     engine's shapes at llama3-8b and at zamba2-2.7b's shared block (D = 80,
+     32 / 32 heads); the SSD chunk kernel over the conformance grid (L the
+     case's M, inputs rounded through fp32 / bf16 / fp16), the smoke model's
+     hd = N = 16 and the zamba2 path shapes (L = 256, 88, 1), S_prev zero
+     and not, within the reference's 1e-4, and ``ssd_scan`` over two chunks;
+     kernel, plain and library timings with CUDA events;
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
      port on the CPU, gives the same greedy tokens, with fp weights and with
      int8 / W4A16 weights crossed with a bf16 / int8 KV pool; each kernel
      launches exactly where the plan sends work to it; then the same model
      through InferenceEngine, 4 prefill strategies x 4 engine modes x fast
-     and host sync, against the engine on the CPU, each attention kernel
-     launching as often as the chunks predict;
+     and host sync, against the engine on the CPU, each kernel launching as
+     often as the chunks and the plan predict; then the fp32 zamba2 smoke
+     model the same way (the hybrid's pipe held to the CPU's pipe: its
+     zero-padded tail moves the recurrent state, as in the reference);
   4. the slices at full width: llama3-8b (32 layers, bf16, seeded random
      weights) served through PagedBatcher(engine_mode="hetero-tensor",
      sync="device", window=8) against the engine_mode=None arm on the same
@@ -40,13 +46,20 @@ on failure:
      kernels against the same arm through their plain versions, on the
      first-token and first decode step logits (``attention_gate``;
      ``scripts/attention_gate_mutants.py`` shows that wrong attentions
-     fail it).
+     fail it); then, the llama3 weights freed, zamba2-2.7b (54 mamba
+     layers, d_model 2560, bf16, seeded random weights) through the engine
+     (prompt 600: chunks 512 and 88, 162 SSD launches a generate) with
+     hetero-tensor and xla fast sync, then ``ssd_gate`` (the SSD kernel
+     against its plain version on the same logits;
+     ``scripts/ssd_gate_mutants.py`` shows that wrong SSD steps fail it) and
+     ``attention_gate`` on this model.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -395,8 +408,8 @@ def phase_attention_kernels() -> dict:
     the smoke model's D = 16) x 1/2/4 query heads per kv head x dtype; flash
     causal and not, at Sq == Sk and over a longer prefix (Sq < Sk); decode
     over a block-multiple and a ragged cache, valid up to 1 row, a ragged
-    count and every row; then the engine's own shapes at llama3-8b, timed
-    against the plain version and SDPA."""
+    count and every row; then the engine's own shapes at llama3-8b and at
+    zamba2-2.7b's shared block, timed against the plain version and SDPA."""
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -471,11 +484,156 @@ def phase_attention_kernels() -> dict:
     k, v = randn(1, 324, Hkv, D, dt=bf16), randn(1, 324, Hkv, D, dt=bf16)
     for length in (301, 315):
         timings.append(_attention_timing("decode", q, k, v, length))
+    # the same at zamba2-2.7b's shared block (32 / 32 heads, D = 80; prompt
+    # 600: chunk 512 over 512 keys, chunk 88 over 600; decode over the
+    # 616-row cache at lengths 601..615)
+    Hq, Hkv, D = 32, 32, 80
+    for Sq, Sk in ((512, 512), (88, 600)):
+        q = randn(1, Sq, Hq, D, dt=bf16)
+        k, v = randn(1, Sk, Hkv, D, dt=bf16), randn(1, Sk, Hkv, D, dt=bf16)
+        timings.append(_attention_timing("flash", q, k, v))
+    q = randn(1, Hq, D, dt=bf16)
+    k, v = randn(1, 616, Hkv, D, dt=bf16), randn(1, 616, Hkv, D, dt=bf16)
+    for length in (601, 615):
+        timings.append(_attention_timing("decode", q, k, v, length))
     for row in timings:
         if not row["rel_err"] <= DTYPE_TOL["bfloat16"]:
             raise AssertionError(f"[attention] path shape {row['shape']}: "
                                  f"rel_err {row['rel_err']:.3g}")
         log(f"[attention] time {json.dumps(row)}")
+    return {"timings": timings, "worst": worst}
+
+
+SSD_TOL = 1e-4     # the reference's bound for the SSD chunk, every dtype row
+
+
+def _ssd_inputs(g, Bb, L, nh, hd, N, dname="float32", state=True,
+                conv_dim=None):
+    """Seeded SSD chunk operands on the card, rounded through ``dname`` and
+    held in fp32 as tests/test_kernel_conformance.py makes them; with
+    ``conv_dim``, B_ and C_ are column slices of a wider [B, L, conv_dim]
+    tensor, the layout the model's split hands the kernel."""
+    import torch
+    from repro_torch.configs import dtype_of
+
+    def r(*shape, scale=1.0):
+        t = torch.randn(shape, generator=g, device="cuda") * scale
+        return t.to(dtype_of(dname)).float()
+
+    xb = r(Bb, L, nh, hd, scale=0.5)
+    if conv_dim is None:
+        B_, C_ = r(Bb, L, N, scale=0.5), r(Bb, L, N, scale=0.5)
+    else:
+        wide = r(Bb, L, conv_dim, scale=0.5)
+        B_, C_ = wide[..., conv_dim - 2 * N:conv_dim - N], wide[..., -N:]
+    seg = -torch.cumsum(r(Bb, L, nh).abs() * 0.1, dim=1)
+    S_prev = r(Bb, nh, hd, N, scale=0.3) if state else \
+        torch.zeros((Bb, nh, hd, N), device="cuda")
+    return xb, B_, C_, seg, S_prev
+
+
+def _ssd_bound(Bb, L, nh, hd, N) -> tuple[float, str]:
+    """The least time of one chunk step on the card: its bytes (each
+    operand read once, y and S_new written once) over the memory rate
+    against its fp32 operations over the causal pairs (C.B^T once per
+    batch) over the CUDA-core fp32 rate."""
+    pairs = L * (L + 1) // 2
+    nbytes = 4 * (2 * Bb * L * nh * hd + 2 * Bb * L * N + Bb * L * nh
+                  + 2 * Bb * nh * hd * N)
+    flops = 2 * Bb * N * pairs + Bb * nh * (2 * hd * pairs + pairs
+                                            + 4 * hd * N * L)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ssd_kernel() -> dict:
+    """The SSD chunk kernel against its plain version on the card: the
+    conformance grid (L = each case's M, nh = 2, hd = N = 64, inputs rounded
+    through fp32 / bf16 / fp16), the smoke model's hd = N = 16 (L 32, 13
+    and 1), and the zamba2-2.7b path shapes (L = 256, 88 and 1, nh = 80,
+    hd = N = 64, B_ and C_ strided as the model passes them), each with
+    S_prev zero and not; then kernel and plain times at the path shapes,
+    and ssd_scan over S = 512 (two launches, the state carried on the card)
+    against the plain chunk scan."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst, n_checks = {}, 0
+    # (group, case, B, L, nh, hd, N, dtype the inputs round through, the
+    # width of the tensor B_ and C_ are sliced out of)
+    cases = [(dname, name, 2, M, 2, 64, 64, dname, None)
+             for name, M, _, _ in CONFORMANCE_CASES for dname in DTYPE_TOL]
+    cases += [("smoke", f"L{L}", 1, L, 8, 16, 16, "float32", None)
+              for L in (32, 13, 1)]
+    cases += [("path", f"L{L}", 1, L, 80, 64, 64, "bfloat16", 5248)
+              for L in (256, 88, 1)]
+    for key, name, Bb, L, nh, hd, N, dname, conv_dim in cases:
+        for state in (False, True):
+            args = _ssd_inputs(g, Bb, L, nh, hd, N, dname, state, conv_dim)
+            before = ops.ssd_chunk.launches
+            y, s_new = ops.ssd_chunk(*args)
+            y_ref, s_ref = ssd_chunk_ref(*args)
+            torch.cuda.synchronize()
+            if ops.ssd_chunk.launches != before + 1:
+                raise AssertionError(f"ssd_chunk {key} {name}: not launched")
+            e = max(rel_err(y, y_ref), rel_err(s_new, s_ref))
+            n_checks += 1
+            worst[key] = max(worst.get(key, 0.0), e)
+            if not (torch.isfinite(y).all() and e <= SSD_TOL):
+                raise AssertionError(f"ssd_chunk {key} {name} S_prev "
+                                     f"{'random' if state else 'zero'}: "
+                                     f"rel_err {e:.3g} > {SSD_TOL}")
+    for key, e in sorted(worst.items()):
+        log(f"[ssd] ssd_chunk {key:9s}: worst rel_err {e:.3g} <= {SSD_TOL}")
+    log(f"[ssd] {n_checks} checks passed")
+
+    timings = []
+    for L in (256, 88):
+        args = _ssd_inputs(g, 1, L, 80, 64, 64, "bfloat16", True, 5248)
+        y, s_new = ops.ssd_chunk(*args)
+        y_ref, s_ref = ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        bound, by = _ssd_bound(1, L, 80, 64, 64)
+        row = {"kind": "ssd_chunk", "shape": [1, L, 80, 64, 64],
+               "dtype": "float32",
+               "max_abs_err": max(float((y - y_ref).abs().max()),
+                                  float((s_new - s_ref).abs().max())),
+               "rel_err": max(rel_err(y, y_ref), rel_err(s_new, s_ref)),
+               "ms": cuda_time_ms(lambda: ops.ssd_chunk(*args)),
+               "plain_ms": cuda_time_ms(lambda: ssd_chunk_ref(*args)),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "library_note": "none: no single PyTorch call computes an SSD "
+                               "chunk step"}
+        timings.append(row)
+        log(f"[ssd] time {json.dumps(row)}")
+
+    # the scan: two chunks of 256 at full width, the state passed on the card
+    Bb, S, nh, hd, N = 1, 512, 80, 64, 64
+    xh = torch.randn((Bb, S, nh, hd), generator=g, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bb, S, nh), generator=g, device="cuda"))
+    A = -torch.exp(torch.randn((nh,), generator=g, device="cuda") * 0.5)
+    B_ = torch.randn((Bb, S, N), generator=g, device="cuda") * 0.5
+    C_ = torch.randn((Bb, S, N), generator=g, device="cuda") * 0.5
+    before = ops.ssd_chunk.launches
+    y, s_fin = ops.ssd_scan(xh, dt, A, B_, C_, chunk=256)
+    xb, Bf, Cf, seg = ops.chunk_inputs(xh, dt, A, B_, C_, 256)
+    state, ys = torch.zeros_like(s_fin), []
+    for i in range(2):
+        sl = slice(256 * i, 256 * (i + 1))
+        yi, state = ssd_chunk_ref(xb[:, sl], Bf[:, sl], Cf[:, sl], seg[:, sl],
+                                  state)
+        ys.append(yi)
+    torch.cuda.synchronize()
+    e = max(rel_err(y, torch.cat(ys, dim=1)), rel_err(s_fin, state))
+    if ops.ssd_chunk.launches != before + 2 or not e <= SSD_TOL:
+        raise AssertionError(f"ssd_scan S=512: {ops.ssd_chunk.launches - before}"
+                             f" launches, rel_err {e:.3g}")
+    log(f"[ssd] ssd_scan S=512 (2 launches, state on the card) vs the plain "
+        f"chunk scan: rel_err {e:.3g} <= {SSD_TOL}")
     return {"timings": timings, "worst": worst}
 
 
@@ -506,11 +664,13 @@ def _counters():
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.hetero_matmul import ops
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunk
     return {"hetero_matmul": ops.mxu_matmul,
             "quant_matmul_int8": ops.mxu_quant_matmul,
             "quant_matmul_q4": ops.mxu_q4_matmul,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "ssd_chunk": ssd_chunk}
 
 
 KERNEL_OF_FORMAT = {None: "hetero_matmul", "int8": "quant_matmul_int8",
@@ -590,24 +750,58 @@ def phase_tokens() -> None:
 ENGINE_MODES = ("xla", "mxu", "hetero-layer", "hetero-tensor")
 
 
+def n_attention_layers(cfg) -> int:
+    """Attention layers of a model: every layer of a dense one, one pass of
+    the shared block per ``attn_every`` mamba layers of a hybrid."""
+    return cfg.n_layers // cfg.ssm.attn_every if cfg.ssm else cfg.n_layers
+
+
 def attention_launches(chunks, n_layers: int, new_tokens: int) -> dict:
-    """Launches of each attention kernel in one ``generate``: every layer
-    of a chunk of more than one token runs the flash kernel, every layer of
-    a 1-token chunk or a decode step the decode kernel."""
+    """Launches of each attention kernel in one ``generate``: every
+    attention layer of a chunk of more than one token runs the flash kernel,
+    every attention layer of a 1-token chunk or a decode step the decode
+    kernel."""
     multi = sum(1 for c, _ in chunks if c > 1)
     single = len(chunks) - multi + new_tokens - 1
     return {"flash_attention": multi * n_layers,
             "decode_attention": single * n_layers}
 
 
+def ssd_launches(cfg, chunks) -> int:
+    """Launches of the SSD chunk kernel in one ``generate``: every mamba
+    layer of a prefill chunk of c tokens runs ceil(c / L) chunk steps, L =
+    min(ssm.chunk, c); decode runs the plain one-step recurrence."""
+    if cfg.ssm is None:
+        return 0
+    return cfg.n_layers * sum(-(-c // min(cfg.ssm.chunk, c))
+                              for c, _ in chunks)
+
+
+def engine_launches(eng, cfg, prompt_len: int, new_tokens: int) -> dict:
+    """Every kernel's predicted launches in one ``eng.generate``."""
+    chunks = eng._bucket_chunks(prompt_len)
+    expect = attention_launches(chunks, n_attention_layers(cfg), new_tokens)
+    expect["hetero_matmul"] = gemm_launches(eng.ctx, cfg, chunks)
+    expect["ssd_chunk"] = ssd_launches(cfg, chunks)
+    return expect
+
+
 def gemm_launches(ctx, cfg, chunks) -> int:
     """Launches of the aligned-path GEMM in one ``generate``'s prefill:
     HeteroCtx sends a site to the kernel once unless its decision for the
-    chunk's M (the head's M is 1: the last token) is xla_only."""
+    chunk's M is xla_only. A dense model runs the seven layer sites in
+    every layer and the head once (M = 1: the last token); a hybrid runs
+    in_proj and out_proj in every mamba layer and the seven sites in every
+    pass of the shared block, and takes its head as a plain matmul, as the
+    reference does."""
     if ctx is None or ctx.mode == "xla":
         return 0
-    sites = [(s, cfg.n_layers) for s in ("wq", "wk", "wv", "wo", "w_gate",
-                                         "w_up", "w_down")] + [("head", 1)]
+    block = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    if cfg.ssm is not None:
+        sites = [(s, cfg.n_layers) for s in ("in_proj", "out_proj")] + \
+            [(s, n_attention_layers(cfg)) for s in block]
+    else:
+        sites = [(s, cfg.n_layers) for s in block] + [("head", 1)]
     n = 0
     for c, _ in chunks:
         for site, count in sites:
@@ -623,23 +817,26 @@ def gemm_launches(ctx, cfg, chunks) -> int:
     return n
 
 
-def phase_engine_tokens(prompt_len: int = 77, new_tokens: int = 12,
-                        buckets=(32, 64)) -> None:
-    """fp32 smoke model through InferenceEngine: for each prefill strategy,
-    every engine mode x fast/host sync on the card gives the tokens the
-    engine gives on the CPU, and each attention kernel launches exactly as
-    often as the strategy's chunks predict."""
+def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
+                        new_tokens: int = 12, buckets=(32, 64)) -> None:
+    """fp32 smoke model of ``arch`` through InferenceEngine: for each
+    prefill strategy, every engine mode x fast/host sync on the card gives
+    the tokens the engine gives on the CPU, and each kernel (GEMM, flash,
+    decode and, on the hybrid, SSD) launches exactly as often as the
+    strategy's chunks and the plan predict. The strategies agree with one
+    another, but for the hybrid's pipe: its zero-padded tail moves the
+    recurrent state, as in the reference."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.engine import (PREFILL_STRATEGIES, InferenceEngine,
                                          build_plan)
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models import build_model
 
-    cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
-                                              compute_dtype="float32")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
-                         device="cuda")
+    cfg = get_smoke_config(arch).with_(param_dtype="float32",
+                                       compute_dtype="float32")
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(7), device="cuda")
     cpu_params = _to_device(params, "cpu")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
                                                (1, prompt_len))
@@ -661,9 +858,8 @@ def phase_engine_tokens(prompt_len: int = 77, new_tokens: int = 12,
                 got = eng.generate(prompt, new_tokens).tolist()
                 counts = _read_counts()
                 chunks = eng._bucket_chunks(prompt_len)
-                expect = attention_launches(chunks, cfg.n_layers, new_tokens)
-                expect["hetero_matmul"] = gemm_launches(eng.ctx, cfg, chunks)
-                arm = f"{strategy}/{mode}/{'fast' if fast else 'host'}"
+                expect = engine_launches(eng, cfg, prompt_len, new_tokens)
+                arm = f"{arch}/{strategy}/{mode}/{'fast' if fast else 'host'}"
                 if got != want:
                     raise AssertionError(f"[engine] {arm}: {got} vs the "
                                          f"CPU's {want}")
@@ -675,10 +871,14 @@ def phase_engine_tokens(prompt_len: int = 77, new_tokens: int = 12,
                 n_arms += 1
                 log(f"[engine] {arm}: chunks {chunks}, launches {counts}")
         outs[strategy] = want
-        log(f"[engine] {strategy}: 8 card arms equal the CPU's tokens {want[0]}")
-    if len({str(o) for o in outs.values()}) != 1:
-        raise AssertionError(f"[engine] strategies differ: {outs}")
-    log(f"[engine] {n_arms} card arms token-identical to the CPU engine")
+        log(f"[engine] {arch}/{strategy}: 8 card arms equal the CPU's tokens "
+            f"{want[0]}")
+    agree = {k: v for k, v in outs.items()
+             if not (cfg.ssm is not None and k == "pipe")}
+    if len({str(o) for o in agree.values()}) != 1:
+        raise AssertionError(f"[engine] {arch}: strategies differ: {outs}")
+    log(f"[engine] {arch}: {n_arms} card arms token-identical to the CPU "
+        "engine")
 
 
 def _to_device(tree, device):
@@ -719,8 +919,6 @@ def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
     """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
     arm and the engine-less arm on the same seeded weights (quantized the
     same way at construction) and prompts. Returns {label: hetero arm}."""
-    import gc
-
     import numpy as np
     import torch
     from repro_torch.core.sync import fence
@@ -893,8 +1091,8 @@ def _strict_decode(engine_module):
     return lambda: setattr(engine_module, "generate_on_device", inner)
 
 
-# Kernel-vs-plain gate on the full-width engine's logits (bf16): the same
-# arm with the attention kernels and with the plain versions must agree to
+# Kernel-vs-plain gates on the full-width engine's logits (bf16): the same
+# arm with a path's kernels and with their plain versions must agree to
 # this cosine and relative error (PERF.md §2 gives the measured margins).
 ATTENTION_GATE_COS, ATTENTION_GATE_REL = 0.999, 0.05
 
@@ -923,68 +1121,136 @@ def _step_logits(eng, prompt) -> list:
     return seen[-2:]
 
 
-def attention_gate(cfg, params, prompt, plain=None, *, check: bool = True
-                   ) -> dict:
+def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
+                 check: bool, probe=None) -> dict:
     """Arm 1 (hetero-tensor, fast sync, hetero strategy) on the card twice:
-    through the attention kernels, then with ``models.layers``' two
-    attention calls swapped for ``plain`` (the plain versions unless given),
-    on the same weights and prompt. This runs the kernels on the path's own
-    operands: strided per-layer cache views, D = 128 and the device length
-    ``index + 1``. Returns {"first" | "decode": {cos, rel_err, max_abs}}
-    and raises, when ``check``, if they disagree beyond the gate or a
+    through the kernels, then with ``module``'s names in ``plain`` swapped
+    for the plain versions given there, on the same weights and prompt.
+    ``predict(chunks)`` gives each kernel's launches on the kernel side (the
+    plain side launches none). ``probe(run)``, where given, runs ``run()``
+    and returns (its result, {name: one more tensor to compare}). Returns
+    {"first" | "decode" | probe's names: {cos, rel_err, max_abs}} and
+    raises, when ``check``, if any pair disagrees beyond the gate or a
     kernel launched where it should not have."""
     import torch
     from repro_torch.core.engine import InferenceEngine
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import layers
 
     eng = InferenceEngine(cfg, params, mode="hetero-tensor",
                           prefill_strategy="hetero")
-    n_chunks = len(eng._bucket_chunks(prompt.shape[1]))
+    launches = predict(eng._bucket_chunks(prompt.shape[1]))
+
+    def run() -> dict:
+        if probe is None:
+            return dict(zip(("first", "decode"), _step_logits(eng, prompt)))
+        logits, extra = probe(lambda: _step_logits(eng, prompt))
+        return {**dict(zip(("first", "decode"), logits)), **extra}
+
     _zero_counts()
-    kernel = _step_logits(eng, prompt)
+    kernel = run()
     k_counts = _read_counts()
-    saved = layers.flash_attention, layers.decode_attention
-    layers.flash_attention, layers.decode_attention = \
-        plain or (attention_ref, decode_attention_ref)
-    _zero_counts()
+    _zero_counts()                      # before the swap: the counters
+    saved = {name: getattr(module, name) for name in plain}   # may be swapped
+    for name, fn in plain.items():
+        setattr(module, name, fn)
     try:
-        ref = _step_logits(eng, prompt)
+        ref = run()
     finally:
-        layers.flash_attention, layers.decode_attention = saved
+        for name, fn in saved.items():
+            setattr(module, name, fn)
     p_counts = _read_counts()
-    want = (n_chunks * cfg.n_layers, cfg.n_layers)
-    got = ((k_counts["flash_attention"], k_counts["decode_attention"]),
-           (p_counts["flash_attention"], p_counts["decode_attention"]))
-    if check and got != (want, (0, 0)):
-        raise AssertionError(f"[engine-full] attention gate launches "
-                             f"(kernels, plain) {got}, expected "
-                             f"{(want, (0, 0))}")
+    got = ({k: k_counts[k] for k in launches},
+           {k: p_counts[k] for k in launches})
+    if check and got != (launches, {k: 0 for k in launches}):
+        raise AssertionError(f"[{label}] launches (kernels, plain) {got}, "
+                             f"expected {launches} and none")
     out = {}
-    for name, a, b in zip(("first", "decode"), kernel, ref):
+    for name in kernel:
+        a, b = kernel[name].reshape(-1), ref[name].reshape(-1)
         cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
         out[name] = {"cos": cos, "rel_err": rel_err(a, b),
                      "max_abs": float((a - b).abs().max())}
-        log(f"[engine-full] attention kernels vs plain, {name} logits: cos "
+        log(f"[{label}] {cfg.name} kernels vs plain, {name}: cos "
             f"{cos:.6f}, rel_err {out[name]['rel_err']:.4g}, max |diff| "
             f"{out[name]['max_abs']:.4g}")
         if check and (not torch.isfinite(a).all() or cos < ATTENTION_GATE_COS
                       or out[name]["rel_err"] > ATTENTION_GATE_REL):
-            raise AssertionError(f"[engine-full] attention kernels vs plain "
-                                 f"on the {name} logits: {out[name]}, gate "
-                                 f"cos >= {ATTENTION_GATE_COS}, rel_err <= "
+            raise AssertionError(f"[{label}] {cfg.name} kernels vs plain on "
+                                 f"the {name} output: {out[name]}, gate cos "
+                                 f">= {ATTENTION_GATE_COS}, rel_err <= "
                                  f"{ATTENTION_GATE_REL}")
     return out
 
 
+def attention_gate(cfg, params, prompt, plain=None, *, check: bool = True
+                   ) -> dict:
+    """``_kernel_gate`` of the attention kernels: ``models.layers``' two
+    attention calls swapped for ``plain`` (flash, decode; the plain versions
+    unless given). This runs the kernels on the path's own operands:
+    strided per-layer cache views, the model's head dim and the device
+    length ``index + 1``."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+
+    flash, decode = plain or (attention_ref, decode_attention_ref)
+    return _kernel_gate(
+        "attention-gate", cfg, params, prompt, layers,
+        {"flash_attention": flash, "decode_attention": decode},
+        lambda chunks: attention_launches(chunks, n_attention_layers(cfg), 2),
+        check)
+
+
+def ssd_gate(cfg, params, prompt, plain=None, *, check: bool = True) -> dict:
+    """``_kernel_gate`` of the SSD chunk kernel: the scan's ``ssd_chunk``
+    swapped for ``plain`` (``ssd_chunk_ref`` unless given). This runs the
+    kernel on the path's operands: B_ and C_ strided out of the conv
+    output, the state passed between the launches of a chunk, between
+    prefill chunks, and on into decode (whose logits read it). The logits
+    see little of a chunk's incoming state: at the reference's A (-1 to
+    -16 per step of dt) it decays within a few steps. So the gate also holds
+    the first mamba layer (whose inputs are the same on both sides): "scan",
+    its SSD output at every prompt position, whose rows next to a chunk
+    boundary read the carried state, and "state", its SSM state after the
+    prefill."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
+    from repro_torch.models import mamba2
+
+    def first_layer(run):
+        inner, seen = mamba2.scan_chunks, []
+
+        def record(*a):
+            y, state = inner(*a)
+            # layer 0 of each prefill chunk
+            seen.append((y, state) if len(seen) % cfg.n_layers == 0 else None)
+            return y, state
+
+        mamba2.scan_chunks = record
+        try:
+            logits = run()
+        finally:
+            mamba2.scan_chunks = inner
+        mine = [r for r in seen if r is not None]
+        return logits, {"scan": torch.cat([y for y, _ in mine], dim=1),
+                        "state": mine[-1][1]}
+
+    return _kernel_gate(
+        "ssd-gate", cfg, params, prompt, ops,
+        {"ssd_chunk": plain or ssd_chunk_ref},
+        lambda chunks: {"ssd_chunk": ssd_launches(cfg, chunks)}, check,
+        first_layer)
+
+
 def phase_engine_full(cfg, params, prompt_len: int = 300,
-                      new_tokens: int = 16) -> dict:
-    """The single-request engine at full width on the phase-4 weights: one
-    seeded prompt, hetero strategy, three arms (ENGINE_ARMS). Each arm runs
-    once to meet its chunk lengths and once timed; the timed run of the
-    first arm decodes under the sync debug mode. Then ``attention_gate``
-    holds the first arm's attention kernels against their plain versions.
+                      new_tokens: int = 16, arms=ENGINE_ARMS, seed: int = 4,
+                      gates=(attention_gate,)) -> dict:
+    """The single-request engine at full width: one seeded prompt, hetero
+    strategy, each of ``arms`` (mode, fast sync). Each arm runs once to meet
+    its chunk lengths and once timed, every kernel launching as predicted;
+    the timed run of the hetero-tensor fast arm decodes under the sync debug
+    mode. Then each of ``gates`` holds that arm's kernels against their
+    plain versions, and a profiled run gives the device's busy share.
     Returns {arm: result}."""
     import numpy as np
     import torch
@@ -992,10 +1258,11 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
     from repro_torch.core.engine import EngineStats, InferenceEngine
     from repro_torch.core.sync import fence, measure_dispatch_overhead
 
-    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size,
-                                               (1, prompt_len))
-    arms, base = {}, None
-    for mode, fast in ENGINE_ARMS:
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (1, prompt_len))
+    anchor = params["embed"]
+    results, base = {}, None
+    for mode, fast in arms:
         label = f"{mode}/{'fast' if fast else 'host'}"
         eng = InferenceEngine(cfg, params, mode=mode,
                               prefill_strategy="hetero", fast_sync=fast)
@@ -1010,7 +1277,7 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
         eng.generate(prompt, new_tokens)          # meets the chunk lengths
         warm = eng.stats
         eng.stats = EngineStats()
-        fence(params["embed"])
+        fence(anchor)
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         undo = _strict_decode(engine_mod) if label == "hetero-tensor/fast" \
@@ -1022,15 +1289,15 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
         counts = _read_counts()
         st = eng.stats
         chunks = eng._bucket_chunks(prompt_len)
-        expect = attention_launches(chunks, cfg.n_layers, new_tokens)
-        expect["hetero_matmul"] = gemm_launches(eng.ctx, cfg, chunks)
+        expect = engine_launches(eng, cfg, prompt_len, new_tokens)
         for name, n in expect.items():
             if counts[name] != n:
-                raise AssertionError(f"[engine-full] {label}: {counts[name]} "
-                                     f"launches of {name}, expected {n}")
+                raise AssertionError(f"[engine-full] {cfg.name} {label}: "
+                                     f"{counts[name]} launches of {name}, "
+                                     f"expected {n}")
         logits = first["logits"]
         if out.shape != (1, new_tokens) or not torch.isfinite(logits).all():
-            raise AssertionError(f"[engine-full] {label}: output "
+            raise AssertionError(f"[engine-full] {cfg.name} {label}: output "
                                  f"{tuple(out.shape)} or non-finite logits")
         arm = {"mode": mode, "fast_sync": fast, "chunks": chunks,
                "prefill_s": st.prefill_s, "decode_s": st.decode_s,
@@ -1040,40 +1307,74 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
                "n_compiles": warm.n_compiles, "launches": counts,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "tokens": out[0].tolist(), "logits": logits}
-        arms[label] = arm
+        results[label] = arm
         if mode == "xla":
             base = arm
-        log(f"[engine-full] {label}: chunks {chunks}; prefill "
+        log(f"[engine-full] {cfg.name} {label}: chunks {chunks}; prefill "
             f"{st.prefill_s:.3f}s, decode {st.decode_s:.3f}s "
             f"({arm['decode_tok_s']:.1f} decode tok/s, {arm['tok_per_s']:.2f}"
             f" tok/s end to end); first calls {warm.compile_s:.2f}s over "
             f"{warm.n_compiles} chunk lengths; launches {counts}; peak "
             f"{arm['peak_mem_gb']:.2f} GB")
-    log("[engine-full] hetero-tensor/fast decode loop ran with sync debug "
-        "mode 'error': no host sync inside it")
-    for label, arm in arms.items():
+    log(f"[engine-full] {cfg.name} hetero-tensor/fast decode loop ran with "
+        "sync debug mode 'error': no host sync inside it")
+    for label, arm in results.items():
         cos = float(torch.nn.functional.cosine_similarity(
             arm["logits"], base["logits"], dim=0))
         same = sum(a == b for a, b in zip(arm["tokens"], base["tokens"]))
         arm["cos_vs_xla"] = cos
-        log(f"[engine-full] {label}: first-token logits cos vs xla/fast "
-            f"{cos:.6f}, rel_err {rel_err(arm['logits'], base['logits']):.3g}"
-            f"; tokens equal to xla/fast {same}/{new_tokens}")
+        log(f"[engine-full] {cfg.name} {label}: first-token logits cos vs "
+            f"xla/fast {cos:.6f}, rel_err "
+            f"{rel_err(arm['logits'], base['logits']):.3g}; tokens equal to "
+            f"xla/fast {same}/{new_tokens}")
         if cos < 0.99:
-            raise AssertionError(f"[engine-full] {label}: cosine {cos:.4f} "
-                                 "< 0.99")
-    arms["hetero-tensor/fast"]["attention_gate"] = attention_gate(
-        cfg, params, prompt)
-    fast, host = arms["hetero-tensor/fast"], arms["hetero-tensor/host"]
-    log(f"[engine-full] decode host/fast {host['decode_s'] / fast['decode_s']:.3f}"
-        f"; dispatch overhead {measure_dispatch_overhead():.1f} us "
-        "(median launch + sync)")
+            raise AssertionError(f"[engine-full] {cfg.name} {label}: cosine "
+                                 f"{cos:.4f} < 0.99")
+    for gate in gates:
+        results["hetero-tensor/fast"][gate.__name__] = gate(cfg, params,
+                                                            prompt)
+    if "hetero-tensor/host" in results:
+        fast, host = results["hetero-tensor/fast"], \
+            results["hetero-tensor/host"]
+        log(f"[engine-full] decode host/fast "
+            f"{host['decode_s'] / fast['decode_s']:.3f}; dispatch overhead "
+            f"{measure_dispatch_overhead():.1f} us (median launch + sync)")
     eng = InferenceEngine(cfg, params, mode="hetero-tensor",
                           prefill_strategy="hetero")
     eng.generate(prompt, new_tokens)
-    _profiled("engine hetero-tensor/fast",
-              lambda: eng.generate(prompt, new_tokens), params["embed"])
-    return arms
+    _profiled(f"engine {cfg.name} hetero-tensor/fast",
+              lambda: eng.generate(prompt, new_tokens), anchor)
+    return results
+
+
+def hybrid_model():
+    """zamba2-2.7b at full width (54 mamba layers, d_model 2560, one shared
+    attention block), bf16, seeded random weights on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import fence
+    from repro_torch.models import build_model
+
+    cfg = get_config("zamba2-2.7b")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    fence(params["embed"])
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers, "
+        f"{cfg.n_params / 1e9:.2f} B params, {n_bytes / 1e9:.2f} GB "
+        f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def phase_engine_hybrid(cfg, params) -> dict:
+    """zamba2-2.7b through the single-request engine: prompt 600 (chunks
+    512 and 88: a two-launch SSD scan at full width, then a ragged L), 16
+    new tokens, hetero-tensor and xla with fast sync, then ``ssd_gate`` and
+    ``attention_gate`` on this model (D = 80, 32 / 32 heads)."""
+    return phase_engine_full(cfg, params, prompt_len=600, new_tokens=16,
+                             arms=(("hetero-tensor", True), ("xla", True)),
+                             seed=6, gates=(ssd_gate, attention_gate))
 
 
 def _leaves(tree):
@@ -1140,11 +1441,17 @@ def main() -> int:
     kern = phase_kernels()
     qkern = phase_quant_kernels()
     attn = phase_attention_kernels()
+    ssd = phase_ssd_kernel()
     phase_tokens()
-    phase_engine_tokens()
+    phase_engine_tokens("llama3-8b")
+    phase_engine_tokens("zamba2-2.7b")
     cfg, params = full_model()
     full = phase_full(cfg, params)
     engine = phase_engine_full(cfg, params)
+    del cfg, params                  # the llama3 weights leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = phase_engine_hybrid(*hybrid_model())
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -1159,10 +1466,10 @@ def main() -> int:
     def wgate(rows):
         return next(r for r in rows if r["case"] == "path_wgate_m256")
 
-    def attention_entry(name, source, replaces, row):
+    def path_entry(name, source, replaces, row, arms):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": engine["hetero-tensor/fast"]["launches"][name],
+                "launches": arms["hetero-tensor/fast"]["launches"][name],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1183,14 +1490,17 @@ def main() -> int:
               "src/repro/kernels/hetero_matmul/kernel.py:146",
               wgate(qkern["timings"]["w4a16"]),
               full["w4a16"]["gemm_launches"]),
-        attention_entry("flash_attention",
-                        "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:73",
-                        flash_row),
-        attention_entry("decode_attention",
-                        "src/repro_torch/csrc/decode_attention.cu",
-                        "src/repro/kernels/decode_attention/kernel.py:59",
-                        decode_row),
+        path_entry("flash_attention",
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:73",
+                   flash_row, engine),
+        path_entry("decode_attention",
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:59",
+                   decode_row, engine),
+        path_entry("ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
+                   "src/repro/kernels/ssm_scan/kernel.py:50",
+                   ssd["timings"][0], hybrid),
     ]}
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         raise AssertionError(f"a kernel never launched on its path: "
@@ -1199,6 +1509,8 @@ def main() -> int:
         + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in full.items())
         + "; engine tok/s "
         + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in engine.items())
+        + "; zamba2 engine tok/s "
+        + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in hybrid.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The dense decoder-only configurations of the reference package, each
-exporting ``CONFIG`` (the published shape) and ``SMOKE`` (a reduced model
-of the same family for CPU tests).
+The dense decoder-only and the Mamba2 hybrid configurations of the
+reference package, each exporting ``CONFIG`` (the published shape) and
+``SMOKE`` (a reduced model of the same family for CPU tests).
 """
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, dtype_of
+from .base import ModelConfig, SSMConfig, dtype_of
 
 _ARCH_MODULES = {
     "smollm-135m": "smollm_135m",
@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "qwen3-1.7b": "qwen3_1_7b",
     "internlm-1.8b": "internlm_1_8b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)
@@ -35,5 +36,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["ModelConfig", "dtype_of", "get_config", "get_smoke_config",
-           "ARCHS"]
+__all__ = ["ModelConfig", "SSMConfig", "dtype_of", "get_config",
+           "get_smoke_config", "ARCHS"]

@@ -1,7 +1,8 @@
 """Weight bridge: the reference's parameters as the port's tensors.
 
 ``params_from_numpy`` takes the JAX package's params pytree converted to
-numpy (``jax.tree.map(np.asarray, params)``: stacked ``layers`` axis,
+numpy (``jax.tree.map(np.asarray, params)``: a stacked ``layers`` axis, or
+for the hybrid a stacked ``mamba`` axis beside one ``shared`` block;
 ``[K, N]`` weights) and returns the same dict of torch tensors. JAX bf16
 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects; every float array goes through float32 (exact for bf16 and fp16)
@@ -43,7 +44,9 @@ def _convert(tree, device):
 def params_from_numpy(np_params: dict, cfg, device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on ``device``
     (the card unless ``"cpu"`` is asked for)."""
-    L = np.asarray(np_params["layers"]["attn_norm"]).shape[0]
+    stacked = (np_params["layers"]["attn_norm"] if "layers" in np_params
+               else np_params["mamba"]["norm"])   # the hybrid's mamba stack
+    L = np.asarray(stacked).shape[0]
     if L != cfg.n_layers:
         raise ValueError(f"params hold {L} layers, {cfg.name} has "
                          f"{cfg.n_layers}")

@@ -23,9 +23,11 @@ PROBE_MS = (1, 8, 32, 64, 96, 128, 192, 256, 320, 384, 512, 768, 1024,
 
 
 def model_weight_shapes(cfg) -> dict[str, tuple[int, int]]:
-    """Site name -> (K, N) for every partitionable matmul of a dense model."""
+    """Site name -> (K, N) for every partitionable matmul of a dense or a
+    hybrid model (the hybrid adds its mamba blocks' in_proj and out_proj
+    to the shared attention block's sites)."""
     d, hd = cfg.d_model, cfg.head_dim
-    return {
+    sites = {
         "wq": (d, cfg.n_heads * hd),
         "wk": (d, cfg.n_kv_heads * hd),
         "wv": (d, cfg.n_kv_heads * hd),
@@ -35,6 +37,12 @@ def model_weight_shapes(cfg) -> dict[str, tuple[int, int]]:
         "w_up": (d, cfg.d_ff),
         "w_down": (cfg.d_ff, d),
     }
+    if cfg.ssm is not None:
+        d_in = cfg.ssm.expand * d
+        nh = d_in // cfg.ssm.head_dim
+        sites["in_proj"] = (d, 2 * d_in + 2 * cfg.ssm.d_state + nh)
+        sites["out_proj"] = (d_in, d)
+    return sites
 
 
 @dataclass

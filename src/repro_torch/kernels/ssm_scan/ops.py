@@ -1,0 +1,125 @@
+"""Wrapper of the SSD chunk kernel (``csrc/ssd_chunk.cu``) and the chunk scan.
+
+``ssd_chunk(xb, B_, C_, seg, S_prev)`` has the contract of
+``repro.kernels.ssm_scan.kernel.ssd_chunk_pallas``: one Mamba2 chunk step,
+all operands fp32, returning fp32 (y ``[B,L,nh,hd]``, S_new
+``[B,nh,hd,N]``). A CUDA tensor launches the kernel or raises; only tensors
+that lie on the CPU take the plain version (``ref.py``).
+``ssd_chunk.launches`` counts launches.
+
+``ssd_scan`` is the port of ``repro.kernels.ssm_scan.ops.ssd_scan``: the
+whole scan as a host loop of ``ssd_chunk`` calls, the state passed from one
+launch to the next on the device. ``chunk_inputs`` and ``scan_chunks`` are
+its two halves, which ``models/mamba2.py::ssd_chunked`` shares.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import ssd_chunk_ref
+
+MAX_DIM = 64                   # the kernel's largest head dim and state size
+
+
+def _check(xb, B_, C_, seg, S_prev) -> None:
+    if xb.ndim != 4 or B_.ndim != 3 or C_.shape != B_.shape or seg.ndim != 3 \
+            or S_prev.ndim != 4:
+        raise ValueError(
+            f"expected xb [B,L,nh,hd], B_/C_ [B,L,N], seg [B,L,nh], S_prev "
+            f"[B,nh,hd,N]; got {tuple(xb.shape)}, {tuple(B_.shape)}, "
+            f"{tuple(C_.shape)}, {tuple(seg.shape)}, {tuple(S_prev.shape)}")
+    Bb, L, nh, hd = xb.shape
+    N = B_.shape[-1]
+    if B_.shape[:2] != (Bb, L) or seg.shape != (Bb, L, nh) \
+            or S_prev.shape != (Bb, nh, hd, N):
+        raise ValueError(
+            f"shape mismatch: xb {tuple(xb.shape)}, B_ {tuple(B_.shape)}, "
+            f"seg {tuple(seg.shape)}, S_prev {tuple(S_prev.shape)}")
+    if L < 1:
+        raise ValueError("an empty chunk")
+    ops = (xb, B_, C_, seg, S_prev)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError(f"operands must be float32, got "
+                        f"{[t.dtype for t in ops]}")
+    if any(t.device != xb.device for t in ops):
+        raise ValueError(f"operands on different devices: "
+                         f"{[str(t.device) for t in ops]}")
+
+
+def _launch(xb, B_, C_, seg, S_prev):
+    from ..build import entry
+
+    Bb, L, nh, hd = xb.shape
+    N = B_.shape[-1]
+    if hd > MAX_DIM or N > MAX_DIM:
+        raise ValueError(f"head dim {hd} or state size {N} > {MAX_DIM}")
+    if xb.stride(3) != 1 or (nh > 1 and xb.stride(2) != hd) \
+            or B_.stride(2) != 1 or C_.stride(2) != 1 or seg.stride(2) != 1 \
+            or not S_prev.is_contiguous():
+        raise ValueError(
+            f"strides xb {xb.stride()}, B_ {B_.stride()}, C_ {C_.stride()}, "
+            f"seg {seg.stride()}, S_prev {S_prev.stride()}: the last dims "
+            "must be packed and S_prev contiguous")
+    launch = entry("ssd_chunk", "ssd_chunk_fwd", *[ctypes.c_void_p] * 7,
+                   *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 8)
+    y = torch.empty(xb.shape, dtype=torch.float32, device=xb.device)
+    S_new = torch.empty(S_prev.shape, dtype=torch.float32, device=xb.device)
+    launch(xb.device, xb.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+           seg.data_ptr(), S_prev.data_ptr(), y.data_ptr(), S_new.data_ptr(),
+           Bb, L, nh, hd, N, *[s for t in (xb, B_, C_, seg)
+                                for s in (t.stride(0), t.stride(1))])
+    ssd_chunk.launches += 1
+    return y, S_new
+
+
+def ssd_chunk(xb: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+              seg: torch.Tensor, S_prev: torch.Tensor):
+    """One SSD chunk step: (y ``[B,L,nh,hd]``, S_new ``[B,nh,hd,N]``)."""
+    _check(xb, B_, C_, seg, S_prev)
+    if xb.device.type == "cpu":
+        return ssd_chunk_ref(xb, B_, C_, seg, S_prev)
+    if xb.device.type == "cuda":
+        return _launch(xb, B_, C_, seg, S_prev)
+    raise ValueError(f"unsupported device {xb.device}")
+
+
+ssd_chunk.launches = 0
+
+
+def chunk_inputs(xh, dt, A, B_, C_, L: int):
+    """The scan's fp32 operands for chunks of ``L`` steps (S a multiple of
+    L): xb = xh * dt, B_, C_, and seg, the inclusive cumsum of dt * A
+    within each chunk. xh [B,S,nh,hd]; dt [B,S,nh] (post-softplus); A [nh]
+    (negative); B_, C_ [B,S,N]."""
+    Bb, S, nh, _ = xh.shape
+    da = (dt * A[None, None, :]).float()
+    xb = (xh * dt[..., None]).float()
+    seg = da.reshape(Bb, S // L, L, nh).cumsum(dim=2).reshape(Bb, S, nh)
+    return xb, B_.float(), C_.float(), seg
+
+
+def scan_chunks(xb, B_, C_, seg, L: int, state):
+    """``ssd_chunk`` over each run of ``L`` steps in order, the state passed
+    on from launch to launch. Returns (y [B,S,nh,hd], final state)."""
+    ys = []
+    for i in range(xb.shape[1] // L):
+        sl = slice(i * L, (i + 1) * L)
+        y, state = ssd_chunk(xb[:, sl], B_[:, sl], C_[:, sl], seg[:, sl],
+                             state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def ssd_scan(xh, dt, A, B_, C_, *, chunk: int = 256):
+    """The whole SSD scan from a zero state; S must be a multiple of
+    ``min(chunk, S)``. Returns (y [B,S,nh,hd] fp32, final state
+    [B,nh,hd,N] fp32)."""
+    Bb, S, nh, hd = xh.shape
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {L}")
+    state = torch.zeros((Bb, nh, hd, B_.shape[-1]), dtype=torch.float32,
+                        device=xh.device)
+    return scan_chunks(*chunk_inputs(xh, dt, A, B_, C_, L), L, state)

@@ -7,9 +7,11 @@
 
 Without ``--batched`` it runs the single-request HeteroInfer engine
 (``InferenceEngine.generate`` on one seeded prompt of ``--prompt-len``
-tokens) and prints its prefill and decode tok/s; with ``--batched --paged``
-it drives ``PagedBatcher.run`` on seeded synthetic prompts and prints tok/s
-and the dispatch counts. Weights are random and seeded. Runs on the card
+tokens) and prints its prefill and decode tok/s, for the dense models and
+the Mamba2 hybrid (``--arch zamba2-2.7b``); with ``--batched --paged`` it
+drives ``PagedBatcher.run`` on seeded synthetic prompts and prints tok/s
+and the dispatch counts (dense models only: the hybrid has no paged KV
+cache, and the batcher refuses it). Weights are random and seeded. Runs on the card
 unless ``--device cpu`` is given (use ``--smoke`` there).
 
 Engine options:

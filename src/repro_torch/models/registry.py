@@ -1,10 +1,14 @@
-"""Uniform model interface over the ported families (dense for now).
+"""Uniform model interface over the ported families: the dense
+decoder-only transformer and the zamba2-style Mamba2 hybrid.
 
 ``build_model(cfg)`` returns a ``Model`` whose members are plain functions:
     init(generator=None, device="cuda") -> params
     init_cache(batch, max_len, dtype=, device=) -> dense cache
     prefill(params, tokens, cache, start_index=) -> (last_logits, cache)
     decode_step(params, token, cache) -> (logits, cache)
+Attention-family models (dense) additionally expose the paged-KV trio used
+by the serving scheduler (serving/scheduler.py::PagedBatcher); they are
+None for the hybrid, whose recurrent state is O(1) and needs no paging:
     init_paged_cache(num_blocks=, block_size=, dtype=, kv_quant=, device=)
         -> pool
     paged_prefill(params, tokens, pool, block_table=, start_index=)
@@ -18,9 +22,17 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
-from . import transformer
+from . import mamba2, transformer
+
+# what each family of the reference still needs in the port
+_NOT_PORTED = {
+    "moe": "models/moe.py and the MoE configs",
+    "ssm": "models/rwkv6.py and the RWKV configs",
+    "audio": "the encoder-only path (forward_hidden)",
+    "vlm": "the chameleon config",
+}
 
 
 @dataclass(frozen=True)
@@ -30,22 +42,32 @@ class Model:
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
-    init_paged_cache: Callable
-    paged_prefill: Callable
-    paged_decode_step: Callable
+    init_paged_cache: Optional[Callable] = None
+    paged_prefill: Optional[Callable] = None
+    paged_decode_step: Optional[Callable] = None
 
 
 def build_model(cfg) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense family is "
-                                  "ported")
+    if cfg.family == "hybrid" and cfg.ssm is not None:
+        mod = mamba2
+    elif cfg.family == "dense":
+        mod = transformer
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported (it needs "
+            f"{_NOT_PORTED.get(cfg.family, 'its model module')})")
+    paged = {}
+    if mod is transformer:
+        paged = dict(
+            init_paged_cache=partial(transformer.init_paged_cache, cfg),
+            paged_prefill=partial(transformer.paged_prefill, cfg=cfg),
+            paged_decode_step=partial(transformer.paged_decode_step, cfg=cfg),
+        )
     return Model(
         cfg=cfg,
-        init=partial(transformer.init_params, cfg),
-        init_cache=partial(transformer.init_cache, cfg),
-        prefill=partial(transformer.prefill, cfg=cfg),
-        decode_step=partial(transformer.decode_step, cfg=cfg),
-        init_paged_cache=partial(transformer.init_paged_cache, cfg),
-        paged_prefill=partial(transformer.paged_prefill, cfg=cfg),
-        paged_decode_step=partial(transformer.paged_decode_step, cfg=cfg),
+        init=partial(mod.init_params, cfg),
+        init_cache=partial(mod.init_cache, cfg),
+        prefill=partial(mod.prefill, cfg=cfg),
+        decode_step=partial(mod.decode_step, cfg=cfg),
+        **paged,
     )

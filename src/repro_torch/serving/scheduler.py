@@ -110,6 +110,9 @@ class PagedBatcher:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
+        if self.model.paged_decode_step is None:
+            raise ValueError(f"{cfg.name}: paged KV cache requires an "
+                             "attention-family model")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params if params is not None else self.model.init(
             self.generator, device=self.device)

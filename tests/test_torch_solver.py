@@ -20,10 +20,21 @@ def test_config_fields_equal_reference(arch, smoke):
                     if smoke else (configs.get_config, ref_configs.get_config))
     cfg, ref = get(arch), ref_get(arch)
     for f in dataclasses.fields(cfg):
+        if f.name == "ssm" and ref.ssm is not None:
+            continue          # two classes of one shape: compared below
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
-    # the port covers the dense decoder-only family only
-    assert ref.family == "dense" and ref.moe is None and ref.ssm is None
-    assert ref.rwkv is None and not ref.encoder_only
+    # the port covers the dense decoder-only family and the Mamba2 hybrid,
+    # whose SSMConfig equals the reference's field by field
+    if ref.family == "hybrid":
+        assert cfg.ssm is not None
+        for f in dataclasses.fields(ref.ssm):
+            assert getattr(cfg.ssm, f.name) == getattr(ref.ssm, f.name), \
+                f"ssm.{f.name}"
+        assert {f.name for f in dataclasses.fields(cfg.ssm)} == \
+            {f.name for f in dataclasses.fields(ref.ssm)}
+    else:
+        assert ref.family == "dense" and ref.ssm is None
+    assert ref.moe is None and ref.rwkv is None and not ref.encoder_only
     assert cfg.head_dim == ref.head_dim
     assert cfg.n_params == ref.n_params
 
