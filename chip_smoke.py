@@ -8,11 +8,15 @@ without them or outside a checkout of the repository. Phases, each raising
 on failure:
 
   1. card and build: the card's name and power limit (nvidia-smi), then
-     every CUDA source of the port built with nvcc for sm_90a;
+     every CUDA source of the port built with nvcc for sm_90a, each
+     kernel's registers and spills from ``-Xptxas -v`` (a spill in a
+     tensor-core kernel fails);
   2. each kernel against its plain PyTorch version on the card, over the
      conformance shapes and the serving path's own shapes, in fp32, bf16
      and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
-     stationary orders with strided operands, the int8 and W4A16 GEMMs on
+     stationary orders with strided operands, direct and in the exchanged
+     order, the bf16 / fp16 tensor-core kernel at split 1, the plan's split
+     and the largest its plan allows; the int8 and W4A16 GEMMs on
      codes from the port's quantizers, direct and as a column slice of a
      wider code tensor, through HeteroCtx's padding; the flash- and
      decode-attention kernels over the conformance grid (1/2/4 query heads
@@ -23,7 +27,8 @@ on failure:
      case's M, inputs rounded through fp32 / bf16 / fp16), the smoke model's
      hd = N = 16 and the zamba2 path shapes (L = 256, 88, 1), S_prev zero
      and not, within the reference's 1e-4, and ``ssd_scan`` over two chunks;
-     kernel, plain and library timings with CUDA events;
+     kernel, plain and library timings with CUDA events, and the kernel's
+     and the library's device time from torch.profiler;
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
      port on the CPU, gives the same greedy tokens, with fp weights and with
@@ -80,10 +85,16 @@ CONFORMANCE_CASES = (
     ("quant_edges", 64, 95, 192),
 )
 # shapes the serving path gives the kernel at llama3-8b: wq's MXU block at
-# a 128-token chunk, w_gate's at a 256-token chunk (plan: weight strategy)
+# a 128-token chunk, w_gate's at a 256-token chunk (plan: weight strategy),
+# wk's at the engine's 44-token chunk (padded to 128: one 128 x 128 tile),
+# w_down's at a 256-token chunk; and zamba2-2.7b's in_proj block at its
+# 512-token chunk, which HeteroCtx launches in the exchanged order
 PATH_CASES = (
     ("path_wq_m128", 128, 4096, 2048),
     ("path_wgate_m256", 256, 4096, 7168),
+    ("path_wk_m44", 128, 4096, 128),
+    ("path_wdown_m256", 256, 14336, 2048),
+    ("path_inproj_m512", 512, 2560, 6528),
 )
 # the same sites' aligned blocks under the quantized plans (int8 and w4a16
 # alike), each a column slice of the full [4096, n_full] code tensor
@@ -106,6 +117,26 @@ def log(msg: str) -> None:
 def rel_err(a, b) -> float:
     a32, b32 = a.float(), b.float()
     return float((a32 - b32).abs().max() / (b32.abs().max() + 1e-9))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn()`` per call: the kernels' own time, summed by
+    torch.profiler over ``iters`` calls, without the gaps in which the card
+    waits for the host (which ``cuda_time_ms`` includes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -136,11 +167,35 @@ def phase_card_and_build() -> str:
     reports = build.build()
     log(f"[build] {len(reports)} source(s) built in "
         f"{time.perf_counter() - t0:.1f}s ({', '.join(build.SOURCES)})")
+    spilled = []
     for name, out in reports.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, regs, spill in _ptxas_report(out):
+            log(f"[build] {name}: {fn[:72]}: {regs} registers, spill "
+                f"stores/loads {spill[0]}/{spill[1]} bytes")
+            if any(spill) and ("gemm_tc" in fn or "flash_tc" in fn):
+                spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill: {spilled}")
     return card
+
+
+def _ptxas_report(out: str):
+    """(entry function, registers, (spill store, spill load bytes)) of each
+    kernel in nvcc's ``-Xptxas -v`` output."""
+    import re
+    fn, spill = None, (0, 0)
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            yield fn, int(m.group(1)), spill
+            fn, spill = None, (0, 0)
 
 
 # ------------------------------------------------------------------ phase 2 --
@@ -152,7 +207,9 @@ def _pad(t, mult=128):
 
 
 def phase_kernels() -> dict:
-    """Every case x dtype x stationary order, plain and strided operands."""
+    """Every case x dtype x stationary order, plain and strided operands,
+    direct and exchanged; the bf16 / fp16 tensor-core kernel (output
+    order) at split 1, the plan's split and the largest the plan allows."""
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.core.characteristics import mxu_matmul_time_us
@@ -160,8 +217,21 @@ def phase_kernels() -> dict:
     from repro_torch.kernels.hetero_matmul.ref import matmul_ref
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {}
     n_checks = 0
+
+    def plans(a, b, dname, st):
+        """None (the plan inside the wrapper) for the FMA bodies; for the
+        tensor-core kernel the forced plans at split 1, the plan's and the
+        largest split, each at the plan's tile width."""
+        if st != "output" or dname == "float32":
+            return [None]
+        (M, K), N = a.shape, b.shape[1]
+        bm, bn, split = ops.gemm_plan(M, N, K, n_sm)
+        return [(bm, bn, s) for s in sorted({1, split,
+                                             ops.gemm_splits(K)[-1]})]
+
     for name, M, K, N in CONFORMANCE_CASES + PATH_CASES:
         x32 = torch.randn((M, K), generator=g, device="cuda")
         # a column slice of a wider weight, as the weight strategy passes it
@@ -172,18 +242,20 @@ def phase_kernels() -> dict:
             ref = matmul_ref(x, w)
             xp, wp = _pad(x), _pad(w)
             for st in ("output", "weight"):
-                direct = ops.mxu_matmul(xp, wp, stationary=st)[:M, :N]
-                exchanged = ops.mxu_matmul(wp.T, xp.T, stationary=st).T[:M, :N]
-                torch.cuda.synchronize()
-                for form, y in (("direct", direct), ("exchanged", exchanged)):
-                    e = rel_err(y, ref)
-                    n_checks += 1
-                    key = (dname, st)
-                    worst[key] = max(worst.get(key, 0.0), e)
-                    if not e <= tol:
-                        raise AssertionError(
-                            f"hetero_matmul {name} {dname} {st} {form}: "
-                            f"rel_err {e:.3g} > {tol}")
+                for form, a, b in (("direct", xp, wp),
+                                   ("exchanged", wp.T, xp.T)):
+                    for plan in plans(a, b, dname, st):
+                        y = ops.mxu_matmul(a, b, stationary=st, plan=plan)
+                        y = (y if form == "direct" else y.T)[:M, :N]
+                        torch.cuda.synchronize()
+                        e = rel_err(y, ref)
+                        n_checks += 1
+                        key = (dname, st)
+                        worst[key] = max(worst.get(key, 0.0), e)
+                        if not e <= tol:
+                            raise AssertionError(
+                                f"hetero_matmul {name} {dname} {st} {form} "
+                                f"plan {plan}: rel_err {e:.3g} > {tol}")
     for (dname, st), e in sorted(worst.items()):
         log(f"[kernels] hetero_matmul {dname:8s} {st:6s}: worst rel_err "
             f"{e:.3g} <= {DTYPE_TOL[dname]}")
@@ -201,15 +273,19 @@ def phase_kernels() -> dict:
         y = ops.mxu_matmul(a, b)
         y = y.T if exch else y
         torch.cuda.synchronize()
+        _, bn, split = ops.gemm_plan(a.shape[0], b.shape[1], K, n_sm)
         row = {
             "case": name, "M": M, "K": K, "N": N, "dtype": "bfloat16",
-            "exchanged": exch,
+            "exchanged": exch, "plan_bn": bn, "plan_split": split,
+            "blocks": a.shape[0] // 128 * (b.shape[1] // bn) * split,
             "max_abs_err": float((y.float() - ref.float()).abs().max()),
             "ms": cuda_time_ms(lambda: ops.mxu_matmul(a, b)),
+            "device_ms": device_ms(lambda: ops.mxu_matmul(a, b)),
             "weight_stationary_ms": cuda_time_ms(
                 lambda: ops.mxu_matmul(a, b, stationary="weight")),
             "plain_ms": cuda_time_ms(lambda: matmul_ref(x, w)),
             "library_ms": cuda_time_ms(lambda: torch.matmul(x, w)),
+            "library_device_ms": device_ms(lambda: torch.matmul(x, w)),
         }
         nbytes = (M * K + K * N + M * N) * 2
         flops = 2 * M * K * N
@@ -392,6 +468,8 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
             qt, kt, vt, attn_mask=mask)
         row["library_note"] = "scaled_dot_product_attention, kv repeated"
     row["library_ms"] = cuda_time_ms(lib)
+    row["device_ms"] = device_ms(run)
+    row["library_device_ms"] = device_ms(lib)
     el = q.element_size()
     nbytes = (2 * q.numel() + 2 * B * n_keys * Hkv * D) * el
     flops = 4 * B * Hq * D * pairs
@@ -1461,7 +1539,9 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "shape": [row["M"], row["K"], row["N"]],
-                "dtype": row["dtype"]}
+                "dtype": row["dtype"],
+                **{k: row[k] for k in ("device_ms", "plan_bn", "plan_split")
+                   if k in row}}
 
     def wgate(rows):
         return next(r for r in rows if r["case"] == "path_wgate_m256")
@@ -1474,7 +1554,8 @@ def main() -> int:
                 "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": row["shape"],
-                "dtype": row["dtype"]}
+                "dtype": row["dtype"],
+                **{k: row[k] for k in ("device_ms",) if k in row}}
 
     flash_row, decode_row = attn["timings"][0], attn["timings"][2]
 

@@ -4,7 +4,7 @@ Each ``src/repro_torch/csrc/<name>.cu`` exports a plain C interface and
 compiles into ``build/kernels/lib<name>.so`` under the repository root (a
 directory git ignores), for ``sm_90a`` only. Building happens at first use,
 never at import, and only from the sources in the checkout: a library is
-rebuilt whenever its source or the shared ``csrc/common.cuh`` is newer.
+rebuilt whenever its source or any shared header ``csrc/*.cuh`` is newer.
 There is no fallback: a failed build raises. ``entry`` binds one C entry
 point for a wrapper: its launches go to the current stream, and a nonzero
 return raises with CUDA's name for the error.
@@ -47,10 +47,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = library_path(name)
+def _stale(name: str, csrc: Path = CSRC, lib: Path | None = None) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than its source or any
+    shared header of ``csrc``."""
+    lib = lib or library_path(name)
     newest = max(p.stat().st_mtime
-                 for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"))
+                 for p in (csrc / f"{name}.cu", *csrc.glob("*.cuh")))
     return not lib.exists() or lib.stat().st_mtime < newest
 
 

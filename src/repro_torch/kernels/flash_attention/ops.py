@@ -4,9 +4,12 @@
 ``repro.kernels.flash_attention.ops.flash_attention``: GQA attention of q
 ``[B,Sq,Hq,D]`` over k/v ``[B,Sk,Hkv,D]``, causal (aligned bottom-right,
 so a chunk at cache position ``Sk - Sq`` sees its prefix) or not. The
-kernel takes any D <= 128 as it is, so nothing is padded. A CUDA tensor
-launches the kernel or raises; only tensors that lie on the CPU take the
-plain version (``ref.py``). ``flash_attention.launches`` counts launches.
+kernel takes any D <= 128 as it is, so nothing is padded here. bf16 / fp16
+run on the tensor cores and round the probabilities to the input type
+before the P V product (``ref.attention_rounded_p_ref``); fp32 stays true
+fp32. A CUDA tensor launches the kernel or raises; only tensors that lie on
+the CPU take the plain version (``ref.py``). ``flash_attention.launches``
+counts launches.
 """
 from __future__ import annotations
 

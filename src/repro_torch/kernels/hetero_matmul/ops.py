@@ -3,7 +3,10 @@
 
 ``mxu_matmul(x, w)`` is the port of ``repro.kernels.hetero_matmul.ops
 .mxu_matmul``: ``[..., K] @ [K, N]`` with fp32 accumulation, all of M, K and
-N multiples of 128. ``mxu_quant_matmul(x, wq, scale)`` and
+N multiples of 128. In bf16 / fp16 and the output-stationary order it runs
+the tensor-core kernel on the launch plan of :func:`gemm_plan` (tile width
+and split of K); its operands go through TMA, so they must pass
+:func:`tma_operand`. ``mxu_quant_matmul(x, wq, scale)`` and
 ``mxu_q4_matmul(x, wq4, scale)`` are the weight-only quantized versions
 (int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``).
 A CUDA tensor launches the kernel or raises; only tensors that lie on the
@@ -16,6 +19,7 @@ and scales byte for byte (``repro.kernels.hetero_matmul.ops``).
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -24,6 +28,61 @@ from .ref import matmul_ref, q4_matmul_ref, quant_matmul_ref, unpack_int4
 ALIGN = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _STATIONARY_CODE = {"output": 0, "weight": 1}
+_TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+# the tensor-core kernel's tiles: 128 rows, 64 or 128 columns, 64-deep k
+# steps; a split of K takes at least MIN_SPLIT_STEPS of them
+TILE_M, TILE_K = 128, 64
+TILE_NS = (128, 64)
+MIN_SPLIT_STEPS = 4
+H100_SMS = 132
+
+
+@lru_cache(maxsize=None)
+def gemm_splits(K: int) -> tuple[int, ...]:
+    """The splits of K the kernel may take, ascending: divisors of K's
+    64-deep steps that leave each split at least ``MIN_SPLIT_STEPS`` steps
+    (1 always)."""
+    steps = K // TILE_K
+    return tuple(s for s in range(1, steps + 1) if steps % s == 0
+                 and (s == 1 or steps // s >= MIN_SPLIT_STEPS))
+
+
+@lru_cache(maxsize=None)
+def gemm_plan(M: int, N: int, K: int, n_sm: int = H100_SMS
+              ) -> tuple[int, int, int]:
+    """(BM, BN, split) of the tensor-core GEMM at an aligned shape. For each
+    tile width, the smallest split whose blocks (tiles x split) fill the
+    ``n_sm`` SMs; of the widths that fill them, the one with the smaller
+    split (fewer fp32 partial bytes), the wider tile on a tie. Where no
+    split K allows fills the card, the most blocks."""
+    splits = gemm_splits(K)
+    cands = []
+    for bn in TILE_NS:
+        tiles = (M // TILE_M) * (N // bn)
+        split = next((s for s in splits if tiles * s >= n_sm), splits[-1])
+        cands.append((bn, split, tiles * split))
+    full = [c for c in cands if c[2] >= n_sm]
+    bn, split, _ = (min(full, key=lambda c: c[1]) if full
+                    else max(cands, key=lambda c: c[2]))
+    return TILE_M, bn, split
+
+
+def check_plan(plan, M: int, N: int, K: int) -> tuple[int, int, int]:
+    """``plan`` as a (BM, BN, split) the kernel takes at (M, N, K), or
+    ValueError."""
+    bm, bn, split = plan
+    if bm != TILE_M or bn not in TILE_NS or M % bm or N % bn \
+            or split not in gemm_splits(K):
+        raise ValueError(f"plan {tuple(plan)} does not fit ({M},{K},{N}): "
+                         f"BM {TILE_M}, BN one of {TILE_NS} dividing N, "
+                         f"split one of {gemm_splits(K)}")
+    return bm, bn, split
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stationary: str) -> None:
@@ -63,40 +122,69 @@ def operand_layout(t: torch.Tensor) -> tuple[int, int]:
                      " are neither row- nor column-major")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str) -> torch.Tensor:
+def tma_operand(t: torch.Tensor) -> tuple[int, int]:
+    """:func:`operand_layout` of a 16-bit operand that the tensor-core
+    kernel reads through TMA, which needs a 16-byte-aligned base and a
+    leading dimension of a multiple of 16 bytes. Raises otherwise: the
+    wrapper never copies an operand to make it fit."""
+    ld, trans = operand_layout(t)
+    if t.data_ptr() % 16 or (ld * t.element_size()) % 16:
+        raise ValueError(f"operand at byte offset {t.data_ptr() % 16} mod 16"
+                         f" with leading dimension {ld} ({t.dtype}): TMA "
+                         "needs a 16-byte-aligned base and leading dimension")
+    return ld, trans
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str,
+            plan) -> torch.Tensor:
     from ..build import entry
 
     launch = entry("hetero_matmul", "hetero_matmul",
                    *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 3,
-                   *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 4)
+                   *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 6)
     M, K = x.shape
     N = w.shape[1]
-    lda, trans_a = operand_layout(x)
-    ldb, trans_b = operand_layout(w)
+    scratch, bn, split = None, 0, 0
+    if stationary == "output" and x.dtype in _TENSOR_CORE_DTYPES:
+        lda, trans_a = tma_operand(x)
+        ldb, trans_b = tma_operand(w)
+        _, bn, split = plan or gemm_plan(M, N, K, _sm_count(x.device.index))
+        if split > 1:
+            scratch = torch.empty((split, M, N), dtype=torch.float32,
+                                  device=x.device)
+    else:
+        lda, trans_a = operand_layout(x)
+        ldb, trans_b = operand_layout(w)
+        if stationary == "weight" and x.dtype != torch.float32:
+            scratch = torch.empty((M, N), dtype=torch.float32,
+                                  device=x.device)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    scratch = None
-    if stationary == "weight" and x.dtype != torch.float32:
-        scratch = torch.empty((M, N), dtype=torch.float32, device=x.device)
     launch(x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(),
            scratch.data_ptr() if scratch is not None else None,
            M, N, K, lda, ldb, trans_a, trans_b, _DTYPE_CODE[x.dtype],
-           _STATIONARY_CODE[stationary])
+           _STATIONARY_CODE[stationary], bn, split)
     mxu_matmul.launches += 1
     return y
 
 
 def mxu_matmul(x: torch.Tensor, w: torch.Tensor, *,
-               stationary: str = "output") -> torch.Tensor:
+               stationary: str = "output", plan=None) -> torch.Tensor:
     """``[..., K] @ [K, N]`` on the aligned path, output in ``x.dtype``.
     Shapes must be aligned; operands may be strided (see
-    :func:`operand_layout`)."""
+    :func:`operand_layout`). ``plan`` overrides :func:`gemm_plan`'s
+    (BM, BN, split) for the bf16 / fp16 output-stationary kernel."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
     _check(x2, w, stationary)
+    if plan is not None:
+        if stationary != "output" or x2.dtype not in _TENSOR_CORE_DTYPES:
+            raise ValueError("a plan applies to the bf16 / fp16 "
+                             "output-stationary kernel only")
+        check_plan(plan, x2.shape[0], w.shape[1], x2.shape[1])
     if x2.device.type == "cpu":
         y = matmul_ref(x2, w)
     elif x2.device.type == "cuda":
-        y = _launch(x2, w, stationary)
+        y = _launch(x2, w, stationary, plan)
     else:
         raise ValueError(f"unsupported device {x2.device}")
     return y.reshape(*lead, w.shape[1])

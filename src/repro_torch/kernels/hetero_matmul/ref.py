@@ -10,6 +10,24 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None) -> torch.Ten
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
+def matmul_split_ref(x: torch.Tensor, w: torch.Tensor, split: int, *,
+                     out_dtype=None) -> torch.Tensor:
+    """The tensor-core kernel's split of K: ``split`` equal fp32 partial
+    products over consecutive slices of K, summed in split order in fp32,
+    then cast to ``out_dtype`` (default ``x.dtype``)."""
+    out_dtype = out_dtype or x.dtype
+    K = x.shape[-1]
+    if K % split:
+        raise ValueError(f"split {split} does not divide K = {K}")
+    step = K // split
+    acc = None
+    for s in range(split):
+        p = torch.matmul(x[..., s * step:(s + 1) * step].float(),
+                         w[s * step:(s + 1) * step].float())
+        acc = p if acc is None else acc + p
+    return acc.to(out_dtype)
+
+
 def quant_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                      *, out_dtype=None) -> torch.Tensor:
     """Weight-only int8 product: wq int8 ``[K, N]``, scale f32 ``[N]``;
