@@ -10,7 +10,7 @@ on failure:
   1. card and build: the card's name and power limit (nvidia-smi), then
      every CUDA source of the port built with nvcc for sm_90a, each
      kernel's registers and spills from ``-Xptxas -v`` (a spill in a
-     tensor-core kernel fails);
+     tensor-core or a split-KV decode kernel fails);
   2. each kernel against its plain PyTorch version on the card, over the
      conformance shapes and the serving path's own shapes, in fp32, bf16
      and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
@@ -18,17 +18,22 @@ on failure:
      order, the bf16 / fp16 tensor-core kernel at split 1, the plan's split
      and the largest its plan allows; the int8 and W4A16 GEMMs on
      codes from the port's quantizers, direct and as a column slice of a
-     wider code tensor, through HeteroCtx's padding; the flash- and
+     wider code tensor, through HeteroCtx's padding, and the bf16 / fp16
+     int8 tensor-core kernel at split 1, the plan's and the largest, also
+     against its own order (scale after the K sum); the flash- and
      decode-attention kernels over the conformance grid (1/2/4 query heads
      per kv head, causal and not, Sq == Sk and Sq < Sk, block-multiple and
-     ragged caches, lengths 1 / ragged / all, D = 16, odd and 128) and the
+     ragged caches, lengths 0 / 1 / ragged / all, decode at split 1, the
+     plan's and the largest, D = 16, odd and 128) and the
      engine's shapes at llama3-8b and at zamba2-2.7b's shared block (D = 80,
      32 / 32 heads); the SSD chunk kernel over the conformance grid (L the
      case's M, inputs rounded through fp32 / bf16 / fp16), the smoke model's
      hd = N = 16 and the zamba2 path shapes (L = 256, 88, 1), S_prev zero
      and not, within the reference's 1e-4, and ``ssd_scan`` over two chunks;
      kernel, plain and library timings with CUDA events, and the kernel's
-     and the library's device time from torch.profiler;
+     and the library's device time from torch.profiler (decode also at
+     split 1 and the largest; the quantized GEMMs beside torch.matmul's
+     bf16 product at the same shape);
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
      port on the CPU, gives the same greedy tokens, with fp weights and with
@@ -156,6 +161,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------------ phase 1 --
 
+# kernels whose -Xptxas -v report must show no spill: the tensor-core
+# kernels (gemm_tc, qgemm_tc, flash_tc) and split-KV decode attention
+SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine")
+
+
 def phase_card_and_build() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -172,7 +182,7 @@ def phase_card_and_build() -> str:
         for fn, regs, spill in _ptxas_report(out):
             log(f"[build] {name}: {fn[:72]}: {regs} registers, spill "
                 f"stores/loads {spill[0]}/{spill[1]} bytes")
-            if any(spill) and ("gemm_tc" in fn or "flash_tc" in fn):
+            if any(spill) and any(k in fn for k in SPILL_FREE):
                 spilled.append(fn)
     if spilled:
         raise AssertionError(f"tensor-core kernels spill: {spilled}")
@@ -329,6 +339,62 @@ def _library_int8(x, wq, scale):
     return y, lambda: op(x, w_nk, s_x)
 
 
+def _int8_tc_grid(g, cases) -> int:
+    """The int8 tensor-core kernel (bf16 / fp16 x) at split 1, the plan's
+    and the largest ``gemm_splits`` allows, on the plan's tile width, with
+    codes direct and as a column slice of a twice-wider code tensor, at the
+    cases' padded shapes: against the plain version within DTYPE_TOL, and
+    against its own order (``quant_matmul_colscale_ref``). Returns the
+    number of checks."""
+    import torch
+    from repro_torch.configs import dtype_of
+    from repro_torch.kernels.hetero_matmul import ops
+    from repro_torch.kernels.hetero_matmul.ref import (
+        quant_matmul_colscale_ref, quant_matmul_ref)
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    up = lambda v: -(-v // 128) * 128                          # noqa: E731
+    worst, n_checks = {}, 0
+    for name, M, K, N in cases:
+        M, K, N = up(M), up(K), up(N)
+        x32 = torch.randn((M, K), generator=g, device="cuda")
+        w32 = torch.randn((K, 2 * N), generator=g, device="cuda")
+        wide_q, wide_s = ops.quantize_weight(w32)
+        forms = {"direct": ops.quantize_weight(w32[:, :N]),
+                 "sliced": (wide_q[:, :N], wide_s[:N])}
+        _, bn, split = ops.gemm_plan(M, N, K, n_sm)
+        for dname in ("bfloat16", "float16"):
+            x = x32.to(dtype_of(dname))
+            for form, (wq, s) in forms.items():
+                ref = quant_matmul_ref(x, wq, s)
+                for sp in sorted({1, split, ops.gemm_splits(K)[-1]}):
+                    before = ops.mxu_quant_matmul.launches
+                    y = ops.mxu_quant_matmul(x, wq, s, plan=(128, bn, sp))
+                    own = quant_matmul_colscale_ref(x, wq, s, split=sp)
+                    torch.cuda.synchronize()
+                    if ops.mxu_quant_matmul.launches != before + 1:
+                        raise AssertionError(f"int8 tc {name}: not launched")
+                    e, e_own = rel_err(y, ref), rel_err(y, own)
+                    n_checks += 1
+                    key = (dname, "plain")
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    worst[(dname, "own")] = max(worst.get((dname, "own"),
+                                                          0.0), e_own)
+                    if not (e <= DTYPE_TOL[dname]
+                            and e_own <= DTYPE_TOL[dname]):
+                        raise AssertionError(
+                            f"quant_matmul int8 tc {name} ({M},{K},{N}) "
+                            f"{dname} {form} plan (128, {bn}, {sp}): rel_err "
+                            f"{e:.3g} vs plain, {e_own:.3g} vs its order > "
+                            f"{DTYPE_TOL[dname]}")
+    for (dname, against), e in sorted(worst.items()):
+        log(f"[kernels] quant_matmul int8 tensor cores {dname:8s} vs "
+            f"{against:5s}: worst rel_err {e:.3g} <= {DTYPE_TOL[dname]}")
+    log(f"[kernels] {n_checks} int8 tensor-core checks passed (splits 1, "
+        "the plan's, the largest; direct and sliced codes)")
+    return n_checks
+
+
 def phase_quant_kernels() -> dict:
     """The int8 and W4A16 GEMMs against their plain versions: every case x
     dtype, codes from the port's quantizers of the unpadded weight, direct
@@ -337,9 +403,11 @@ def phase_quant_kernels() -> dict:
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.core.partition import HeteroCtx, QuantWeight
+    from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.kernels.hetero_matmul.ref import matmul_ref
 
     g = torch.Generator(device="cuda").manual_seed(1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     ctx = HeteroCtx(mode="mxu")
     worst, n_checks = {}, 0
     cases = CONFORMANCE_CASES + tuple(c[:4] for c in QUANT_PATH_CASES)
@@ -372,6 +440,7 @@ def phase_quant_kernels() -> dict:
         log(f"[kernels] quant_matmul {fmt:5s} {dname:8s}: worst rel_err "
             f"{e:.3g} <= {DTYPE_TOL[dname]}")
     log(f"[kernels] {n_checks} quantized checks passed")
+    n_checks += _int8_tc_grid(g, cases)
 
     # timing at the path's shapes, bf16, on the column slice the weight
     # strategy passes (the codes of the full weight live in one tensor)
@@ -385,6 +454,7 @@ def phase_quant_kernels() -> dict:
             wq, s = wq_full[:, :N], s_full[:N]
             y = wrapper(x, wq, s)
             ref = plain(x, wq, s)
+            w_bf16 = QuantWeight(wq, s, fmt, K).dequant(torch.bfloat16)
             torch.cuda.synchronize()
             row = {
                 "case": name, "M": M, "K": K, "N": N, "dtype": "bfloat16",
@@ -392,10 +462,16 @@ def phase_quant_kernels() -> dict:
                 "max_abs_err": float((y.float() - ref.float()).abs().max()),
                 "rel_err": rel_err(y, ref),
                 "ms": cuda_time_ms(lambda: wrapper(x, wq, s)),
+                "device_ms": device_ms(lambda: wrapper(x, wq, s)),
                 "plain_ms": cuda_time_ms(lambda: plain(x, wq, s)),
                 "library_ms": None,
+                # context: cuBLAS's bf16 product at the same shape
+                "matmul_bf16_device_ms": device_ms(
+                    lambda: torch.matmul(x, w_bf16)),
             }
             if fmt == "int8":
+                _, row["plan_bn"], row["plan_split"] = ops.gemm_plan(
+                    M, N, K, n_sm)
                 lib = _library_int8(x, wq, s)
                 if lib is not None:
                     row["library_ms"] = cuda_time_ms(lib[1])
@@ -423,7 +499,9 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
     or "decode" (the first ``length`` rows of the cache)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_split_plan,
+                                                          max_decode_split)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -470,6 +548,18 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
     row["library_ms"] = cuda_time_ms(lib)
     row["device_ms"] = device_ms(run)
     row["library_device_ms"] = device_ms(lib)
+    if kind == "decode":
+        # the split-KV grid: the plan's split (timed above), 1 and the
+        # largest, each held to the plain version
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        row["n_split"] = decode_split_plan(B, Hkv, Smax, n_sm)
+        for label, n_split in (("split_1", 1),
+                               ("split_max", max_decode_split(Smax))):
+            split_run = lambda: decode_attention(                # noqa: E731
+                q, k, v, n, n_split=n_split)
+            row[f"{label}_rel_err"] = rel_err(split_run(), ref)
+            row[f"{label}_device_ms"] = device_ms(split_run)
+            row[f"{label}"] = n_split
     el = q.element_size()
     nbytes = (2 * q.numel() + 2 * B * n_keys * Hkv * D) * el
     flops = 4 * B * Hq * D * pairs
@@ -490,12 +580,16 @@ def phase_attention_kernels() -> dict:
     zamba2-2.7b's shared block, timed against the plain version and SDPA."""
     import torch
     from repro_torch.configs import dtype_of
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_split_plan,
+                                                          max_decode_split)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, decode_attention_split_ref)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(2)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, n_checks = {}, 0
 
     def check(name, kernel, out, ref, dname, before):
@@ -535,14 +629,22 @@ def phase_attention_kernels() -> dict:
                     q = randn(2, Hkv * G, D, dt=dt)
                     k, v = randn(2, Smax, Hkv, D, dt=dt), randn(
                         2, Smax, Hkv, D, dt=dt)
-                    for length in (1, Smax // 2 + 3, Smax):
+                    plan = decode_split_plan(2, Hkv, Smax, n_sm)
+                    for length in (0, 1, Smax // 2 + 3, Smax):
                         n = torch.full((1,), length, dtype=torch.int32,
                                        device="cuda")
-                        before = decode_attention.launches
-                        out = decode_attention(q, k, v, n)
-                        check(f"decode {name} G={G} Smax={Smax} len={length}",
-                              decode_attention, out,
-                              decode_attention_ref(q, k, v, n), dname, before)
+                        # at length 0 the oracle averages the masked rows;
+                        # the kernel gives 0, as the Pallas kernel does
+                        ref = (decode_attention_ref(q, k, v, n) if length
+                               else decode_attention_split_ref(q, k, v, n, 1))
+                        for n_split in sorted({1, plan,
+                                               max_decode_split(Smax)}):
+                            before = decode_attention.launches
+                            out = decode_attention(q, k, v, n,
+                                                   n_split=n_split)
+                            check(f"decode {name} G={G} Smax={Smax} "
+                                  f"len={length} split={n_split}",
+                                  decode_attention, out, ref, dname, before)
     for (kname, dname), e in sorted(worst.items()):
         log(f"[attention] {kname:16s} {dname:8s}: worst rel_err {e:.3g} <= "
             f"{DTYPE_TOL[dname]}")
@@ -575,7 +677,9 @@ def phase_attention_kernels() -> dict:
     for length in (601, 615):
         timings.append(_attention_timing("decode", q, k, v, length))
     for row in timings:
-        if not row["rel_err"] <= DTYPE_TOL["bfloat16"]:
+        errs = [row[k] for k in ("rel_err", "split_1_rel_err",
+                                 "split_max_rel_err") if k in row]
+        if not max(errs) <= DTYPE_TOL["bfloat16"]:
             raise AssertionError(f"[attention] path shape {row['shape']}: "
                                  f"rel_err {row['rel_err']:.3g}")
         log(f"[attention] time {json.dumps(row)}")
@@ -1540,8 +1644,9 @@ def main() -> int:
                 "library_ms": row["library_ms"],
                 "shape": [row["M"], row["K"], row["N"]],
                 "dtype": row["dtype"],
-                **{k: row[k] for k in ("device_ms", "plan_bn", "plan_split")
-                   if k in row}}
+                **{k: row[k] for k in ("device_ms", "plan_bn", "plan_split",
+                                       "matmul_bf16_device_ms",
+                                       "library_device_ms") if k in row}}
 
     def wgate(rows):
         return next(r for r in rows if r["case"] == "path_wgate_m256")
@@ -1555,7 +1660,10 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": row["shape"],
                 "dtype": row["dtype"],
-                **{k: row[k] for k in ("device_ms",) if k in row}}
+                **{k: row[k] for k in ("device_ms", "library_device_ms",
+                                       "n_split", "split_1_device_ms",
+                                       "split_max", "split_max_device_ms")
+                   if k in row}}
 
     flash_row, decode_row = attn["timings"][0], attn["timings"][2]
 

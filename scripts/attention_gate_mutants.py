@@ -6,8 +6,8 @@
 The gate holds llama3-8b's engine logits (arm 1: hetero-tensor, fast sync,
 hetero strategy, prompt 300, seeded random bf16 weights) through the port's
 attention kernels against the same run through the plain versions. Here
-the plain side is swapped for four wrong attentions, each a fault a kernel
-could have, and the gate's numbers are printed for each: a gate that a
+the plain side is swapped for six wrong attentions, each a fault a kernel
+could have (two of them faults of the split-KV decode kernel's combine), and the gate's numbers are printed for each: a gate that a
 wrong kernel would pass shows up as a mutant inside its bounds. Prints one
 JSON object {case: {"first" | "decode": {cos, rel_err, max_abs}}} and
 exits 1 if the kernels fall outside the gate or a mutant inside it.
@@ -27,7 +27,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_split_plan  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    combine_partials, decode_attention_ref, decode_split_shares,
+    split_partials)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 
@@ -73,6 +76,37 @@ def decode_head_map(q, k_cache, v_cache, length):
                       offset=k_cache.shape[1], length=n)[:, 0]
 
 
+def _split_kv(q, k_cache, v_cache, length, fault):
+    """The split-KV kernel's arithmetic on the plan's split, with ``fault``:
+    "drop" loses the last non-empty split's partial, "no_rescale" sums the
+    partials without the e^(m_i - M) factors."""
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n = int(torch.as_tensor(length).reshape(()))
+    shares = decode_split_shares(n, decode_split_plan(B, Hkv, S, n_sm))
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / math.sqrt(D)
+    m, l, acc = split_partials(s, v_cache, shares)
+    if fault == "drop":
+        last = max(i for i, (a, b) in enumerate(shares) if b > a)
+        m[last], l[last], acc[last] = -math.inf, 0.0, 0.0
+        o = combine_partials(m, l, acc)
+    else:
+        o = acc.sum(dim=0) / l.sum(dim=0)[..., None]
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_drop_last_split(q, k_cache, v_cache, length):
+    """The last split's partial lost in the combine."""
+    return _split_kv(q, k_cache, v_cache, length, "drop")
+
+
+def decode_combine_no_rescale(q, k_cache, v_cache, length):
+    """The combine sums acc_i / l_i without rescaling to the common max."""
+    return _split_kv(q, k_cache, v_cache, length, "no_rescale")
+
+
 MUTANTS = {
     "flash: top-left causal mask": (flash_top_left, decode_attention_ref),
     "flash: query head j -> kv head j % Hkv": (flash_head_map,
@@ -80,6 +114,9 @@ MUTANTS = {
     "decode: length index, not index + 1": (attention_ref, decode_short),
     "decode: query head j -> kv head j % Hkv": (attention_ref,
                                                 decode_head_map),
+    "decode: last split dropped": (attention_ref, decode_drop_last_split),
+    "decode: combine without the e^(m_i - M) rescale": (
+        attention_ref, decode_combine_no_rescale),
 }
 
 

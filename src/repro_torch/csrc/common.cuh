@@ -1,7 +1,7 @@
 // Helpers shared by the port's CUDA sources, each of which builds into a
 // library of its own: fp32 conversion of the three element types the
-// kernels take, and the C entry that names a launch's error code for the
-// ctypes binding (kernels/build.py).
+// kernels take, paired 16-bit stores, and the C entry that names a
+// launch's error code for the ctypes binding (kernels/build.py).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -18,6 +18,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
+}
+
+// Two adjacent 16-bit outputs in one 4-byte store.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 extern "C" const char* repro_error_string(int code) {

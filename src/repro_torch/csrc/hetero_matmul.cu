@@ -219,7 +219,8 @@ constexpr int CONSUMERS = 2;              // warpgroups, 64 rows each
 constexpr int PRODUCER_WARP = CONSUMERS * 4;
 constexpr int THREADS = CONSUMERS * 128 + 32;
 constexpr int RING_BYTES = 96 * 1024;     // two blocks fit on an SM
-constexpr int BOX = 64 * BK * 2;          // a 64-row 128-byte-swizzled box
+constexpr int BOX = SW128_BOX;            // a 64-row 128-byte-swizzled box
+static_assert(BK == 64, "slice_desc's tiles are 64 deep");
 
 template <int BN>
 struct Ring {
@@ -231,22 +232,6 @@ struct Ring {
   static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;
   static_assert(STAGES >= 3, "a ring of at least three stages");
 };
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-
-// Shared-memory descriptor of the k-th 16-deep slice of a stage's operand
-// tile: K-major, the slice is 32 bytes into each 128-byte row; MN-major, 16
-// rows (2048 bytes) further, with 64-wide MN boxes BOX bytes apart.
-template <int MN_MAJOR>
-__device__ __forceinline__ uint64_t slice_desc(const uint8_t* tile, int k) {
-  return MN_MAJOR ? sw128_desc(tile + k * 2048, BOX, 1024)
-                  : sw128_desc(tile + k * 32, 16, 1024);
-}
 
 // c (or the split's fp32 partial) = A[m0:m0+128, ks] @ B[ks, n0:n0+BN] over
 // this block's `steps` k-steps. TA / TB: 1 where A / B is MN-major.

@@ -117,6 +117,26 @@ inline int encode_map_2d(CUtensorMap* map, const void* base, bool is_half,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A 2-D map of bytes (int8 codes): `inner` contiguous bytes per row, `outer`
+// rows `ld` bytes apart (a multiple of 16), boxes of box_inner x box_outer
+// bytes (box_inner a multiple of 16, <= 256), no swizzle: a box lands in
+// shared memory as box_outer rows of box_inner bytes. Returns a cudaError_t.
+inline int encode_map_2d_u8(CUtensorMap* map, const void* base, uint64_t inner,
+                            uint64_t outer, uint64_t ld, uint32_t box_inner,
+                            uint32_t box_outer) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {ld};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // ----------------------------------------------------------------- wgmma --
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile (TMA's
@@ -132,6 +152,25 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
   d |= (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
   d |= (uint64_t)1 << 62;  // layout: 128-byte swizzle
   return d;
+}
+
+// A 16-bit operand tile 64 deep in k as TMA lays it out with 128-byte
+// swizzle: K-major, rows of 64 k values (128 bytes); MN-major, 64-wide MN
+// boxes of 64 k rows, SW128_BOX bytes apart.
+constexpr uint32_t SW128_BOX = 64 * 64 * 2;
+
+// Shared-memory descriptor of the k-th 16-deep slice of such a tile:
+// K-major, the slice is 32 bytes into each 128-byte row; MN-major, 16 rows
+// (2048 bytes) further, with the 64-wide MN boxes SW128_BOX bytes apart.
+template <int MN_MAJOR>
+__device__ __forceinline__ uint64_t slice_desc(const uint8_t* tile, int k) {
+  return MN_MAJOR ? sw128_desc(tile + k * 2048, SW128_BOX, 1024)
+                  : sw128_desc(tile + k * 32, 16, 1024);
+}
+
+// Makes this thread's st.shared writes visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -8,7 +8,9 @@ the tensor-core kernel on the launch plan of :func:`gemm_plan` (tile width
 and split of K); its operands go through TMA, so they must pass
 :func:`tma_operand`. ``mxu_quant_matmul(x, wq, scale)`` and
 ``mxu_q4_matmul(x, wq4, scale)`` are the weight-only quantized versions
-(int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``).
+(int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``);
+with bf16 / fp16 activations the int8 one runs a tensor-core kernel on the
+same launch plan, its codes through TMA under :func:`int8_operand`.
 A CUDA tensor launches the kernel or raises; only tensors that lie on the
 CPU take the plain version (``ref.py``). Each wrapper's ``.launches``
 counts its kernel's launches.
@@ -81,7 +83,8 @@ def check_plan(plan, M: int, N: int, K: int) -> tuple[int, int, int]:
 
 
 @lru_cache(maxsize=None)
-def _sm_count(index) -> int:
+def sm_count(index) -> int:
+    """The SM count of CUDA device ``index`` (the plans' ``n_sm``)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -148,7 +151,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str,
     if stationary == "output" and x.dtype in _TENSOR_CORE_DTYPES:
         lda, trans_a = tma_operand(x)
         ldb, trans_b = tma_operand(w)
-        _, bn, split = plan or gemm_plan(M, N, K, _sm_count(x.device.index))
+        _, bn, split = plan or gemm_plan(M, N, K, sm_count(x.device.index))
         if split > 1:
             scratch = torch.empty((split, M, N), dtype=torch.float32,
                                   device=x.device)
@@ -273,52 +276,99 @@ def _row_major_ld(t: torch.Tensor) -> int:
     return ld
 
 
-def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
-                  scale: torch.Tensor) -> torch.Tensor:
+def int8_operand(t: torch.Tensor) -> int:
+    """Leading dimension of row-major int8 codes that the tensor-core kernel
+    reads through TMA, which needs a 16-byte-aligned base and a leading
+    dimension of a multiple of 16 bytes (a column slice ``wq[:, :n]`` of
+    codes with such rows passes as a view). Raises otherwise: the wrapper
+    never copies the codes to make them fit."""
+    ld = _row_major_ld(t)
+    if t.data_ptr() % 16 or ld % 16:
+        raise ValueError(f"int8 codes at byte offset {t.data_ptr() % 16} mod "
+                         f"16 with leading dimension {ld}: TMA needs a "
+                         "16-byte-aligned base and leading dimension")
+    return ld
+
+
+def _launch_int8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                 plan) -> torch.Tensor:
     from ..build import entry
 
-    launch = entry("quant_matmul", symbol, *[ctypes.c_void_p] * 4,
-                   *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2, ctypes.c_int)
+    launch = entry("quant_matmul", "quant_matmul_int8",
+                   *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 3,
+                   *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 3)
     M, K = x.shape
     N = wq.shape[1]
-    if scale.stride(0) != 1:
-        raise ValueError(f"scale stride {scale.stride()} is not unit")
-    ldx, ldw = _row_major_ld(x), _row_major_ld(wq)
+    scratch, bn, split = None, 0, 0
+    ldx = _row_major_ld(x)
+    if x.dtype in _TENSOR_CORE_DTYPES:
+        tma_operand(x)
+        ldw = int8_operand(wq)
+        _, bn, split = plan or gemm_plan(M, N, K, sm_count(x.device.index))
+        if split > 1:
+            scratch = torch.empty((split, M, N), dtype=torch.float32,
+                                  device=x.device)
+    else:
+        ldw = _row_major_ld(wq)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     launch(x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-           y.data_ptr(), M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype])
+           y.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+           M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype], bn, split)
     return y
 
 
-def _quant_dispatch(x, wq, scale, rows_per_k, plain, symbol, counter):
+def _launch_q4(x: torch.Tensor, wq4: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    from ..build import entry
+
+    launch = entry("quant_matmul", "quant_matmul_q4", *[ctypes.c_void_p] * 4,
+                   *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2, ctypes.c_int)
+    M, K = x.shape
+    N = wq4.shape[1]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    launch(x.device, x.data_ptr(), wq4.data_ptr(), scale.data_ptr(),
+           y.data_ptr(), M, N, K, _row_major_ld(x), _row_major_ld(wq4),
+           _DTYPE_CODE[x.dtype])
+    return y
+
+
+def _quant_dispatch(x, wq, scale, rows_per_k, plain, launch, counter):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
     _check_quant(x2, wq, scale, rows_per_k)
     if x2.device.type == "cpu":
         y = plain(x2, wq, scale)
     elif x2.device.type == "cuda":
-        y = _launch_quant(symbol, x2, wq, scale)
+        if scale.stride(0) != 1:
+            raise ValueError(f"scale stride {scale.stride()} is not unit")
+        y = launch(x2, wq, scale)
         counter.launches += 1
     else:
         raise ValueError(f"unsupported device {x2.device}")
     return y.reshape(*lead, wq.shape[1])
 
 
-def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor,
-                     scale: torch.Tensor) -> torch.Tensor:
+def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                     *, plan=None) -> torch.Tensor:
     """``[..., K] @ (wq * scale)`` on the aligned path: wq int8 ``[K, N]``
     (row-major, may be a column slice), scale f32 ``[N]``; output in
-    ``x.dtype``. Shapes must be aligned."""
+    ``x.dtype``. Shapes must be aligned. ``plan`` overrides
+    :func:`gemm_plan`'s (BM, BN, split) for bf16 / fp16 ``x``."""
+    if plan is not None:
+        if x.dtype not in _TENSOR_CORE_DTYPES:
+            raise ValueError("a plan applies to bf16 / fp16 activations only")
+        check_plan(plan, x.numel() // x.shape[-1], wq.shape[1], x.shape[-1])
     return _quant_dispatch(x, wq, scale, 1, quant_matmul_ref,
-                           "quant_matmul_int8", mxu_quant_matmul)
+                           lambda *a: _launch_int8(*a, plan),
+                           mxu_quant_matmul)
 
 
 def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor,
                   scale: torch.Tensor) -> torch.Tensor:
     """The W4A16 version of :func:`mxu_quant_matmul`: ``wq4`` int8
     ``[K/2, N]`` holds two int4 codes per byte along K."""
-    return _quant_dispatch(x, wq4, scale, 2, q4_matmul_ref,
-                           "quant_matmul_q4", mxu_q4_matmul)
+    return _quant_dispatch(x, wq4, scale, 2, q4_matmul_ref, _launch_q4,
+                           mxu_q4_matmul)
 
 
 mxu_quant_matmul.launches = 0

@@ -37,6 +37,17 @@ def quant_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return torch.matmul(x.float(), w).to(out_dtype)
 
 
+def quant_matmul_colscale_ref(x: torch.Tensor, wq: torch.Tensor,
+                              scale: torch.Tensor, *, split: int = 1,
+                              out_dtype=None) -> torch.Tensor:
+    """The bf16 / fp16 int8 kernel's order: ``x @ code`` in fp32 (codes are
+    exact in x's type, so no weight is rounded), over ``split`` equal slices
+    of K summed in split order, then times the column scale once, then
+    the cast to ``out_dtype`` (default ``x.dtype``)."""
+    return (matmul_split_ref(x, wq, split, out_dtype=torch.float32)
+            * scale.float()[None, :]).to(out_dtype or x.dtype)
+
+
 def unpack_int4(wq4: torch.Tensor) -> torch.Tensor:
     """Packed int4 codes ``[K/2, N]`` -> int8 codes ``[K, N]``: packed row
     ``r`` holds K rows ``2r`` (low nibble) and ``2r + 1`` (high nibble),

@@ -10,6 +10,7 @@ fast-sync plans, at the chunk lengths the engine and the batcher give.
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -105,17 +106,16 @@ def test_plan_seeded_sweep(seed):
 
 
 def test_plan_hypothesis_sweep():
-    hyp = pytest.importorskip("hypothesis")
-    st = hyp.strategies
-
-    @hyp.settings(max_examples=300, deadline=None, derandomize=True,
-                  database=None)
-    @hyp.given(m=st.integers(1, 64), n=st.integers(1, 256),
-               k=st.integers(1, 128), n_sm=st.sampled_from([132, 114, 78]))
-    def sweep(m, n, k, n_sm):
-        _check_plan(128 * m, 128 * n, 128 * k, n_sm)
-
-    sweep()
+    """The property sweep once drawn by hypothesis, now seeded so that it
+    runs wherever numpy does: 600 draws over m 1-64, n 1-256, k 1-128 tiles
+    and 132 / 114 / 78 SMs, plus the domain's corners."""
+    rng = np.random.default_rng(2024)
+    draws = zip(rng.integers(1, 65, 600), rng.integers(1, 257, 600),
+                rng.integers(1, 129, 600), rng.choice([132, 114, 78], 600))
+    corners = [(m, n, k, s) for m in (1, 64) for n in (1, 256)
+               for k in (1, 128) for s in (132, 114, 78)]
+    for m, n, k, n_sm in [*draws, *corners]:
+        _check_plan(128 * int(m), 128 * int(n), 128 * int(k), int(n_sm))
 
 
 @pytest.mark.parametrize("plan", [(64, 64, 1), (128, 96, 1), (128, 128, 3),
