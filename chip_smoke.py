@@ -9,8 +9,9 @@ on failure:
 
   1. card and build: the card's name and power limit (nvidia-smi), then
      every CUDA source of the port built with nvcc for sm_90a, each
-     kernel's registers and spills from ``-Xptxas -v`` (a spill in a
-     tensor-core or a split-KV decode kernel fails);
+     kernel's registers, stack and spills from ``-Xptxas -v`` (a spill in a
+     tensor-core kernel, the SSD chunk's included, or a split-KV decode
+     kernel fails);
   2. each kernel against its plain PyTorch version on the card, over the
      conformance shapes and the serving path's own shapes, in fp32, bf16
      and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
@@ -19,8 +20,9 @@ on failure:
      and the largest its plan allows; the int8 and W4A16 GEMMs on
      codes from the port's quantizers, direct and as a column slice of a
      wider code tensor, through HeteroCtx's padding, and the bf16 / fp16
-     int8 tensor-core kernel at split 1, the plan's and the largest, also
-     against its own order (scale after the K sum); the flash- and
+     tensor-core kernel of each (int8 codes, packed int4 codes) at split
+     1, the plan's and the largest, also against its own order (scale
+     after the K sum); the flash- and
      decode-attention kernels over the conformance grid (1/2/4 query heads
      per kv head, causal and not, Sq == Sk and Sq < Sk, block-multiple and
      ragged caches, lengths 0 / 1 / ragged / all, decode at split 1, the
@@ -29,11 +31,13 @@ on failure:
      32 / 32 heads); the SSD chunk kernel over the conformance grid (L the
      case's M, inputs rounded through fp32 / bf16 / fp16), the smoke model's
      hd = N = 16 and the zamba2 path shapes (L = 256, 88, 1), S_prev zero
-     and not, within the reference's 1e-4, and ``ssd_scan`` over two chunks;
-     kernel, plain and library timings with CUDA events, and the kernel's
-     and the library's device time from torch.profiler (decode also at
-     split 1 and the largest; the quantized GEMMs beside torch.matmul's
-     bf16 product at the same shape);
+     and not, within the reference's 1e-4 of the plain version and of its
+     own split-fp32 arithmetic, and ``ssd_scan`` over two chunks; kernel,
+     plain and library timings with CUDA events, and the kernel's and the
+     library's device time from torch.profiler (decode also at split 1 and
+     the largest; the quantized GEMMs beside torch.matmul's bf16 product
+     at the same shape; the SSD chunk beside both of its bounds: fp32 on
+     the CUDA cores, and split fp32 on the TF32 tensor cores);
   3. token identity on the card: the fp32 llama3 smoke model served by
      PagedBatcher under every engine mode and both sync arms, and by the
      port on the CPU, gives the same greedy tokens, with fp weights and with
@@ -60,9 +64,10 @@ on failure:
      layers, d_model 2560, bf16, seeded random weights) through the engine
      (prompt 600: chunks 512 and 88, 162 SSD launches a generate) with
      hetero-tensor and xla fast sync, then ``ssd_gate`` (the SSD kernel
-     against its plain version on the same logits;
-     ``scripts/ssd_gate_mutants.py`` shows that wrong SSD steps fail it) and
-     ``attention_gate`` on this model.
+     against its plain version on the same logits, and on the first mamba
+     layer's scan output and state within the chunk's 1e-4;
+     ``scripts/ssd_gate_mutants.py`` shows that wrong SSD steps, one pass
+     of TF32 among them, fail it) and ``attention_gate`` on this model.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -112,7 +117,8 @@ DTYPE_TOL = {"float32": 2e-6, "bfloat16": 2e-2, "float16": 4e-3}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+              "tf32": 495e12}
 
 
 def log(msg: str) -> None:
@@ -162,8 +168,10 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ------------------------------------------------------------------ phase 1 --
 
 # kernels whose -Xptxas -v report must show no spill: the tensor-core
-# kernels (gemm_tc, qgemm_tc, flash_tc) and split-KV decode attention
-SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine")
+# kernels (gemm_tc, qgemm_tc in int8 and int4, flash_tc, the SSD chunk's
+# ssd_cb_tc and ssd_chunk_tc) and split-KV decode attention
+SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine",
+              "ssd_cb_tc", "ssd_chunk_tc")
 
 
 def phase_card_and_build() -> str:
@@ -179,9 +187,10 @@ def phase_card_and_build() -> str:
         f"{time.perf_counter() - t0:.1f}s ({', '.join(build.SOURCES)})")
     spilled = []
     for name, out in reports.items():
-        for fn, regs, spill in _ptxas_report(out):
-            log(f"[build] {name}: {fn[:72]}: {regs} registers, spill "
-                f"stores/loads {spill[0]}/{spill[1]} bytes")
+        for fn, regs, spill, stack in _ptxas_report(out):
+            log(f"[build] {name}: {fn[:72]}: {regs} registers, stack "
+                f"{stack} bytes, spill stores/loads {spill[0]}/{spill[1]} "
+                "bytes")
             if any(spill) and any(k in fn for k in SPILL_FREE):
                 spilled.append(fn)
     if spilled:
@@ -190,22 +199,23 @@ def phase_card_and_build() -> str:
 
 
 def _ptxas_report(out: str):
-    """(entry function, registers, (spill store, spill load bytes)) of each
-    kernel in nvcc's ``-Xptxas -v`` output."""
+    """(entry function, registers, (spill store, spill load bytes), stack
+    frame bytes) of each kernel in nvcc's ``-Xptxas -v`` output."""
     import re
-    fn, spill = None, (0, 0)
+    fn, spill, stack = None, (0, 0), 0
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            stack = int(m.group(1))
+            spill = (int(m.group(2)), int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
-            yield fn, int(m.group(1)), spill
-            fn, spill = None, (0, 0)
+            yield fn, int(m.group(1)), spill, stack
+            fn, spill, stack = None, (0, 0), 0
 
 
 # ------------------------------------------------------------------ phase 2 --
@@ -339,19 +349,22 @@ def _library_int8(x, wq, scale):
     return y, lambda: op(x, w_nk, s_x)
 
 
-def _int8_tc_grid(g, cases) -> int:
-    """The int8 tensor-core kernel (bf16 / fp16 x) at split 1, the plan's
-    and the largest ``gemm_splits`` allows, on the plan's tile width, with
-    codes direct and as a column slice of a twice-wider code tensor, at the
-    cases' padded shapes: against the plain version within DTYPE_TOL, and
-    against its own order (``quant_matmul_colscale_ref``). Returns the
+def _quant_tc_grid(g, cases, fmt: str) -> int:
+    """The tensor-core kernel of weight format ``fmt`` (int8, or w4a16's
+    packed int4 codes; bf16 / fp16 x) at split 1, the plan's and the largest
+    ``gemm_splits`` allows, on the plan's tile width, with codes direct and
+    as a column slice of a twice-wider code tensor, at the cases' padded
+    shapes: against the plain version within DTYPE_TOL, and against its own
+    order (``quant_matmul_colscale_ref`` on the unpacked codes). Returns the
     number of checks."""
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.kernels.hetero_matmul.ref import (
-        quant_matmul_colscale_ref, quant_matmul_ref)
+        quant_matmul_colscale_ref, unpack_int4)
 
+    wrapper, quantize, plain = _quant_tools(fmt)
+    codes = (lambda wq: wq) if fmt == "int8" else unpack_int4
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     up = lambda v: -(-v // 128) * 128                          # noqa: E731
     worst, n_checks = {}, 0
@@ -359,21 +372,21 @@ def _int8_tc_grid(g, cases) -> int:
         M, K, N = up(M), up(K), up(N)
         x32 = torch.randn((M, K), generator=g, device="cuda")
         w32 = torch.randn((K, 2 * N), generator=g, device="cuda")
-        wide_q, wide_s = ops.quantize_weight(w32)
-        forms = {"direct": ops.quantize_weight(w32[:, :N]),
+        wide_q, wide_s = quantize(w32)
+        forms = {"direct": quantize(w32[:, :N]),
                  "sliced": (wide_q[:, :N], wide_s[:N])}
         _, bn, split = ops.gemm_plan(M, N, K, n_sm)
         for dname in ("bfloat16", "float16"):
             x = x32.to(dtype_of(dname))
             for form, (wq, s) in forms.items():
-                ref = quant_matmul_ref(x, wq, s)
+                ref = plain(x, wq, s)
                 for sp in sorted({1, split, ops.gemm_splits(K)[-1]}):
-                    before = ops.mxu_quant_matmul.launches
-                    y = ops.mxu_quant_matmul(x, wq, s, plan=(128, bn, sp))
-                    own = quant_matmul_colscale_ref(x, wq, s, split=sp)
+                    before = wrapper.launches
+                    y = wrapper(x, wq, s, plan=(128, bn, sp))
+                    own = quant_matmul_colscale_ref(x, codes(wq), s, split=sp)
                     torch.cuda.synchronize()
-                    if ops.mxu_quant_matmul.launches != before + 1:
-                        raise AssertionError(f"int8 tc {name}: not launched")
+                    if wrapper.launches != before + 1:
+                        raise AssertionError(f"{fmt} tc {name}: not launched")
                     e, e_own = rel_err(y, ref), rel_err(y, own)
                     n_checks += 1
                     key = (dname, "plain")
@@ -383,14 +396,14 @@ def _int8_tc_grid(g, cases) -> int:
                     if not (e <= DTYPE_TOL[dname]
                             and e_own <= DTYPE_TOL[dname]):
                         raise AssertionError(
-                            f"quant_matmul int8 tc {name} ({M},{K},{N}) "
+                            f"quant_matmul {fmt} tc {name} ({M},{K},{N}) "
                             f"{dname} {form} plan (128, {bn}, {sp}): rel_err "
                             f"{e:.3g} vs plain, {e_own:.3g} vs its order > "
                             f"{DTYPE_TOL[dname]}")
     for (dname, against), e in sorted(worst.items()):
-        log(f"[kernels] quant_matmul int8 tensor cores {dname:8s} vs "
+        log(f"[kernels] quant_matmul {fmt} tensor cores {dname:8s} vs "
             f"{against:5s}: worst rel_err {e:.3g} <= {DTYPE_TOL[dname]}")
-    log(f"[kernels] {n_checks} int8 tensor-core checks passed (splits 1, "
+    log(f"[kernels] {n_checks} {fmt} tensor-core checks passed (splits 1, "
         "the plan's, the largest; direct and sliced codes)")
     return n_checks
 
@@ -440,7 +453,7 @@ def phase_quant_kernels() -> dict:
         log(f"[kernels] quant_matmul {fmt:5s} {dname:8s}: worst rel_err "
             f"{e:.3g} <= {DTYPE_TOL[dname]}")
     log(f"[kernels] {n_checks} quantized checks passed")
-    n_checks += _int8_tc_grid(g, cases)
+    n_checks += sum(_quant_tc_grid(g, cases, fmt) for fmt in WEIGHT_FORMATS)
 
     # timing at the path's shapes, bf16, on the column slice the weight
     # strategy passes (the codes of the full weight live in one tensor)
@@ -469,9 +482,9 @@ def phase_quant_kernels() -> dict:
                 "matmul_bf16_device_ms": device_ms(
                     lambda: torch.matmul(x, w_bf16)),
             }
+            _, row["plan_bn"], row["plan_split"] = ops.gemm_plan(M, N, K,
+                                                                 n_sm)
             if fmt == "int8":
-                _, row["plan_bn"], row["plan_split"] = ops.gemm_plan(
-                    M, N, K, n_sm)
                 lib = _library_int8(x, wq, s)
                 if lib is not None:
                     row["library_ms"] = cuda_time_ms(lib[1])
@@ -714,11 +727,14 @@ def _ssd_inputs(g, Bb, L, nh, hd, N, dname="float32", state=True,
     return xb, B_, C_, seg, S_prev
 
 
-def _ssd_bound(Bb, L, nh, hd, N) -> tuple[float, str]:
+def _ssd_bound(Bb, L, nh, hd, N) -> dict:
     """The least time of one chunk step on the card: its bytes (each
     operand read once, y and S_new written once) over the memory rate
     against its fp32 operations over the causal pairs (C.B^T once per
-    batch) over the CUDA-core fp32 rate."""
+    batch) over the CUDA-core fp32 rate (``bound_ms``, ``bound_by``); and
+    beside it the same operations as the kernel runs them, three TF32
+    products each (split fp32), over the TF32 tensor-core rate
+    (``bound_split_tf32_ms``, ``bound_split_tf32_by``)."""
     pairs = L * (L + 1) // 2
     nbytes = 4 * (2 * Bb * L * nh * hd + 2 * Bb * L * N + Bb * L * nh
                   + 2 * Bb * nh * hd * N)
@@ -726,21 +742,29 @@ def _ssd_bound(Bb, L, nh, hd, N) -> tuple[float, str]:
                                             + 4 * hd * N * L)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    t_split = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_split_tf32_ms": max(t_bytes, t_split),
+            "bound_split_tf32_by": "bytes" if t_bytes >= t_split
+            else "operations"}
 
 
 def phase_ssd_kernel() -> dict:
     """The SSD chunk kernel against its plain version on the card: the
     conformance grid (L = each case's M, nh = 2, hd = N = 64, inputs rounded
     through fp32 / bf16 / fp16), the smoke model's hd = N = 16 (L 32, 13
-    and 1), and the zamba2-2.7b path shapes (L = 256, 88 and 1, nh = 80,
-    hd = N = 64, B_ and C_ strided as the model passes them), each with
-    S_prev zero and not; then kernel and plain times at the path shapes,
-    and ssd_scan over S = 512 (two launches, the state carried on the card)
-    against the plain chunk scan."""
+    and 1), hd = 18 with N = 30, and the zamba2-2.7b path shapes (L = 256,
+    88 and 1, nh = 80, hd = N = 64, B_ and C_ strided as the model passes
+    them), each with S_prev zero and not, against the plain version and
+    against the kernel's own arithmetic (``ssd_chunk_split_ref``: split
+    fp32, C.B^T once per batch); then kernel (events and device) and plain
+    times at the path shapes, and ssd_scan over S = 512 (two calls, the
+    state carried on the card) against the plain chunk scan."""
     import torch
     from repro_torch.kernels.ssm_scan import ops
-    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssm_scan.ref import (ssd_chunk_ref,
+                                                  ssd_chunk_split_ref)
 
     g = torch.Generator(device="cuda").manual_seed(5)
     worst, n_checks = {}, 0
@@ -752,24 +776,31 @@ def phase_ssd_kernel() -> dict:
               for L in (32, 13, 1)]
     cases += [("path", f"L{L}", 1, L, 80, 64, 64, "bfloat16", 5248)
               for L in (256, 88, 1)]
+    # hd and N not multiples of 4 (the kernel's 4-byte copies, DMAX 32)
+    cases += [("odd", "hd18_N30", 2, 77, 3, 18, 30, "float32", None)]
     for key, name, Bb, L, nh, hd, N, dname, conv_dim in cases:
         for state in (False, True):
             args = _ssd_inputs(g, Bb, L, nh, hd, N, dname, state, conv_dim)
             before = ops.ssd_chunk.launches
             y, s_new = ops.ssd_chunk(*args)
             y_ref, s_ref = ssd_chunk_ref(*args)
+            y_own, s_own = ssd_chunk_split_ref(*args)
             torch.cuda.synchronize()
             if ops.ssd_chunk.launches != before + 1:
                 raise AssertionError(f"ssd_chunk {key} {name}: not launched")
             e = max(rel_err(y, y_ref), rel_err(s_new, s_ref))
+            e_own = max(rel_err(y, y_own), rel_err(s_new, s_own))
             n_checks += 1
             worst[key] = max(worst.get(key, 0.0), e)
-            if not (torch.isfinite(y).all() and e <= SSD_TOL):
+            worst[f"{key} own"] = max(worst.get(f"{key} own", 0.0), e_own)
+            if not (torch.isfinite(y).all() and torch.isfinite(s_new).all()
+                    and e <= SSD_TOL and e_own <= SSD_TOL):
                 raise AssertionError(f"ssd_chunk {key} {name} S_prev "
                                      f"{'random' if state else 'zero'}: "
-                                     f"rel_err {e:.3g} > {SSD_TOL}")
+                                     f"rel_err {e:.3g} vs plain, {e_own:.3g} "
+                                     f"vs its arithmetic > {SSD_TOL}")
     for key, e in sorted(worst.items()):
-        log(f"[ssd] ssd_chunk {key:9s}: worst rel_err {e:.3g} <= {SSD_TOL}")
+        log(f"[ssd] ssd_chunk {key:13s}: worst rel_err {e:.3g} <= {SSD_TOL}")
     log(f"[ssd] {n_checks} checks passed")
 
     timings = []
@@ -778,15 +809,15 @@ def phase_ssd_kernel() -> dict:
         y, s_new = ops.ssd_chunk(*args)
         y_ref, s_ref = ssd_chunk_ref(*args)
         torch.cuda.synchronize()
-        bound, by = _ssd_bound(1, L, 80, 64, 64)
         row = {"kind": "ssd_chunk", "shape": [1, L, 80, 64, 64],
                "dtype": "float32",
                "max_abs_err": max(float((y - y_ref).abs().max()),
                                   float((s_new - s_ref).abs().max())),
                "rel_err": max(rel_err(y, y_ref), rel_err(s_new, s_ref)),
                "ms": cuda_time_ms(lambda: ops.ssd_chunk(*args)),
+               "device_ms": device_ms(lambda: ops.ssd_chunk(*args)),
                "plain_ms": cuda_time_ms(lambda: ssd_chunk_ref(*args)),
-               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               **_ssd_bound(1, L, 80, 64, 64), "library_ms": None,
                "library_note": "none: no single PyTorch call computes an SSD "
                                "chunk step"}
         timings.append(row)
@@ -1220,9 +1251,17 @@ def _profile(cfg, params, prompts, new_tokens: int, label: str,
     _profiled(label, lambda: cb.run(reqs), params["embed"])
 
 
+# the port's own kernels (csrc/*.cu), which _profiled lists by name even
+# where they fall below the run's largest kernels
+PORT_KERNELS = ("gemm_tc", "splitk_reduce", "mm_output_stationary",
+                "mm_weight_stationary", "quant_mm", "flash_tc", "flash_fwd",
+                "decode_split", "decode_combine", "ssd_cb_tc", "ssd_chunk_tc")
+
+
 def _profiled(label: str, run, anchor) -> None:
-    """``run()`` under torch.profiler: device time by kernel and the
-    device's busy share of the run's wall time."""
+    """``run()`` under torch.profiler: device time by kernel (the 12
+    largest, then every other kernel of the port) and the device's busy
+    share of the run's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sync import fence
@@ -1250,6 +1289,10 @@ def _profiled(label: str, run, anchor) -> None:
         f"device busy {busy:.3f}s ({busy / wall:.3f} of wall)")
     for us, n, key in rows[:12]:
         log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]}")
+    for us, n, key in rows[12:]:
+        if any(name in key for name in PORT_KERNELS):
+            log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]} "
+                "(a port kernel)")
 
 
 ENGINE_ARMS = (("hetero-tensor", True), ("xla", True), ("hetero-tensor", False))
@@ -1277,6 +1320,16 @@ def _strict_decode(engine_module):
 # arm with a path's kernels and with their plain versions must agree to
 # this cosine and relative error (PERF.md §2 gives the measured margins).
 ATTENTION_GATE_COS, ATTENTION_GATE_REL = 0.999, 0.05
+
+
+def gate_bounds(name: str) -> tuple[float, float]:
+    """(least cosine, largest rel_err) of a gate's output ``name``. The
+    logits take the bounds above; ssd_gate's probes of the first mamba
+    layer ("scan", "state") are fp32 and read the same inputs on both
+    sides, so there the kernel is held to its own contract, SSD_TOL."""
+    if name in ("scan", "state"):
+        return ATTENTION_GATE_COS, SSD_TOL
+    return ATTENTION_GATE_COS, ATTENTION_GATE_REL
 
 
 def _step_logits(eng, prompt) -> list:
@@ -1354,12 +1407,12 @@ def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
         log(f"[{label}] {cfg.name} kernels vs plain, {name}: cos "
             f"{cos:.6f}, rel_err {out[name]['rel_err']:.4g}, max |diff| "
             f"{out[name]['max_abs']:.4g}")
-        if check and (not torch.isfinite(a).all() or cos < ATTENTION_GATE_COS
-                      or out[name]["rel_err"] > ATTENTION_GATE_REL):
+        least_cos, most_rel = gate_bounds(name)
+        if check and (not torch.isfinite(a).all() or cos < least_cos
+                      or out[name]["rel_err"] > most_rel):
             raise AssertionError(f"[{label}] {cfg.name} kernels vs plain on "
                                  f"the {name} output: {out[name]}, gate cos "
-                                 f">= {ATTENTION_GATE_COS}, rel_err <= "
-                                 f"{ATTENTION_GATE_REL}")
+                                 f">= {least_cos}, rel_err <= {most_rel}")
     return out
 
 
@@ -1393,7 +1446,8 @@ def ssd_gate(cfg, params, prompt, plain=None, *, check: bool = True) -> dict:
     the first mamba layer (whose inputs are the same on both sides): "scan",
     its SSD output at every prompt position, whose rows next to a chunk
     boundary read the carried state, and "state", its SSM state after the
-    prefill."""
+    prefill, both within SSD_TOL (``gate_bounds``): a kernel that keeps
+    less than fp32 accuracy, as one pass of TF32 would, fails there."""
     import torch
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
@@ -1662,7 +1716,9 @@ def main() -> int:
                 "dtype": row["dtype"],
                 **{k: row[k] for k in ("device_ms", "library_device_ms",
                                        "n_split", "split_1_device_ms",
-                                       "split_max", "split_max_device_ms")
+                                       "split_max", "split_max_device_ms",
+                                       "bound_split_tf32_ms",
+                                       "bound_split_tf32_by")
                    if k in row}}
 
     flash_row, decode_row = attn["timings"][0], attn["timings"][2]

@@ -9,14 +9,20 @@ give them in turns (parent, change, change, parent) so that drift of the
 card or its host shows. Each runs in a process of its own, importing only
 that tree's ``chip_smoke`` and ``repro_torch``, and prints one JSON line:
 
-- the paged llama3-8b int8 + int8 KV pair of ``chip_smoke.phase_full``:
-  the hetero-tensor arm's tok/s, prefill and decode seconds and kernel
-  launches (the engine-less arm and the profiled run's top kernels are in
-  the ``[full]`` and ``[profile]`` lines written to standard error);
+- the paged llama3-8b int8 + int8 KV and W4A16 pairs of
+  ``chip_smoke.phase_full``: the hetero-tensor arm's tok/s, prefill and
+  decode seconds and kernel launches (the engine-less arm and the profiled
+  run's top kernels are in the ``[full]`` and ``[profile]`` lines written
+  to standard error);
 - llama3-8b's single-request engine, hetero-tensor and xla with fast sync;
 - the host's cost per wrapper call (a loop of calls timed with
   ``time.perf_counter``, the card left to run behind; the best of three)
-  of decode attention, flash attention and the int8 GEMM at path shapes.
+  of decode attention, flash attention, the int8 and W4A16 GEMMs and the
+  SSD chunk at path shapes (the SSD loop kept short enough that the
+  launch queue never fills and makes the host wait for the card);
+- the device time (torch.profiler) and CUDA-events time per call of the
+  int8 and W4A16 GEMMs at w_gate's (256, 4096, 8960) block and of the SSD
+  chunk at zamba2-2.7b's L = 256.
 
 Needs one CUDA card and nvcc.
 """
@@ -53,6 +59,7 @@ def one(tree: str) -> dict:
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.hetero_matmul import ops
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunk
 
     assert c.__file__.startswith(tree), c.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,19 +73,36 @@ def one(tree: str) -> dict:
     x = torch.randn((128, 4096), generator=g, device="cuda").bfloat16()
     wq, s = ops.quantize_weight(torch.randn((4096, 2560), generator=g,
                                             device="cuda"))
+    wq4, s4 = ops.quantize_weight_int4(torch.randn((4096, 2560), generator=g,
+                                                   device="cuda"))
+    ssd = c._ssd_inputs(g, 1, 256, 80, 64, 64, "bfloat16", True, 5248)
     host = {"decode": _host_us(lambda: decode_attention(q, k, k, n)),
             "flash": _host_us(lambda: flash_attention(qf, kf, kf)),
-            "int8": _host_us(lambda: ops.mxu_quant_matmul(x, wq, s))}
-    c.FULL_PAIRS = (("int8+kv8", "int8", "int8"),)
+            "int8": _host_us(lambda: ops.mxu_quant_matmul(x, wq, s)),
+            "w4a16": _host_us(lambda: ops.mxu_q4_matmul(x, wq4, s4)),
+            "ssd": _host_us(lambda: ssd_chunk(*ssd), iters=200)}
+    xg = torch.randn((256, 4096), generator=g, device="cuda").bfloat16()
+    w_full = torch.randn((4096, 14336), generator=g, device="cuda")
+    q8, s8 = ops.quantize_weight(w_full)
+    q4, s4g = ops.quantize_weight_int4(w_full)
+    runs = {"int8_wgate": lambda: ops.mxu_quant_matmul(xg, q8[:, :8960],
+                                                       s8[:8960]),
+            "w4a16_wgate": lambda: ops.mxu_q4_matmul(xg, q4[:, :8960],
+                                                     s4g[:8960]),
+            "ssd_l256": lambda: ssd_chunk(*ssd)}
+    kernels = {name: {"device_ms": c.device_ms(run),
+                      "ms": c.cuda_time_ms(run)} for name, run in runs.items()}
+    c.FULL_PAIRS = (("int8+kv8", "int8", "int8"), ("w4a16", "w4a16", None))
     cfg, params = c.full_model()
-    paged = c.phase_full(cfg, params)["int8+kv8"]
+    paged = c.phase_full(cfg, params)
     engine = c.phase_engine_full(cfg, params,
                                  arms=(("hetero-tensor", True),
                                        ("xla", True)), gates=())
     keep = ("tok_per_s", "prefill_s", "decode_s")
-    return {"tree": tree, "host_us_per_call": host,
-            "paged_int8_kv8": {key: paged[key]
-                               for key in (*keep, "gemm_launches")},
+    return {"tree": tree, "host_us_per_call": host, "kernels": kernels,
+            **{f"paged_{label}": {key: arm[key]
+                                  for key in (*keep, "gemm_launches")}
+               for label, arm in paged.items()},
             "engine": {label: {key: arm[key] for key in keep}
                        for label, arm in engine.items()}}
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of two of the port's kernels at every launch plan they take,
-at the serving path's shapes, on the card.
+"""Device time of three of the port's kernels at every launch plan they
+take, at the serving path's shapes, on the card.
 
     python3 scripts/kernel_plan_sweep.py
 
@@ -11,7 +11,11 @@ at the serving path's shapes, on the card.
   (128, 4096, 2560) aligned blocks and at a shape of exactly 132 tiles;
 - split-KV decode attention at each split count up to the largest the
   cache allows, at llama3-8b's and zamba2-2.7b's decode shapes, beside
-  SDPA, with the split pass and the combine timed apart.
+  SDPA, with the split pass and the combine timed apart;
+- the SSD chunk at zamba2-2.7b's L = 256 and 88 with 10, 20, 40 and 80
+  heads (its grid is one block per head and row tile, plus one for the
+  state): how the time of the grid compares with that of a block whose SM
+  it shares with no other, with C.B^T and the chunk kernel timed apart.
 
 Each GEMM row has CUDA events time over 200 back-to-back calls
 (``ms``: device-bound at these sizes, the host's ~40 µs a call being
@@ -120,6 +124,27 @@ def decode_rows(g):
             print(json.dumps(row), flush=True)
 
 
+def ssd_rows(g):
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
+    for L in (256, 88):
+        for nh in (10, 20, 40, 80):
+            args = chip_smoke._ssd_inputs(g, 1, L, nh, 64, 64, "bfloat16",
+                                          True, 5248)
+            y, s = ssd_chunk(*args)
+            y_ref, s_ref = ssd_chunk_ref(*args)
+            run = lambda: ssd_chunk(*args)                        # noqa: E731
+            row = {"kernel": "ssd_chunk", "shape": [1, L, nh, 64, 64],
+                   "blocks": nh * (-(-L // 64) + 1),
+                   "rel_err": max(chip_smoke.rel_err(y, y_ref),
+                                  chip_smoke.rel_err(s, s_ref)),
+                   "ms": chip_smoke.cuda_time_ms(run, iters=200),
+                   "device_ms": chip_smoke.device_ms(run),
+                   "by_kernel_us": _by_kernel(run),
+                   **chip_smoke._ssd_bound(1, L, nh, 64, 64)}
+            print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_plan_sweep: CUDA is not available", file=sys.stderr)
@@ -128,6 +153,7 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     gemm_rows(g)
     decode_rows(g)
+    ssd_rows(g)
     return 0
 
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // mbarriers, TMA tile loads and tensor maps, wgmma shared-memory descriptors
 // and the wgmma fence / commit / wait discipline, and the mma.sync / ldmatrix
-// / cp.async instructions of the warp-level kernels. Inline PTX only; the
+// / cp.async instructions of the warp-level kernels (bf16 / fp16, and TF32
+// with the split of an fp32 operand into two TF32 parts). Inline PTX only; the
 // tensor maps are encoded on the host through cudaGetDriverEntryPoint, so no
 // library needs -lcuda.
 #pragma once
@@ -308,4 +309,31 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
+}
+
+// a rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
+// ties away from zero): half the dropped range added to the bit pattern,
+// then the low 13 mantissa bits cleared. Two integer instructions, where
+// the cvt costs a handful on sm_90.
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+
+// Split fp32: a = hi + lo + O(2^-22 |a|), hi = tf32(a), lo = tf32(a - hi)
+// (a - hi is exact in fp32).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// d[4] += a[4] (16 x 8, row) * b[2] (8 x 8, col), TF32 operands, fp32
+// accumulate.
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }

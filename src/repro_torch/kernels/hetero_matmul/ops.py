@@ -9,8 +9,8 @@ and split of K); its operands go through TMA, so they must pass
 :func:`tma_operand`. ``mxu_quant_matmul(x, wq, scale)`` and
 ``mxu_q4_matmul(x, wq4, scale)`` are the weight-only quantized versions
 (int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``);
-with bf16 / fp16 activations the int8 one runs a tensor-core kernel on the
-same launch plan, its codes through TMA under :func:`int8_operand`.
+with bf16 / fp16 activations both run a tensor-core kernel on the same
+launch plan, their codes through TMA under :func:`int8_operand`.
 A CUDA tensor launches the kernel or raises; only tensors that lie on the
 CPU take the plain version (``ref.py``). Each wrapper's ``.launches``
 counts its kernel's launches.
@@ -290,13 +290,17 @@ def int8_operand(t: torch.Tensor) -> int:
     return ld
 
 
-def _launch_int8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
-                 plan) -> torch.Tensor:
+def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
+                  scale: torch.Tensor, plan) -> torch.Tensor:
+    """One launch of ``csrc/quant_matmul.cu``'s ``symbol`` (int8 or packed
+    int4 codes): bf16 / fp16 x runs the tensor-core kernel on ``plan`` (or
+    :func:`gemm_plan`'s), its operands under TMA's rules; fp32 x the FMA
+    body."""
     from ..build import entry
 
-    launch = entry("quant_matmul", "quant_matmul_int8",
-                   *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 3,
-                   *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 3)
+    launch = entry("quant_matmul", symbol, *[ctypes.c_void_p] * 5,
+                   *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2,
+                   *[ctypes.c_int] * 3)
     M, K = x.shape
     N = wq.shape[1]
     scratch, bn, split = None, 0, 0
@@ -317,21 +321,6 @@ def _launch_int8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return y
 
 
-def _launch_q4(x: torch.Tensor, wq4: torch.Tensor,
-               scale: torch.Tensor) -> torch.Tensor:
-    from ..build import entry
-
-    launch = entry("quant_matmul", "quant_matmul_q4", *[ctypes.c_void_p] * 4,
-                   *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2, ctypes.c_int)
-    M, K = x.shape
-    N = wq4.shape[1]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    launch(x.device, x.data_ptr(), wq4.data_ptr(), scale.data_ptr(),
-           y.data_ptr(), M, N, K, _row_major_ld(x), _row_major_ld(wq4),
-           _DTYPE_CODE[x.dtype])
-    return y
-
-
 def _quant_dispatch(x, wq, scale, rows_per_k, plain, launch, counter):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
@@ -348,27 +337,37 @@ def _quant_dispatch(x, wq, scale, rows_per_k, plain, launch, counter):
     return y.reshape(*lead, wq.shape[1])
 
 
+def _check_quant_plan(x: torch.Tensor, wq: torch.Tensor, plan) -> None:
+    if plan is not None:
+        if x.dtype not in _TENSOR_CORE_DTYPES:
+            raise ValueError("a plan applies to bf16 / fp16 activations only")
+        check_plan(plan, x.numel() // x.shape[-1], wq.shape[1], x.shape[-1])
+
+
 def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                      *, plan=None) -> torch.Tensor:
     """``[..., K] @ (wq * scale)`` on the aligned path: wq int8 ``[K, N]``
     (row-major, may be a column slice), scale f32 ``[N]``; output in
     ``x.dtype``. Shapes must be aligned. ``plan`` overrides
     :func:`gemm_plan`'s (BM, BN, split) for bf16 / fp16 ``x``."""
-    if plan is not None:
-        if x.dtype not in _TENSOR_CORE_DTYPES:
-            raise ValueError("a plan applies to bf16 / fp16 activations only")
-        check_plan(plan, x.numel() // x.shape[-1], wq.shape[1], x.shape[-1])
-    return _quant_dispatch(x, wq, scale, 1, quant_matmul_ref,
-                           lambda *a: _launch_int8(*a, plan),
-                           mxu_quant_matmul)
+    _check_quant_plan(x, wq, plan)
+    return _quant_dispatch(
+        x, wq, scale, 1, quant_matmul_ref,
+        lambda *a: _launch_quant("quant_matmul_int8", *a, plan),
+        mxu_quant_matmul)
 
 
-def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor,
-                  scale: torch.Tensor) -> torch.Tensor:
+def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor, scale: torch.Tensor,
+                  *, plan=None) -> torch.Tensor:
     """The W4A16 version of :func:`mxu_quant_matmul`: ``wq4`` int8
-    ``[K/2, N]`` holds two int4 codes per byte along K."""
-    return _quant_dispatch(x, wq4, scale, 2, q4_matmul_ref, _launch_q4,
-                           mxu_q4_matmul)
+    ``[K/2, N]`` holds two int4 codes per byte along K. bf16 / fp16 ``x``
+    runs the same tensor-core kernel and plan, the packed codes through TMA
+    under :func:`int8_operand`."""
+    _check_quant_plan(x, wq4, plan)
+    return _quant_dispatch(
+        x, wq4, scale, 2, q4_matmul_ref,
+        lambda *a: _launch_quant("quant_matmul_q4", *a, plan),
+        mxu_q4_matmul)
 
 
 mxu_quant_matmul.launches = 0

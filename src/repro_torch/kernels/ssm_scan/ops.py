@@ -4,8 +4,9 @@
 ``repro.kernels.ssm_scan.kernel.ssd_chunk_pallas``: one Mamba2 chunk step,
 all operands fp32, returning fp32 (y ``[B,L,nh,hd]``, S_new
 ``[B,nh,hd,N]``). A CUDA tensor launches the kernel or raises; only tensors
-that lie on the CPU take the plain version (``ref.py``).
-``ssd_chunk.launches`` counts launches.
+that lie on the CPU take the plain version (``ref.py``). On the card one
+call is two launches (C.B^T once per batch into a scratch the wrapper
+allocates, then the chunk step); ``ssd_chunk.launches`` counts calls.
 
 ``ssd_scan`` is the port of ``repro.kernels.ssm_scan.ops.ssd_scan``: the
 whole scan as a host loop of ``ssd_chunk`` calls, the state passed from one
@@ -21,6 +22,7 @@ import torch
 from .ref import ssd_chunk_ref
 
 MAX_DIM = 64                   # the kernel's largest head dim and state size
+CB_TILE = 64                   # the C.B^T scratch's side: L rounded up to it
 
 
 def _check(xb, B_, C_, seg, S_prev) -> None:
@@ -62,14 +64,16 @@ def _launch(xb, B_, C_, seg, S_prev):
             f"strides xb {xb.stride()}, B_ {B_.stride()}, C_ {C_.stride()}, "
             f"seg {seg.stride()}, S_prev {S_prev.stride()}: the last dims "
             "must be packed and S_prev contiguous")
-    launch = entry("ssd_chunk", "ssd_chunk_fwd", *[ctypes.c_void_p] * 7,
+    launch = entry("ssd_chunk", "ssd_chunk_fwd", *[ctypes.c_void_p] * 8,
                    *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 8)
     y = torch.empty(xb.shape, dtype=torch.float32, device=xb.device)
     S_new = torch.empty(S_prev.shape, dtype=torch.float32, device=xb.device)
+    Lp = -(-L // CB_TILE) * CB_TILE
+    cb = torch.empty((Bb, Lp, Lp), dtype=torch.float32, device=xb.device)
     launch(xb.device, xb.data_ptr(), B_.data_ptr(), C_.data_ptr(),
            seg.data_ptr(), S_prev.data_ptr(), y.data_ptr(), S_new.data_ptr(),
-           Bb, L, nh, hd, N, *[s for t in (xb, B_, C_, seg)
-                                for s in (t.stride(0), t.stride(1))])
+           cb.data_ptr(), Bb, L, nh, hd, N,
+           *[s for t in (xb, B_, C_, seg) for s in (t.stride(0), t.stride(1))])
     ssd_chunk.launches += 1
     return y, S_new
 
