@@ -39,35 +39,49 @@ on failure:
      at the same shape; the SSD chunk beside both of its bounds: fp32 on
      the CUDA cores, and split fp32 on the TF32 tensor cores);
   3. token identity on the card: the fp32 llama3 smoke model served by
-     PagedBatcher under every engine mode and both sync arms, and by the
-     port on the CPU, gives the same greedy tokens, with fp weights and with
-     int8 / W4A16 weights crossed with a bf16 / int8 KV pool; each kernel
-     launches exactly where the plan sends work to it; then the same model
-     through InferenceEngine, 4 prefill strategies x 4 engine modes x fast
-     and host sync, against the engine on the CPU, each kernel launching as
-     often as the chunks and the plan predict; then the fp32 zamba2 smoke
-     model the same way (the hybrid's pipe held to the CPU's pipe: its
+     PagedBatcher under every engine mode and both sync arms, its decode
+     windows and ticks replaying captured CUDA graphs, and with eager
+     decode loops (hetero-tensor, both syncs), and by the port on the CPU,
+     gives the same greedy tokens, with fp weights and with int8 / W4A16
+     weights crossed with a bf16 / int8 KV pool; each captured arm holds one
+     graph, replayed once per decode dispatch, each window or tick after the
+     first reading the host once (CUDA's sync debug mode); each kernel
+     launches exactly where the plan sends work to it; two sampled runs from
+     one seed agree. Then the same model through InferenceEngine, 4 prefill
+     strategies x 4 engine modes x fast and host sync (captured) and the
+     hetero-tensor arms with eager loops, two prompts of one length each
+     (the second reusing the cache and the graph), against the engine on
+     the CPU, each kernel launching as often as the chunks and the plan
+     predict, the eager arms as often as the captured; then the fp32 zamba2
+     smoke model the same way (the hybrid's pipe held to the CPU's pipe: its
      zero-padded tail moves the recurrent state, as in the reference);
-  4. the slices at full width: llama3-8b (32 layers, bf16, seeded random
-     weights) served through PagedBatcher(engine_mode="hetero-tensor",
-     sync="device", window=8) against the engine_mode=None arm on the same
-     weights and prompts, three times: fp weights, int8 weights with an int8
-     KV pool, W4A16 weights with the bf16 pool; then the single-request
-     engine on the same weights (prompt 300, 16 new tokens, hetero
-     strategy) in three arms: hetero-tensor with fast sync (its decode loop
-     run with CUDA's sync debug mode set to error), xla with fast sync, and
-     hetero-tensor with host sync; then the first arm through the attention
-     kernels against the same arm through their plain versions, on the
-     first-token and first decode step logits (``attention_gate``;
-     ``scripts/attention_gate_mutants.py`` shows that wrong attentions
-     fail it); then, the llama3 weights freed, zamba2-2.7b (54 mamba
-     layers, d_model 2560, bf16, seeded random weights) through the engine
-     (prompt 600: chunks 512 and 88, 162 SSD launches a generate) with
-     hetero-tensor and xla fast sync, then ``ssd_gate`` (the SSD kernel
-     against its plain version on the same logits, and on the first mamba
-     layer's scan output and state within the chunk's 1e-4;
-     ``scripts/ssd_gate_mutants.py`` shows that wrong SSD steps, one pass
-     of TF32 among them, fail it) and ``attention_gate`` on this model.
+  4. the slices at full width, their decode loops captured (the main
+     path): llama3-8b (32 layers, bf16, seeded random weights) served
+     through PagedBatcher(engine_mode="hetero-tensor", sync="device",
+     window=8) against the engine_mode=None arm on the same weights and
+     prompts, three times: fp weights, int8 weights with an int8 KV pool,
+     W4A16 weights with the bf16 pool (each batcher: a first run that
+     captures, a timed run, the hetero-tensor one a profiled run); then the
+     single-request engine on the same weights (prompt 300, 16 new tokens,
+     hetero strategy) in three arms: hetero-tensor with fast sync (its
+     replayed decode loop run with CUDA's sync debug mode set to error),
+     xla with fast sync, and hetero-tensor with host sync; then the first
+     arm through the attention kernels against the same arm through their
+     plain versions, on the first-token and first decode step logits
+     (``attention_gate``; ``scripts/attention_gate_mutants.py`` shows that
+     wrong attentions fail it); then ``phase_graph_decode``: each paged
+     pair's hetero-tensor arm and the engine's first arm against an eager
+     arm in this call (tok/s, decode and prefill time, profiled busy share,
+     the graphs' count, capture time and pool bytes, launches per kernel;
+     tokens and launches must be equal); then, the llama3 weights and
+     graphs freed, zamba2-2.7b (54 mamba layers, d_model 2560, bf16, seeded
+     random weights) through the engine (prompt 600: chunks 512 and 88, 162
+     SSD launches a generate) with hetero-tensor and xla fast sync, then
+     ``ssd_gate`` (the SSD kernel against its plain version on the same
+     logits, and on the first mamba layer's scan output and state within
+     the chunk's 1e-4; ``scripts/ssd_gate_mutants.py`` shows that wrong SSD
+     steps, one pass of TF32 among them, fail it), ``attention_gate`` on
+     this model, and its engine's ``phase_graph_decode`` pair.
 
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -80,6 +94,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -859,18 +874,94 @@ def _smoke_prompts(vocab: int):
 
 
 def _serve(cfg, params, prompts, *, device, engine_mode, sync, window,
-           decode_width, new_tokens, weight_quant=None, kv_quant=None):
-    from repro_torch.serving.scheduler import PagedBatcher, Request
+           decode_width, new_tokens, weight_quant=None, kv_quant=None, **kw):
+    from repro_torch.serving.scheduler import PagedBatcher
     max_len = max(len(p) for p in prompts) + new_tokens + 8
     per_req = -(-max_len // 32)
     cb = PagedBatcher(cfg, params, num_blocks=1 + len(prompts) * per_req,
                       block_size=32, max_blocks_per_seq=per_req,
                       decode_width=decode_width, sync=sync, window=window,
                       engine_mode=engine_mode, weight_quant=weight_quant,
-                      kv_quant=kv_quant, device=device)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+                      kv_quant=kv_quant, device=device, **kw)
+    return cb, _requests(prompts, new_tokens)
+
+
+def _requests(prompts, new_tokens: int) -> list:
+    from repro_torch.serving.scheduler import Request
+    return [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
-    return cb, reqs
+
+
+class _eager_loops:
+    """Inside this block the port's decode loops are made eager: each loop
+    that ``core.sync`` makes copies its inputs to the card and runs its
+    body step by step instead of a CUDA graph (for the eager arms held
+    against the captured ones; the port itself has no such switch)."""
+
+    def __enter__(self):
+        from repro_torch.core import sync
+        self.made = sync.make_loop
+
+        def eager(body, inputs, **_):
+            device = inputs[0].device
+            return lambda *xs: body(*(x.to(device, non_blocking=True)
+                                      for x in xs))
+
+        sync.make_loop = eager
+
+    def __exit__(self, *exc):
+        from repro_torch.core import sync
+        sync.make_loop = self.made
+
+
+def _time_captures() -> None:
+    """Record on every CapturedLoop the seconds its construction took (warm
+    -up and capture) as ``capture_s``."""
+    from repro_torch.core.sync import CapturedLoop
+    init = CapturedLoop.__init__
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        init(self, *a, **k)
+        self.capture_s = time.perf_counter() - t0
+
+    CapturedLoop.__init__ = timed
+
+
+def _graph_info(owner) -> dict:
+    """A batcher's or an engine's decode graphs: count, replays, pool bytes
+    and the seconds their captures took."""
+    info = owner.graph_stats()
+    info["capture_s"] = sum(getattr(lp, "capture_s", 0.0)
+                            for lp in owner._loops.values())
+    return info
+
+
+def _count_syncs(cb) -> list:
+    """Run the batcher's windows and ticks with CUDA's sync debug mode set
+    to warn; returns the list that gets, per window or tick, the number of
+    synchronising operations the mode reported in it."""
+    import warnings
+    import torch
+    per_call = []
+
+    def counting(fn):
+        def run(*a, **k):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            per_call.append(sum("synchroniz" in str(w.message)
+                                for w in seen))
+            return out
+        return run
+
+    cb._decode_window = counting(cb._decode_window)
+    cb._decode_tick = counting(cb._decode_tick)
+    return per_call
 
 
 def _counters():
@@ -907,15 +998,23 @@ TOKEN_FORMATS = ((None, None), ("int8", None), ("int8", "int8"),
 def phase_tokens() -> None:
     """fp32 smoke model, fp weights and then int8 / w4a16 weights with an
     fp32 or int8 KV pool: within each format every engine mode x sync arm,
-    on the card and on the CPU, gives the same greedy tokens. The format's
-    kernel launches on the card in the mxu arms and wherever the
-    hetero-tensor plan keeps a site off xla_only (sync device; under sync
-    host the reference's 50 us T_sync keeps every smoke-size site there),
-    and no other kernel launches: on quantized weights every matmul site,
-    the untied head included, is quantized."""
+    on the card (captured decode graphs) and on the CPU, and the
+    hetero-tensor arm of each sync on the card with eager decode loops,
+    gives the same greedy tokens. A captured arm captures one graph (the
+    window, or the tick's step) and replays it once per decode dispatch,
+    each window or tick after the first reading the host once (CUDA's sync
+    debug mode); an eager arm captures none. The format's kernel launches
+    on the card in the mxu arms and wherever the hetero-tensor plan keeps a
+    site off xla_only (sync device; under sync host the reference's 50 us
+    T_sync keeps every smoke-size site there), and no other kernel
+    launches: on quantized weights every matmul site, the untied head
+    included, is quantized; decode launches no kernel of the port. Then
+    temperature sampling: two captured runs from one seed agree, and
+    whether they equal an eager run is logged."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sampler import SamplerConfig
 
     cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
                                               compute_dtype="float32")
@@ -923,22 +1022,41 @@ def phase_tokens() -> None:
                          device="cuda")
     cpu_params = _to_device(params, "cpu")
     prompts = _smoke_prompts(cfg.vocab_size)
-    arms = [("cuda", m, s) for m in (None, "xla", "mxu", "hetero-tensor")
-            for s in ("host", "device")] + [("cpu", "hetero-tensor", "device")]
+    arms = [("cuda", m, s, False) for m in (None, "xla", "mxu",
+                                            "hetero-tensor")
+            for s in ("host", "device")]
+    arms += [("cuda", "hetero-tensor", s, True) for s in ("host", "device")]
+    arms += [("cpu", "hetero-tensor", "device", False)]
     for fmt, kvq in TOKEN_FORMATS:
         outputs = {}
-        for device, mode, sync in arms:
-            cb, reqs = _serve(cfg, params if device == "cuda" else cpu_params,
-                              prompts, device=device, engine_mode=mode,
-                              sync=sync, window=4, decode_width=4,
-                              new_tokens=12, weight_quant=fmt, kv_quant=kvq)
-            _zero_counts()
-            cb.run(reqs)
+        for device, mode, sync, eager in arms:
+            with _eager_loops() if eager else nullcontext():
+                cb, reqs = _serve(
+                    cfg, params if device == "cuda" else cpu_params, prompts,
+                    device=device, engine_mode=mode, sync=sync, window=4,
+                    decode_width=4, new_tokens=12, weight_quant=fmt,
+                    kv_quant=kvq)
+                syncs = _count_syncs(cb) if device == "cuda" else []
+                _zero_counts()
+                cb.run(reqs)
             counts = _read_counts()
             cb.kv.assert_drained()
-            arm = f"{fmt or 'fp'}/kv={kvq}/{device}/{mode}/{sync}"
+            arm = (f"{fmt or 'fp'}/kv={kvq}/{device}/{mode}/{sync}"
+                   + ("/eager" if eager else ""))
             outputs[arm] = [r.output for r in reqs]
-            log(f"[tokens] {arm}: {cb.stats()} launches {counts}")
+            graphs = cb.graph_stats()
+            log(f"[tokens] {arm}: {cb.stats()} graphs {graphs} host syncs "
+                f"per decode dispatch {syncs} launches {counts}")
+            captured = device == "cuda" and not eager
+            want = ({"graphs": 1, "replays": cb.decode_dispatches}
+                    if captured else {"graphs": 0, "replays": 0})
+            if {k: graphs[k] for k in want} != want:
+                raise AssertionError(f"{arm}: graphs {graphs}, expected "
+                                     f"{want}")
+            if captured and any(n != 1 for n in syncs[1:]):
+                raise AssertionError(f"{arm}: host syncs per decode "
+                                     f"dispatch {syncs}, expected 1 after "
+                                     "the capturing first")
             expect = device == "cuda" and (mode == "mxu" or (
                 mode == "hetero-tensor" and any(
                     d.strategy != "xla_only"
@@ -951,6 +1069,7 @@ def phase_tokens() -> None:
             if sum(counts.values()) != mine:
                 raise AssertionError(f"{arm}: another kernel launched: "
                                      f"{counts}")
+            del cb
         first = next(iter(outputs.values()))
         for arm, out in outputs.items():
             if out != first or any(len(o) != 12 for o in out):
@@ -958,6 +1077,24 @@ def phase_tokens() -> None:
                                      f"{first}")
         log(f"[tokens] {fmt or 'fp'}/kv={kvq}: {len(outputs)} arms "
             f"token-identical; request 0: {first[0]}")
+    sampled = {}
+    for run, eager in (("captured", False), ("captured again", False),
+                       ("eager", True)):
+        with _eager_loops() if eager else nullcontext():
+            cb, reqs = _serve(cfg, params, prompts, device="cuda",
+                              engine_mode="hetero-tensor", sync="device",
+                              window=4, decode_width=4, new_tokens=12,
+                              sampler=SamplerConfig(temperature=1.0,
+                                                    top_k=8), seed=5)
+            cb.run(reqs)
+        sampled[run] = [r.output for r in reqs]
+    if sampled["captured"] != sampled["captured again"]:
+        raise AssertionError(f"[tokens] sampled windows differ between two "
+                             f"captured runs from one seed: {sampled}")
+    log(f"[tokens] sampled (temperature 1, top-k 8, seed 5): two captured "
+        f"runs agree; equal to the eager run: "
+        f"{sampled['captured'] == sampled['eager']}; request 0 captured "
+        f"{sampled['captured'][0]}, eager {sampled['eager'][0]}")
 
 
 ENGINE_MODES = ("xla", "mxu", "hetero-layer", "hetero-tensor")
@@ -1033,12 +1170,17 @@ def gemm_launches(ctx, cfg, chunks) -> int:
 def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
                         new_tokens: int = 12, buckets=(32, 64)) -> None:
     """fp32 smoke model of ``arch`` through InferenceEngine: for each
-    prefill strategy, every engine mode x fast/host sync on the card gives
-    the tokens the engine gives on the CPU, and each kernel (GEMM, flash,
-    decode and, on the hybrid, SSD) launches exactly as often as the
-    strategy's chunks and the plan predict. The strategies agree with one
-    another, but for the hybrid's pipe: its zero-padded tail moves the
-    recurrent state, as in the reference."""
+    prefill strategy, every engine mode x fast/host sync on the card takes
+    two prompts of one length in turn (the first captures the decode graph,
+    the second prefills into the same cache and replays it) and gives the
+    tokens the engine gives on the CPU; so does the hetero-tensor arm of
+    each sync with eager decode loops. On the second prompt each kernel
+    (GEMM, flash, decode and, on the hybrid, SSD) launches exactly as often
+    as the strategy's chunks and the plan predict, the eager arm's counts
+    equal the captured arm's, and the engine holds one graph, replayed once
+    per prompt (fast) or once per decoded token (host). The strategies
+    agree with one another, but for the hybrid's pipe: its zero-padded tail
+    moves the recurrent state, as in the reference."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1051,8 +1193,8 @@ def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
     params = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(7), device="cuda")
     cpu_params = _to_device(params, "cpu")
-    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                               (1, prompt_len))
+    prompts = [np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt_len)) for seed in (3, 5)]
     plans = {fast: build_plan(cfg, sync_mode="fast" if fast else "host")
              for fast in (True, False)}
     n_arms, outs = 0, {}
@@ -1062,30 +1204,50 @@ def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
             return InferenceEngine(cfg, p, mode=mode, prefill_strategy=strategy,
                                    fast_sync=fast, table=table, plan=plan,
                                    buckets=buckets, device=device)
-        want = engine("hetero-tensor", True, cpu_params, "cpu").generate(
-            prompt, new_tokens).tolist()
-        for mode in ENGINE_MODES:
-            for fast in (True, False):
+        cpu = engine("hetero-tensor", True, cpu_params, "cpu")
+        want = [cpu.generate(p, new_tokens).tolist() for p in prompts]
+        captured_counts = {}
+        arms = [(m, f, False) for m in ENGINE_MODES for f in (True, False)]
+        arms += [("hetero-tensor", f, True) for f in (True, False)]
+        for mode, fast, eager in arms:
+            sync = "fast" if fast else "host"
+            arm = f"{arch}/{strategy}/{mode}/{sync}" + ("/eager" if eager
+                                                        else "")
+            with _eager_loops() if eager else nullcontext():
                 eng = engine(mode, fast, params, "cuda")
+                got = [eng.generate(prompts[0], new_tokens).tolist()]
                 _zero_counts()
-                got = eng.generate(prompt, new_tokens).tolist()
-                counts = _read_counts()
-                chunks = eng._bucket_chunks(prompt_len)
-                expect = engine_launches(eng, cfg, prompt_len, new_tokens)
-                arm = f"{arch}/{strategy}/{mode}/{'fast' if fast else 'host'}"
-                if got != want:
-                    raise AssertionError(f"[engine] {arm}: {got} vs the "
-                                         f"CPU's {want}")
-                for name, n in expect.items():
-                    if counts[name] != n:
-                        raise AssertionError(f"[engine] {arm}: {counts[name]}"
-                                             f" launches of {name}, expected "
-                                             f"{n}")
-                n_arms += 1
-                log(f"[engine] {arm}: chunks {chunks}, launches {counts}")
+                got.append(eng.generate(prompts[1], new_tokens).tolist())
+            counts = _read_counts()
+            graphs = eng.graph_stats()
+            expect = engine_launches(eng, cfg, prompt_len, new_tokens)
+            if got != want:
+                raise AssertionError(f"[engine] {arm}: {got} vs the "
+                                     f"CPU's {want}")
+            for name, n in expect.items():
+                if counts[name] != n:
+                    raise AssertionError(f"[engine] {arm}: {counts[name]}"
+                                         f" launches of {name}, expected "
+                                         f"{n}")
+            replays = 2 if fast else 2 * (new_tokens - 1)
+            want_graphs = ((0, 0) if eager else (1, replays))
+            if (graphs["graphs"], graphs["replays"]) != want_graphs:
+                raise AssertionError(f"[engine] {arm}: graphs {graphs}, "
+                                     f"expected (graphs, replays) "
+                                     f"{want_graphs}")
+            if mode == "hetero-tensor" and not eager:
+                captured_counts[fast] = counts
+            if eager and counts != captured_counts[fast]:
+                raise AssertionError(f"[engine] {arm}: launches {counts} vs "
+                                     f"the captured arm's "
+                                     f"{captured_counts[fast]}")
+            n_arms += 1
+            log(f"[engine] {arm}: chunks {eng._bucket_chunks(prompt_len)}, "
+                f"graphs {graphs}, launches {counts}")
+            del eng
         outs[strategy] = want
-        log(f"[engine] {arch}/{strategy}: 8 card arms equal the CPU's tokens "
-            f"{want[0]}")
+        log(f"[engine] {arch}/{strategy}: 8 captured and 2 eager card arms "
+            f"equal the CPU's tokens {want[0][0]}, then {want[1][0]}")
     agree = {k: v for k, v in outs.items()
              if not (cfg.ssm is not None and k == "pipe")}
     if len({str(o) for o in agree.values()}) != 1:
@@ -1127,79 +1289,110 @@ def full_model():
     return cfg, params
 
 
+def full_prompts(cfg, prompt_len: int = 300, n_requests: int = 4) -> list:
+    """The full-width paged cells' seeded prompts (lengths 8 .. prompt_len)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size,
+                         rng.integers(8, prompt_len)).astype(np.int32)
+            for _ in range(n_requests)]
+
+
+def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
+               weight_quant, kv_quant, profile: bool = False) -> dict:
+    """One full-width PagedBatcher (sync device, window 8, width 8): a
+    first run over the prompts (which captures its decode graph), then a
+    timed run and, with ``profile``, a profiled run, each over new requests
+    for the same prompts. Returns the timed run's numbers."""
+    import torch
+    from repro_torch.core.sync import fence
+
+    t0 = time.perf_counter()
+    cb, reqs = _serve(cfg, params, prompts, device="cuda", engine_mode=mode,
+                      sync="device", window=8, decode_width=8,
+                      new_tokens=new_tokens, weight_quant=weight_quant,
+                      kv_quant=kv_quant)
+    fence(params["embed"])
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cb.run(reqs)
+    fence(params["embed"])
+    first_run = time.perf_counter() - t0
+    reqs = _requests(prompts, new_tokens)
+    timers, undo = _instrument(cb)
+    torch.cuda.reset_peak_memory_stats()
+    fence(params["embed"])
+    _zero_counts()
+    t0 = time.perf_counter()
+    cb.run(reqs)
+    fence(params["embed"])
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    undo()
+    cb.kv.assert_drained()
+    tok = sum(len(r.output) for r in reqs)
+    arm = {
+        "label": label, "weight_quant": weight_quant, "kv_quant": kv_quant,
+        "engine_mode": mode, "wall_s": wall, "setup_s": setup,
+        "first_run_s": first_run, "new_tokens": new_tokens, "tokens": tok,
+        "tok_per_s": tok / wall,
+        "prefill_s": timers["prefill"], "decode_s": timers["decode"],
+        "stats": cb.stats(), "launches": counts,
+        "gemm_launches": counts[KERNEL_OF_FORMAT[weight_quant]],
+        "outputs": [r.output for r in reqs],
+        "first_logits": timers["first_logits"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "pool_bytes": cb.kv.pool_bytes(), "graphs": _graph_info(cb),
+    }
+    if cb.ctx is not None:
+        plan = cb.ctx.plan
+        arm["strategies"] = dict(Counter(
+            d.strategy for d in plan.decisions.values()))
+        arm["decisions_m256"] = {
+            s: f"{d.strategy}:{d.n_split}" for (s, m), d in
+            plan.decisions.items() if m == 256}
+    log(f"[full] {label} engine={mode}: {tok} tokens in {wall:.3f}s "
+        f"({tok / wall:.1f} tok/s); prefill {timers['prefill']:.3f}s, "
+        f"decode {timers['decode']:.3f}s; setup {setup:.1f}s, first run "
+        f"{first_run:.3f}s; {cb.stats()}; graphs {arm['graphs']}; launches "
+        f"{counts}; peak {arm['peak_mem_gb']:.2f} GB; pool "
+        f"{arm['pool_bytes'] / 1e9:.3f} GB")
+    if "strategies" in arm:
+        log(f"[full] {label} plan strategies {arm['strategies']}; at "
+            f"M=256 {arm['decisions_m256']}")
+    for r in reqs:
+        if len(r.output) != new_tokens:
+            raise AssertionError(f"{label} request {r.rid}: "
+                                 f"{len(r.output)} tokens")
+    if profile:
+        more = _requests(prompts, new_tokens)
+        arm["profile"] = _profiled(label, lambda: cb.run(more),
+                                   params["embed"])
+    del cb, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return arm
+
+
 def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
                n_requests: int = 4) -> dict:
     """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
     arm and the engine-less arm on the same seeded weights (quantized the
-    same way at construction) and prompts. Returns {label: hetero arm}."""
-    import numpy as np
+    same way at construction) and prompts, each through captured decode
+    windows, the hetero-tensor arm also profiled. Returns {label: hetero
+    arm}."""
     import torch
-    from repro_torch.core.sync import fence
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size,
-                            rng.integers(8, prompt_len)).astype(np.int32)
-               for _ in range(n_requests)]
+    prompts = full_prompts(cfg, prompt_len, n_requests)
     log(f"[full] prompt lengths {[len(p) for p in prompts]}, "
         f"{new_tokens} new tokens each")
     hetero, fp_logits = {}, None
     for label, wq, kvq in FULL_PAIRS:
-        arms = {}
-        for mode in ("hetero-tensor", None):
-            t0 = time.perf_counter()
-            cb, reqs = _serve(cfg, params, prompts, device="cuda",
-                              engine_mode=mode, sync="device", window=8,
-                              decode_width=8, new_tokens=new_tokens,
-                              weight_quant=wq, kv_quant=kvq)
-            fence(params["embed"])
-            setup = time.perf_counter() - t0
-            timers = _instrument(cb)
-            torch.cuda.reset_peak_memory_stats()
-            fence(params["embed"])
-            _zero_counts()
-            t0 = time.perf_counter()
-            cb.run(reqs)
-            fence(params["embed"])
-            wall = time.perf_counter() - t0
-            counts = _read_counts()
-            cb.kv.assert_drained()
-            tok = sum(len(r.output) for r in reqs)
-            arm = {
-                "pair": label, "weight_quant": wq, "kv_quant": kvq,
-                "engine_mode": mode, "wall_s": wall, "setup_s": setup,
-                "tokens": tok, "tok_per_s": tok / wall,
-                "prefill_s": timers["prefill"], "decode_s": timers["decode"],
-                "stats": cb.stats(), "launches": counts,
-                "gemm_launches": counts[KERNEL_OF_FORMAT[wq]],
-                "outputs": [r.output for r in reqs],
-                "first_logits": timers["first_logits"],
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "pool_bytes": cb.kv.pool_bytes(),
-            }
-            if cb.ctx is not None:
-                plan = cb.ctx.plan
-                arm["strategies"] = dict(Counter(
-                    d.strategy for d in plan.decisions.values()))
-                arm["decisions_m256"] = {
-                    s: f"{d.strategy}:{d.n_split}" for (s, m), d in
-                    plan.decisions.items() if m == 256}
-            arms[mode] = arm
-            log(f"[full] {label} engine={mode}: {tok} tokens in {wall:.3f}s "
-                f"({tok / wall:.1f} tok/s); prefill {timers['prefill']:.3f}s, "
-                f"decode {timers['decode']:.3f}s; setup {setup:.1f}s; "
-                f"{cb.stats()}; launches {counts}; peak "
-                f"{arm['peak_mem_gb']:.2f} GB; pool "
-                f"{arm['pool_bytes'] / 1e9:.3f} GB")
-            if "strategies" in arm:
-                log(f"[full] {label} plan strategies {arm['strategies']}; at "
-                    f"M=256 {arm['decisions_m256']}")
-            for r in reqs:
-                if len(r.output) != new_tokens:
-                    raise AssertionError(f"{label} request {r.rid}: "
-                                         f"{len(r.output)} tokens")
-            del cb, reqs
-            gc.collect()
-            torch.cuda.empty_cache()
+        arms = {mode: _paged_arm(cfg, params, prompts, new_tokens,
+                                 label=label, mode=mode, weight_quant=wq,
+                                 kv_quant=kvq,
+                                 profile=mode == "hetero-tensor")
+                for mode in ("hetero-tensor", None)}
         het, base = arms["hetero-tensor"], arms[None]
         if het["gemm_launches"] <= 0:
             raise AssertionError(f"{label}: hetero-tensor arm never launched "
@@ -1232,23 +1425,9 @@ def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
             f"{same}/{total} ({same / total:.3f})")
         if wq is None:
             fp_logits = base["first_logits"]
-        _profile(cfg, params, prompts, new_tokens, label, wq, kvq)
+        het["prompts"] = prompts
         hetero[label] = het
     return hetero
-
-
-def _profile(cfg, params, prompts, new_tokens: int, label: str,
-             weight_quant, kv_quant) -> None:
-    """One more hetero-tensor run of a pair under torch.profiler (after the
-    timed arms, so its overhead touches no reported time)."""
-    from repro_torch.core.sync import fence
-
-    cb, reqs = _serve(cfg, params, prompts, device="cuda",
-                      engine_mode="hetero-tensor", sync="device", window=8,
-                      decode_width=8, new_tokens=new_tokens,
-                      weight_quant=weight_quant, kv_quant=kv_quant)
-    fence(params["embed"])
-    _profiled(label, lambda: cb.run(reqs), params["embed"])
 
 
 # the port's own kernels (csrc/*.cu), which _profiled lists by name even
@@ -1258,16 +1437,18 @@ PORT_KERNELS = ("gemm_tc", "splitk_reduce", "mm_output_stationary",
                 "decode_split", "decode_combine", "ssd_cb_tc", "ssd_chunk_tc")
 
 
-def _profiled(label: str, run, anchor) -> None:
-    """``run()`` under torch.profiler: device time by kernel (the 12
-    largest, then every other kernel of the port) and the device's busy
-    share of the run's wall time."""
+def _profiled(label: str, run, anchor) -> dict:
+    """``run()`` under torch.profiler, tracing the card only (a trace of
+    every host-side operator of an eager run slows the run it measures and
+    is slow to read back): device time by kernel (the 12 largest,
+    then every other kernel of the port) and the device's busy share of the
+    run's wall time. Returns {"wall_s", "busy_s", "share"} (busy None where
+    the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.sync import fence
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         fence(anchor)
@@ -1284,7 +1465,7 @@ def _profiled(label: str, run, anchor) -> None:
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
         log(f"[profile] {label}: torch.profiler saw no device time")
-        return
+        return {"wall_s": wall, "busy_s": None, "share": None}
     log(f"[profile] {label} run: wall {wall:.3f}s (profiled), "
         f"device busy {busy:.3f}s ({busy / wall:.3f} of wall)")
     for us, n, key in rows[:12]:
@@ -1293,15 +1474,18 @@ def _profiled(label: str, run, anchor) -> None:
         if any(name in key for name in PORT_KERNELS):
             log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]} "
                 "(a port kernel)")
+    return {"wall_s": wall, "busy_s": busy, "share": busy / wall}
 
 
 ENGINE_ARMS = (("hetero-tensor", True), ("xla", True), ("hetero-tensor", False))
 
 
 def _strict_decode(engine_module):
-    """Wrap the engine's ``generate_on_device`` so that it runs with CUDA's
-    sync debug mode set to error: any host sync inside the fast-sync
-    decode loop raises. Returns the function that undoes the wrap."""
+    """Wrap the engine's ``generate_on_device`` (on the card: copying the
+    inputs into the captured loop's buffers and replaying it) so that it
+    runs with CUDA's sync debug mode set to error: any host sync inside the
+    fast-sync decode loop raises. Returns the function that undoes the
+    wrap."""
     import torch
     inner = engine_module.generate_on_device
 
@@ -1333,27 +1517,27 @@ def gate_bounds(name: str) -> tuple[float, float]:
 
 
 def _step_logits(eng, prompt) -> list:
-    """[first-token logits, first decode step's logits] of one
-    ``eng.generate(prompt, 2)``: the last prefill chunk's and the one
-    decode step's last-position logits, in fp32."""
-    import dataclasses
+    """[first-token logits, first decode step's logits] of ``prompt``
+    through ``eng``, in fp32: the last prefill chunk's last-position logits
+    of ``eng.generate(prompt, 1)``, then the decode step that comes next,
+    run eagerly on the same cache (a captured loop replays the same
+    launches, and no graph is captured here)."""
+    import torch
 
-    seen, prefill, model = [], eng._prefill, eng.model
+    seen, prefill = {}, eng._prefill
 
-    def keep(fn):
-        def run(*a, **k):
-            logits, cache = fn(*a, **k)
-            seen.append(logits[0, -1].float())
-            return logits, cache
-        return run
+    def keep(*a, **k):
+        seen["logits"], seen["cache"] = prefill(*a, **k)
+        return seen["logits"], seen["cache"]
 
-    eng._prefill = keep(prefill)
-    eng.model = dataclasses.replace(model, decode_step=keep(model.decode_step))
+    eng._prefill = keep
     try:
-        eng.generate(prompt, 2)
+        eng.generate(prompt, 1)
     finally:
-        eng._prefill, eng.model = prefill, model
-    return seen[-2:]
+        eng._prefill = prefill
+    first = torch.argmax(seen["logits"][:, -1, :], dim=-1)[:, None]
+    logits, _ = eng.model.decode_step(eng.params, first, seen["cache"])
+    return [seen["logits"][0, -1].float(), logits[0, -1].float()]
 
 
 def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
@@ -1478,82 +1662,104 @@ def ssd_gate(cfg, params, prompt, plain=None, *, check: bool = True) -> dict:
         first_layer)
 
 
+def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
+                fast: bool, label: str, strict: bool = False,
+                profile: bool = False) -> dict:
+    """One full-width InferenceEngine (hetero strategy): a first generate
+    (which meets the chunk lengths and captures the decode graph), then a
+    timed one, every kernel launching as predicted, decoding under CUDA's
+    sync debug mode set to error where ``strict``, and, with ``profile``, a
+    profiled one. Returns the timed generate's numbers."""
+    import torch
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.engine import EngineStats, InferenceEngine
+    from repro_torch.core.sync import fence
+
+    eng = InferenceEngine(cfg, params, mode=mode, prefill_strategy="hetero",
+                          fast_sync=fast)
+    prefill, first = eng._prefill, {}
+
+    def keep_logits(*a, **k):
+        logits, cache = prefill(*a, **k)
+        first["logits"] = logits[0, -1].float()
+        return logits, cache
+
+    eng._prefill = keep_logits
+    eng.generate(prompt, new_tokens)
+    warm = eng.stats
+    eng.stats = EngineStats()
+    fence(params["embed"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    undo = _strict_decode(engine_mod) if strict else (lambda: None)
+    try:
+        out = eng.generate(prompt, new_tokens)
+    finally:
+        undo()
+    counts = _read_counts()
+    st = eng.stats
+    chunks = eng._bucket_chunks(prompt.shape[1])
+    expect = engine_launches(eng, cfg, prompt.shape[1], new_tokens)
+    for name, n in expect.items():
+        if counts[name] != n:
+            raise AssertionError(f"[engine-full] {cfg.name} {label}: "
+                                 f"{counts[name]} launches of {name}, "
+                                 f"expected {n}")
+    logits = first["logits"]
+    if out.shape != (1, new_tokens) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[engine-full] {cfg.name} {label}: output "
+                             f"{tuple(out.shape)} or non-finite logits")
+    arm = {"mode": mode, "fast_sync": fast, "chunks": chunks,
+           "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+           "tok_per_s": new_tokens / (st.prefill_s + st.decode_s),
+           **st.tokens_per_s(),
+           "first_call_compile_s": warm.compile_s,
+           "n_compiles": warm.n_compiles, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graphs": _graph_info(eng), "prompt": prompt,
+           "tokens": out[0].tolist(), "logits": logits}
+    log(f"[engine-full] {cfg.name} {label}: chunks {chunks}; prefill "
+        f"{st.prefill_s:.3f}s, decode {st.decode_s:.3f}s "
+        f"({arm['decode_tok_s']:.1f} decode tok/s, {arm['tok_per_s']:.2f}"
+        f" tok/s end to end); first call {warm.compile_s:.2f}s over "
+        f"{warm.n_compiles} compiles (chunk lengths and captures); graphs "
+        f"{arm['graphs']}; launches {counts}; peak "
+        f"{arm['peak_mem_gb']:.2f} GB")
+    if profile:
+        arm["profile"] = _profiled(f"engine {cfg.name} {label}",
+                                   lambda: eng.generate(prompt, new_tokens),
+                                   params["embed"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return arm
+
+
 def phase_engine_full(cfg, params, prompt_len: int = 300,
                       new_tokens: int = 16, arms=ENGINE_ARMS, seed: int = 4,
                       gates=(attention_gate,)) -> dict:
     """The single-request engine at full width: one seeded prompt, hetero
-    strategy, each of ``arms`` (mode, fast sync). Each arm runs once to meet
-    its chunk lengths and once timed, every kernel launching as predicted;
-    the timed run of the hetero-tensor fast arm decodes under the sync debug
-    mode. Then each of ``gates`` holds that arm's kernels against their
-    plain versions, and a profiled run gives the device's busy share.
-    Returns {arm: result}."""
+    strategy, each of ``arms`` (mode, fast sync) through ``_engine_arm``
+    (captured decode loops); the hetero-tensor fast arm decodes its timed
+    run under the sync debug mode and is profiled. Then each of ``gates``
+    holds that arm's kernels against their plain versions. Returns {arm:
+    result}."""
     import numpy as np
     import torch
-    from repro_torch.core import engine as engine_mod
-    from repro_torch.core.engine import EngineStats, InferenceEngine
-    from repro_torch.core.sync import fence, measure_dispatch_overhead
+    from repro_torch.core.sync import measure_dispatch_overhead
 
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                   (1, prompt_len))
-    anchor = params["embed"]
-    results, base = {}, None
+    results = {}
     for mode, fast in arms:
         label = f"{mode}/{'fast' if fast else 'host'}"
-        eng = InferenceEngine(cfg, params, mode=mode,
-                              prefill_strategy="hetero", fast_sync=fast)
-        prefill, first = eng._prefill, {}
-
-        def keep_logits(*a, **k):
-            logits, cache = prefill(*a, **k)
-            first["logits"] = logits[0, -1].float()
-            return logits, cache
-
-        eng._prefill = keep_logits
-        eng.generate(prompt, new_tokens)          # meets the chunk lengths
-        warm = eng.stats
-        eng.stats = EngineStats()
-        fence(anchor)
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        undo = _strict_decode(engine_mod) if label == "hetero-tensor/fast" \
-            else (lambda: None)
-        try:
-            out = eng.generate(prompt, new_tokens)
-        finally:
-            undo()
-        counts = _read_counts()
-        st = eng.stats
-        chunks = eng._bucket_chunks(prompt_len)
-        expect = engine_launches(eng, cfg, prompt_len, new_tokens)
-        for name, n in expect.items():
-            if counts[name] != n:
-                raise AssertionError(f"[engine-full] {cfg.name} {label}: "
-                                     f"{counts[name]} launches of {name}, "
-                                     f"expected {n}")
-        logits = first["logits"]
-        if out.shape != (1, new_tokens) or not torch.isfinite(logits).all():
-            raise AssertionError(f"[engine-full] {cfg.name} {label}: output "
-                                 f"{tuple(out.shape)} or non-finite logits")
-        arm = {"mode": mode, "fast_sync": fast, "chunks": chunks,
-               "prefill_s": st.prefill_s, "decode_s": st.decode_s,
-               "tok_per_s": new_tokens / (st.prefill_s + st.decode_s),
-               **st.tokens_per_s(),
-               "first_call_compile_s": warm.compile_s,
-               "n_compiles": warm.n_compiles, "launches": counts,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "tokens": out[0].tolist(), "logits": logits}
-        results[label] = arm
-        if mode == "xla":
-            base = arm
-        log(f"[engine-full] {cfg.name} {label}: chunks {chunks}; prefill "
-            f"{st.prefill_s:.3f}s, decode {st.decode_s:.3f}s "
-            f"({arm['decode_tok_s']:.1f} decode tok/s, {arm['tok_per_s']:.2f}"
-            f" tok/s end to end); first calls {warm.compile_s:.2f}s over "
-            f"{warm.n_compiles} chunk lengths; launches {counts}; peak "
-            f"{arm['peak_mem_gb']:.2f} GB")
-    log(f"[engine-full] {cfg.name} hetero-tensor/fast decode loop ran with "
-        "sync debug mode 'error': no host sync inside it")
+        results[label] = _engine_arm(
+            cfg, params, prompt, new_tokens, mode=mode, fast=fast,
+            label=label, strict=label == "hetero-tensor/fast",
+            profile=label == "hetero-tensor/fast")
+    base = results["xla/fast"]
+    log(f"[engine-full] {cfg.name} hetero-tensor/fast decode loop replayed "
+        "with sync debug mode 'error': no host sync inside it")
     for label, arm in results.items():
         cos = float(torch.nn.functional.cosine_similarity(
             arm["logits"], base["logits"], dim=0))
@@ -1575,12 +1781,67 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
         log(f"[engine-full] decode host/fast "
             f"{host['decode_s'] / fast['decode_s']:.3f}; dispatch overhead "
             f"{measure_dispatch_overhead():.1f} us (median launch + sync)")
-    eng = InferenceEngine(cfg, params, mode="hetero-tensor",
-                          prefill_strategy="hetero")
-    eng.generate(prompt, new_tokens)
-    _profiled(f"engine {cfg.name} hetero-tensor/fast",
-              lambda: eng.generate(prompt, new_tokens), anchor)
     return results
+
+
+def _pair_line(cell: str, cap: dict, eager: dict) -> dict:
+    """One cell's captured arm against its eager arm: logged as one line,
+    raising unless both launched every kernel equally often and gave the
+    same tokens."""
+    def side(arm):
+        prof = arm.get("profile") or {}
+        return {"tok_per_s": arm["tok_per_s"], "decode_s": arm["decode_s"],
+                "prefill_s": arm["prefill_s"], "busy_share": prof.get("share"),
+                "profiled_wall_s": prof.get("wall_s")}
+
+    row = {"cell": cell, "captured": side(cap), "eager": side(eager),
+           "graphs": cap["graphs"], "eager_graphs": eager["graphs"]["graphs"],
+           "launches": cap["launches"]}
+    c, e = row["captured"], row["eager"]
+    log(f"[graph-decode] {cell}: captured {c['tok_per_s']:.2f} tok/s, decode "
+        f"{c['decode_s']:.3f}s, prefill {c['prefill_s']:.3f}s, busy "
+        f"{c['busy_share']}; eager {e['tok_per_s']:.2f} tok/s, decode "
+        f"{e['decode_s']:.3f}s, prefill {e['prefill_s']:.3f}s, busy "
+        f"{e['busy_share']}; {cap['graphs']['graphs']} graph(s) captured in "
+        f"{cap['graphs']['capture_s']:.3f}s, pool "
+        f"{cap['graphs']['pool_bytes']} bytes, {cap['graphs']['replays']} "
+        f"replays; launches {cap['launches']}")
+    if cap["launches"] != eager["launches"] or eager["graphs"]["graphs"]:
+        raise AssertionError(f"[graph-decode] {cell}: launches captured "
+                             f"{cap['launches']}, eager {eager['launches']}"
+                             f" (eager graphs {eager['graphs']})")
+    toks = ("outputs", "outputs") if "outputs" in cap else ("tokens",
+                                                            "tokens")
+    if cap[toks[0]] != eager[toks[1]]:
+        raise AssertionError(f"[graph-decode] {cell}: tokens differ, "
+                             f"captured {cap[toks[0]]}, eager "
+                             f"{eager[toks[1]]}")
+    return row
+
+
+def phase_graph_decode(cfg, params, paged, engine) -> dict:
+    """Each cell's captured arm, run by phase_full (the hetero-tensor arm
+    of each paged pair; ``paged`` None skips them) and phase_engine_full
+    (its hetero-tensor/fast arm), against an eager arm run now on the same
+    weights and prompts, in the same call: tok/s, decode and prefill
+    seconds and the profiled busy share of each, the captured arm's graphs
+    (count, capture seconds, pool bytes, replays) and each kernel's
+    launches, which must be equal, as must the greedy tokens."""
+    rows = {}
+    for label, wq, kvq in FULL_PAIRS if paged else ():
+        cap = paged[label]
+        with _eager_loops():
+            eager = _paged_arm(cfg, params, cap["prompts"], cap["new_tokens"],
+                               label=f"{label} eager", mode="hetero-tensor",
+                               weight_quant=wq, kv_quant=kvq, profile=True)
+        rows[f"paged {label}"] = _pair_line(f"paged {label}", cap, eager)
+    cap = engine["hetero-tensor/fast"]
+    with _eager_loops():
+        eager = _engine_arm(cfg, params, cap["prompt"], len(cap["tokens"]),
+                            mode="hetero-tensor", fast=True,
+                            label="hetero-tensor/fast eager", profile=True)
+    rows[f"engine {cfg.name}"] = _pair_line(f"engine {cfg.name}", cap, eager)
+    return rows
 
 
 def hybrid_model():
@@ -1621,10 +1882,11 @@ def _leaves(tree):
         yield tree
 
 
-def _instrument(cb) -> dict:
+def _instrument(cb):
     """Wrap the batcher's admission and decode dispatches with device-synced
     wall timers, and keep each request's first-token logits (the last
-    prefill chunk's logits when the request takes its lane)."""
+    prefill chunk's logits when the request takes its lane). Returns (the
+    timers, the function that undoes the wraps)."""
     from repro_torch.core.sync import fence
     timers = {"prefill": 0.0, "decode": 0.0, "first_logits": {}}
     last = {}
@@ -1650,11 +1912,17 @@ def _instrument(cb) -> dict:
         timers["first_logits"][req.rid] = last["logits"][0, -1].float()
         return place(req, seq, first)
 
+    admit, window = cb._admit, cb._decode_window
     cb._prefill = keep_logits
     cb._place = place_and_record
-    cb._admit = timed(cb._admit, "prefill")
-    cb._decode_window = timed(cb._decode_window, "decode")
-    return timers
+    cb._admit = timed(admit, "prefill")
+    cb._decode_window = timed(window, "decode")
+
+    def undo():
+        cb._prefill, cb._place = prefill, place
+        cb._admit, cb._decode_window = admit, window
+
+    return timers, undo
 
 
 # ---------------------------------------------------------------------- main --
@@ -1671,23 +1939,35 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _time_captures()
     t_start = time.perf_counter()
 
-    card = phase_card_and_build()
-    kern = phase_kernels()
-    qkern = phase_quant_kernels()
-    attn = phase_attention_kernels()
-    ssd = phase_ssd_kernel()
-    phase_tokens()
-    phase_engine_tokens("llama3-8b")
-    phase_engine_tokens("zamba2-2.7b")
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        what = f" {args[0]}" if args and isinstance(args[0], str) else ""
+        log(f"[time] {phase.__name__}{what}: "
+            f"{time.perf_counter() - t0:.1f}s")
+        return out
+
+    card = timed(phase_card_and_build)
+    kern = timed(phase_kernels)
+    qkern = timed(phase_quant_kernels)
+    attn = timed(phase_attention_kernels)
+    ssd = timed(phase_ssd_kernel)
+    timed(phase_tokens)
+    timed(phase_engine_tokens, "llama3-8b")
+    timed(phase_engine_tokens, "zamba2-2.7b")
     cfg, params = full_model()
-    full = phase_full(cfg, params)
-    engine = phase_engine_full(cfg, params)
+    full = timed(phase_full, cfg, params)
+    engine = timed(phase_engine_full, cfg, params)
+    graphs = timed(phase_graph_decode, cfg, params, full, engine)
     del cfg, params                  # the llama3 weights leave the card
-    gc.collect()
+    gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
-    hybrid = phase_engine_hybrid(*hybrid_model())
+    hcfg, hparams = hybrid_model()
+    hybrid = timed(phase_engine_hybrid, hcfg, hparams)
+    graphs.update(timed(phase_graph_decode, hcfg, hparams, None, hybrid))
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -1756,6 +2036,10 @@ def main() -> int:
         + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in engine.items())
         + "; zamba2 engine tok/s "
         + ", ".join(f"{k} {v['tok_per_s']:.2f}" for k, v in hybrid.items())
+        + "; captured / eager tok/s "
+        + ", ".join(f"{k} {v['captured']['tok_per_s']:.2f} / "
+                    f"{v['eager']['tok_per_s']:.2f}"
+                    for k, v in graphs.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Offline: profile the model's weight shapes, solve the per-(site, M)
 partitioning decisions, and wrap the plan in the HeteroCtx the models
 thread through every matmul. Online, per request: split the prompt by the
 prefill strategy for its actual length, prefill through the HeteroCtx, and
-decode with fast (on-device) or host synchronisation.
+decode with fast synchronisation (the whole loop one CUDA graph replay) or
+host synchronisation (one replayed step per token, each token read back).
 
 Engine modes (the paper's evaluation arms):
   'xla'            — flexible path only
@@ -36,7 +37,8 @@ from ..serving.telemetry import MonotonicClock
 from .partition import HeteroCtx
 from .profiler import STANDARD_BUCKETS, LatencyTable, profile_analytic
 from .solver import PartitionPlan, PartitionSolver
-from .sync import fence, generate_host_loop, generate_on_device
+from .sync import (CapturedLoop, decode_loop, fence, generate_host_loop,
+                   generate_on_device, loop_stats)
 
 PREFILL_STRATEGIES = ("online-prepare", "padding", "pipe", "hetero")
 
@@ -85,12 +87,18 @@ class InferenceEngine:
 
     Prefill runs through the HeteroCtx; decode runs without one, as in the
     reference. Attention goes through the flash-attention kernel in
-    prefill and the decode-attention kernel in decode. Eager PyTorch traces
-    nothing, so ``stats.n_compiles`` counts what the reference's jit cache
-    counts, the distinct chunk lengths seen, and ``stats.compile_s`` is the
-    time of each such first call (which includes building and loading the
-    kernels on the first call of a process). Timing reads ``clock``
-    (``MonotonicClock`` unless one is injected)."""
+    prefill and the decode-attention kernel in decode. The engine keeps one
+    cache per (batch, length, dtype) it has seen and, on the card, one
+    captured decode loop per cache and step count (``core/sync.py``): a
+    graph bakes in the addresses of the weights and the cache, so both live
+    on this instance and a later request of the same shape prefills into
+    the same cache and replays the same graph. Prefill is eager.
+    ``stats.n_compiles`` counts what the reference's jit cache counts: the
+    distinct chunk lengths seen, and each capture of a decode loop;
+    ``stats.compile_s`` is the time of those first calls and captures
+    (which includes building and loading the kernels on the first call of a
+    process). Timing reads ``clock`` (``MonotonicClock`` unless one is
+    injected)."""
 
     def __init__(self, cfg, params=None, *, mode: str = "hetero-tensor",
                  prefill_strategy: str = "hetero", fast_sync: bool = True,
@@ -119,6 +127,8 @@ class InferenceEngine:
         self.stats = EngineStats()
         self._prefill = partial(self.model.prefill, hetero_ctx=self.ctx)
         self._seen_lengths: set[int] = set()
+        self._caches: dict[tuple, dict] = {}      # (B, max_len, dtype)
+        self._loops: dict[tuple, object] = {}     # loop_key -> decode loop
 
     def _bucket_chunks(self, S: int) -> list[tuple[int, int]]:
         """Split S into (chunk length, true tokens) pieces."""
@@ -147,9 +157,9 @@ class InferenceEngine:
         # pipe's padded tail writes up to min(buckets) - 1 slots past S
         pad_headroom = (min(self.buckets) if self.prefill_strategy == "pipe"
                         else 0)
-        cache = self.model.init_cache(
-            batch=B, max_len=S + max_new_tokens + pad_headroom,
-            dtype=dtype_of(self.cfg.compute_dtype), device=self.device)
+        n_steps = max_new_tokens - 1
+        cache, loop = self._decoder(B, S + max_new_tokens + pad_headroom,
+                                    n_steps)
 
         t0 = self.clock.now()
         idx, logits = 0, None
@@ -176,10 +186,11 @@ class InferenceEngine:
 
         first = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         t0 = self.clock.now()
-        if max_new_tokens > 1:
-            gen = generate_on_device if self.fast_sync else generate_host_loop
-            toks, cache = gen(self.model, self.params, first, cache,
-                              max_new_tokens - 1)
+        if n_steps > 0:
+            if self.fast_sync:
+                toks, cache = generate_on_device(loop, first, cache)
+            else:
+                toks, cache = generate_host_loop(loop, first, cache, n_steps)
             out = torch.cat([first, toks], dim=1)
         else:
             out = first
@@ -187,6 +198,42 @@ class InferenceEngine:
         self.stats.decode_s += self.clock.now() - t0
         self.stats.decode_tokens += B * max_new_tokens
         return out
+
+    def loop_key(self, B: int, max_len: int, n_steps: int) -> tuple:
+        """The key of the decode loop over the (B, max_len) cache: all that
+        its graph bakes in beyond this instance's weights."""
+        dtype = dtype_of(self.cfg.compute_dtype)
+        if self.fast_sync:
+            return ("fast", B, max_len, dtype, n_steps)
+        return ("host", B, max_len, dtype)
+
+    def _decoder(self, B: int, max_len: int, n_steps: int):
+        """(cache, decode loop) for a request of this shape, made before the
+        prefill writes the cache (see ``decode_loop``); the loop is None when
+        no step is decoded. A capture on the card counts as a compile."""
+        dtype = dtype_of(self.cfg.compute_dtype)
+        cache = self._caches.get((B, max_len, dtype))
+        if cache is None:
+            cache = self.model.init_cache(batch=B, max_len=max_len,
+                                          dtype=dtype, device=self.device)
+            self._caches[(B, max_len, dtype)] = cache
+        if n_steps < 1:
+            return cache, None
+        key = self.loop_key(B, max_len, n_steps)
+        if key not in self._loops:
+            tc = self.clock.now() if self.device.type == "cuda" else 0.0
+            loop = self._loops[key] = decode_loop(
+                self.model, self.params, cache, n_steps,
+                host_sync=not self.fast_sync)
+            if isinstance(loop, CapturedLoop):
+                self.stats.n_compiles += 1
+                self.stats.compile_s += self.clock.now() - tc
+        return cache, self._loops[key]
+
+    def graph_stats(self) -> dict:
+        """Decode graphs captured, their replays and pool bytes (none on the
+        CPU, where the loops run eagerly)."""
+        return loop_stats(self._loops.values())
 
     def predicted_prefill_us(self, S: int) -> float:
         """Solver-predicted prefill matmul latency for length S over all

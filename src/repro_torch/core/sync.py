@@ -1,36 +1,46 @@
 """Fast synchronization (paper §4.3) on the card.
 
 The paper's problem: a host-driver sync between kernels (clFinish, ~400 us)
-dwarfs decode kernels. The fix is to keep a whole loop of steps on the
-device and read back to the host once at its end:
+dwarfs decode kernels. The reference keeps a whole loop of decode steps in
+one device program (a jitted ``lax.scan``) and reads back to the host once
+at its end. The port captures the same loops as CUDA graphs: one replay
+runs every launch of the loop, with no Python between them.
 
   * ``fence`` — the port's ONE ``torch.cuda.synchronize`` site; grepping
     for ``fence(`` lists every planned sync point.
-  * ``generate_on_device`` — the single-request engine's fast sync: its
-    decode steps issued back to back, the position and the tokens kept on
-    the device, one read at the end (by the caller).
-  * ``generate_host_loop`` — the baseline: every step waits for the device
-    and carries its token to the host and back (the clFinish analogue, the
-    per-token cost the paper measures).
+  * ``CapturedLoop`` — a loop body captured as one CUDA graph over static
+    input buffers (warmed up once on a side stream, then captured); a call
+    copies its inputs in and replays. ``make_loop`` gives one on the card
+    and the body itself on the CPU, so both devices run the same staging.
+  * ``decode_loop`` — the single-request engine's loops over its dense
+    cache. ``generate_on_device`` (fast sync) runs all ``n_steps`` greedy
+    steps in one replay, the position and the tokens kept on the device;
+    ``generate_host_loop`` (the baseline) replays one step per token and
+    waits for it, carrying its token to the host and back (the clFinish
+    analogue, the per-token cost the paper measures).
+  * ``paged_window_loop`` — the batcher's fused WINDOW of batched paged
+    decode steps with no host read inside it, so the scheduler pays one
+    host round-trip per window instead of per token; ``paged_step_loop``
+    its host-synced tick's one step. Finished lanes are masked, as the
+    reference's ``_masked_step`` does: a lane whose budget ran out or that
+    hit EOS gets the null block table and length 0, so its writes sink into
+    the pool's null block.
+  * ``generate_on_device_eager``, ``generate_host_loop_eager`` and
+    ``paged_decode_window_eager`` — the plain versions, issued step by step:
+    the graphs' bodies, what the CPU runs, and the yardstick the card's
+    captured loops are held to.
   * ``measure_dispatch_overhead`` — the median cost of one trivial launch
     plus a sync on this device, the solver's T_sync in host mode.
-  * ``paged_decode_window`` — a WINDOW of batched paged decode steps issued
-    back to back with no host read inside it, so the scheduler pays one
-    host round-trip per window instead of per token. Finished lanes are
-    masked, as the reference's ``_masked_step`` does: a lane whose budget
-    ran out or that hit EOS gets the null block table and length 0, so its
-    writes sink into the pool's null block.
-
-Both device loops are issued eagerly, step by step; capturing them as CUDA
-graphs is later work.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
 from ..device import resolve_device
+from ..kernels.build import launch_counts
 from ..serving.sampler import SamplerConfig, sample
 
 
@@ -42,53 +52,146 @@ def fence(*values):
     return values[0] if len(values) == 1 else values
 
 
+# ------------------------------------------------------------ graph runner --
+
+class CapturedLoop:
+    """``body(*inputs)`` captured as one CUDA graph over static copies of
+    ``inputs``, which keep the values given here.
+
+    Construction runs ``body`` once on a side stream, so that every
+    first-use cost (building and binding a kernel, its shared-memory
+    attribute, the launch plans, cuBLAS's handles) is paid outside the
+    capture; that warm-up really runs, so ``body`` must be harmless on these
+    inputs. It then captures ``body`` into a private memory pool
+    (``pool_bytes`` is what the capture reserved). ``generator``, where
+    given, is registered with the graph, so each replay draws new numbers
+    from it; its state is put back after the warm-up, so the first replay
+    draws from where an eager run would.
+
+    A call copies its inputs into the static buffers (without waiting for
+    the host: the batcher stages its inputs in page-locked memory),
+    replays, and returns the static outputs, which the next replay
+    overwrites. The wrappers count launches in Python, which a replay does
+    not run: the launches the capture recorded are taken off the counters
+    (nothing ran) and added back on every replay (``launches``)."""
+
+    def __init__(self, body, inputs, *, generator=None):
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.replays = 0
+        state = generator.get_state() if generator is not None else None
+        self._warm_up(body)
+        if state is not None:
+            generator.set_state(state)
+        before = launch_counts()
+        self.outputs, self.graph, self.pool_bytes = self._record(body,
+                                                                 generator)
+        self.launches = {w: n - before.get(w, 0)
+                         for w, n in launch_counts().items()
+                         if n != before.get(w, 0)}
+        for w, n in self.launches.items():
+            w.launches -= n
+
+    def _warm_up(self, body) -> None:
+        device = self.inputs[0].device
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(*self.inputs)
+        main.wait_stream(side)
+
+    def _record(self, body, generator):
+        """(static outputs, graph, pool bytes) of one capture of ``body``.
+        The garbage collector runs first and not during the capture: a
+        graph that it destroyed there (one dropped in a reference cycle)
+        would invalidate the capture."""
+        device = self.inputs[0].device
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        gc.collect()
+        fence(self.inputs[0])
+        torch.cuda.empty_cache()          # what capture reserves shows alone
+        reserved = torch.cuda.memory_reserved(device)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = body(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        return outputs, graph, torch.cuda.memory_reserved(device) - reserved
+
+    def __call__(self, *inputs):
+        for static, value in zip(self.inputs, inputs, strict=True):
+            static.copy_(value, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        for w, n in self.launches.items():
+            w.launches += n
+        return self.outputs
+
+
+def make_loop(body, inputs, *, generator=None):
+    """``body`` as a :class:`CapturedLoop` on ``inputs``' CUDA device; on
+    the CPU, ``body`` itself, called eagerly with each call's inputs."""
+    if inputs[0].is_cuda:
+        return CapturedLoop(body, inputs, generator=generator)
+    return body
+
+
+def loop_stats(loops) -> dict:
+    """Graphs captured among ``loops``, their replays and pool bytes."""
+    graphs = [lp for lp in loops if isinstance(lp, CapturedLoop)]
+    return {"graphs": len(graphs),
+            "replays": sum(lp.replays for lp in graphs),
+            "pool_bytes": sum(lp.pool_bytes for lp in graphs)}
+
+
+# ------------------------------------------------------------ plain loops --
+
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1)[:, None]
 
 
-def generate_on_device(model, params, first_token, cache, n_steps: int):
-    """Fast sync: ``n_steps`` greedy decode steps with no host read inside
-    the loop. first_token: [B, 1]; ``cache["index"]`` a device scalar.
-    Returns (tokens [B, n_steps], cache), both on the device."""
+def greedy_step(model, params, token, cache):
+    """One greedy decode step: (next token [B, 1], cache)."""
+    logits, cache = model.decode_step(params, token, cache)
+    return _greedy(logits), cache
+
+
+def generate_on_device_eager(model, params, first_token, cache,
+                             n_steps: int):
+    """Plain fast sync: ``n_steps`` greedy decode steps issued one by one,
+    with no host read inside the loop. first_token: [B, 1]; ``cache
+    ["index"]`` a device scalar. Returns (tokens [B, n_steps], cache)."""
     token, toks = first_token, []
     for _ in range(n_steps):
-        logits, cache = model.decode_step(params, token, cache)
-        token = _greedy(logits)
+        token, cache = greedy_step(model, params, token, cache)
         toks.append(token[:, 0])
     return torch.stack(toks, dim=1), cache
 
 
-def generate_host_loop(model, params, first_token, cache, n_steps: int):
-    """Baseline: the host drives each token step, waits for it (``fence``)
-    and brings its token to the host and back to the device. Returns
-    (tokens [B, n_steps], cache)."""
+def generate_host_loop_eager(model, params, first_token, cache,
+                             n_steps: int):
+    """Plain host sync: each step issued, waited for (``fence``) and its
+    token brought to the host and back. Returns (tokens [B, n_steps],
+    cache)."""
     token, toks = first_token, []
     for _ in range(n_steps):
-        logits, cache = model.decode_step(params, token, cache)
-        token = fence(_greedy(logits)).cpu().to(first_token.device)
+        nxt, cache = greedy_step(model, params, token, cache)
+        token = fence(nxt).cpu().to(first_token.device)
         toks.append(token[:, 0])
     return torch.stack(toks, dim=1), cache
 
 
-def measure_dispatch_overhead(n: int = 50, device="cuda") -> float:
-    """Median microseconds of one trivial launch plus ``fence`` on
-    ``device`` (the card unless ``"cpu"`` is asked for)."""
-    x = torch.zeros((8,), dtype=torch.float32, device=resolve_device(device))
-    fence(x + 1)
-    ts = []
-    for _ in range(n):
-        t0 = time.perf_counter()  # repolint: disable=determinism -- measures real per-dispatch wall overhead (the solver's T_sync input); a virtual clock would measure nothing
-        fence(x + 1)
-        ts.append(time.perf_counter() - t0)  # repolint: disable=determinism -- second half of the same real-wall-time measurement
-    ts.sort()
-    return ts[len(ts) // 2] * 1e6
-
-
-def paged_decode_window(model, params, last_token, pool, block_tables,
-                        lengths, remaining, n_steps: int, *,
-                        sampler: SamplerConfig | None = None, eos_id=None,
-                        generator=None):
-    """``n_steps`` masked batched decode steps with no host read.
+def paged_decode_window_eager(model, params, last_token, pool, block_tables,
+                              lengths, remaining, n_steps: int, *,
+                              sampler: SamplerConfig | None = None,
+                              eos_id=None, generator=None):
+    """``n_steps`` masked batched decode steps issued one by one, with no
+    host read.
 
     last_token: [W, 1] each lane's latest token; block_tables: [W, NBmax]
     (pre-grown on the host to cover the window's writes); lengths: [W] write
@@ -122,3 +225,113 @@ def paged_decode_window(model, params, last_token, pool, block_tables,
         valids.append(active)
     return (torch.stack(toks, dim=1), torch.stack(valids, dim=1), pool,
             lengths, remaining)
+
+
+# ------------------------------------------------------- the engine's loops --
+
+def decode_loop(model, params, cache, n_steps: int, *,
+                host_sync: bool = False):
+    """The single-request engine's decode loop over ``cache`` (see
+    :func:`make_loop`): ``loop(token [B, 1], index)`` returns (tokens
+    [B, n_steps], index + n_steps) under fast sync, (next token [B, 1],
+    index + 1) under host sync. On the card it is captured here on token 0
+    at position 0, so make it before anything is prefilled into ``cache``:
+    the warm-up writes the cache from position 0, which the prefill then
+    writes over (a Mamba2 prefill from position 0 starts from a zero
+    state)."""
+    device = cache["index"].device
+    token = torch.zeros((cache["k"].shape[1], 1), dtype=torch.long,
+                        device=device)
+    index = torch.zeros((), dtype=torch.int32, device=device)
+
+    def body(token, index):
+        run = {**cache, "index": index}
+        if host_sync:
+            out, run = greedy_step(model, params, token, run)
+        else:
+            out, run = generate_on_device_eager(model, params, token, run,
+                                                n_steps)
+        return out, run["index"]
+
+    return make_loop(body, (token, index))
+
+
+def generate_on_device(loop, first_token, cache):
+    """Fast sync: the whole decode loop in one call of ``loop``, a
+    :func:`decode_loop` over ``cache`` (on the card one graph replay, no
+    host read inside). Returns (tokens [B, n_steps], cache), both on the
+    device."""
+    toks, index = loop(first_token, cache["index"])
+    return toks.clone(), {**cache, "index": index.clone()}
+
+
+def generate_host_loop(loop, first_token, cache, n_steps: int):
+    """Baseline: one call of ``loop``, a host-sync :func:`decode_loop`,
+    per token; each waits for the device (``fence``) and brings its token
+    to the host and back. Returns (tokens [B, n_steps], cache)."""
+    token, index, toks = first_token, cache["index"], []
+    for _ in range(n_steps):
+        nxt, index = loop(token, index)
+        token = fence(nxt).cpu().to(first_token.device)
+        toks.append(token[:, 0])
+    return torch.stack(toks, dim=1), {**cache, "index": index.clone()}
+
+
+# ------------------------------------------------------ the batcher's loops --
+
+def paged_window_loop(model, params, pool, width: int, max_blocks: int,
+                      n_steps: int, *, sampler: SamplerConfig | None = None,
+                      eos_id=None, generator=None):
+    """The batcher's fused window over ``pool`` (see :func:`make_loop`):
+    ``loop(last [W, 1], tables [W, NBmax], lengths [W], remaining [W])``
+    runs :func:`paged_decode_window_eager`'s ``n_steps`` steps and returns
+    tokens [W, n_steps] with -1 where a lane emitted nothing, so the host
+    reads a window back in one copy. Captured on all-zero inputs: every
+    lane inactive, every write in the null block."""
+    zeros = _zeros(pool["k"].device)
+    sampled = sampler is not None and sampler.temperature > 0.0
+
+    def body(last, tables, lengths, remaining):
+        toks, valid, _, _, _ = paged_decode_window_eager(
+            model, params, last, pool, tables, lengths, remaining, n_steps,
+            sampler=sampler, eos_id=eos_id, generator=generator)
+        return torch.where(valid, toks, -1)
+
+    return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
+                            zeros(width), zeros(width)),
+                     generator=generator if sampled else None)
+
+
+def paged_step_loop(model, params, pool, width: int, max_blocks: int):
+    """The host-synced tick's one batched paged decode step over ``pool``
+    (see :func:`make_loop`): ``loop(last [W, 1], tables [W, NBmax], lengths
+    [W])`` returns logits [W, 1, V]; sampling stays with the caller.
+    Captured on all-zero inputs, as :func:`paged_window_loop`."""
+    zeros = _zeros(pool["k"].device)
+
+    def body(last, tables, lengths):
+        logits, _ = model.paged_decode_step(params, last, pool,
+                                            block_tables=tables,
+                                            lengths=lengths)
+        return logits
+
+    return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
+                            zeros(width)))
+
+
+def _zeros(device):
+    return lambda *shape: torch.zeros(shape, dtype=torch.long, device=device)
+
+
+def measure_dispatch_overhead(n: int = 50, device="cuda") -> float:
+    """Median microseconds of one trivial launch plus ``fence`` on
+    ``device`` (the card unless ``"cpu"`` is asked for)."""
+    x = torch.zeros((8,), dtype=torch.float32, device=resolve_device(device))
+    fence(x + 1)
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()  # repolint: disable=determinism -- measures real per-dispatch wall overhead (the solver's T_sync input); a virtual clock would measure nothing
+        fence(x + 1)
+        ts.append(time.perf_counter() - t0)  # repolint: disable=determinism -- second half of the same real-wall-time measurement
+    ts.sort()
+    return ts[len(ts) // 2] * 1e6

@@ -6,8 +6,12 @@ directory git ignores), for ``sm_90a`` only. Building happens at first use,
 never at import, and only from the sources in the checkout: a library is
 rebuilt whenever its source or any shared header ``csrc/*.cuh`` is newer.
 There is no fallback: a failed build raises. ``entry`` binds one C entry
-point for a wrapper: its launches go to the current stream, and a nonzero
-return raises with CUDA's name for the error.
+point for a wrapper: its launches go to the current stream (the capture
+stream while a CUDA graph is being captured), and a nonzero return raises
+with CUDA's name for the error. ``counted`` registers a wrapper's launch
+counter, ``.launches``, which the wrapper bumps in Python where it launches
+its kernel; a replayed graph runs no Python, so ``core.sync.CapturedLoop``
+adds what its capture recorded (``launch_counts``) on every replay.
 """
 from __future__ import annotations
 
@@ -29,6 +33,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict[tuple[str, str], Callable[..., None]] = {}
+# every wrapper whose ``.launches`` counts its kernel's launches
+COUNTED: list[Callable] = []
+
+
+def counted(wrapper: Callable) -> Callable:
+    """Give ``wrapper`` a launch counter (``.launches = 0``) and register it
+    in ``COUNTED``."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+def launch_counts() -> dict[Callable, int]:
+    """``{wrapper: .launches}`` of every registered wrapper."""
+    return {w: w.launches for w in COUNTED}
 
 
 def _nvcc() -> str:

@@ -20,6 +20,7 @@ from functools import lru_cache
 
 import torch
 
+from ..build import counted, entry
 from ..flash_attention.ops import DTYPE_CODE, MAX_D, head_strides
 from ..hetero_matmul.ops import H100_SMS, sm_count
 from .ref import decode_attention_ref
@@ -82,8 +83,6 @@ def _device_length(length, device) -> torch.Tensor:
 
 
 def _launch(q, k_cache, v_cache, length, n_split) -> torch.Tensor:
-    from ..build import entry
-
     B, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -130,4 +129,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     raise ValueError(f"unsupported device {q.device}")
 
 
-decode_attention.launches = 0
+counted(decode_attention)

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..build import counted, entry
 from .ref import attention_ref
 
 MAX_D = 128                    # both attention kernels' largest head dim
@@ -55,8 +56,6 @@ def head_strides(t: torch.Tensor) -> tuple[int, int]:
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    from ..build import entry
-
     launch = entry("flash_attention", "flash_attention_fwd",
                    *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 6,
                    *[ctypes.c_longlong] * 8, *[ctypes.c_int] * 2)
@@ -84,4 +83,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise ValueError(f"unsupported device {q.device}")
 
 
-flash_attention.launches = 0
+counted(flash_attention)

@@ -25,6 +25,7 @@ from functools import lru_cache
 
 import torch
 
+from ..build import counted, entry
 from .ref import matmul_ref, q4_matmul_ref, quant_matmul_ref, unpack_int4
 
 ALIGN = 128
@@ -140,8 +141,6 @@ def tma_operand(t: torch.Tensor) -> tuple[int, int]:
 
 def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str,
             plan) -> torch.Tensor:
-    from ..build import entry
-
     launch = entry("hetero_matmul", "hetero_matmul",
                    *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 3,
                    *[ctypes.c_longlong] * 2, *[ctypes.c_int] * 6)
@@ -193,7 +192,7 @@ def mxu_matmul(x: torch.Tensor, w: torch.Tensor, *,
     return y.reshape(*lead, w.shape[1])
 
 
-mxu_matmul.launches = 0
+counted(mxu_matmul)
 
 
 # ------------------------------------------------------------ quantizers --
@@ -296,8 +295,6 @@ def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
     int4 codes): bf16 / fp16 x runs the tensor-core kernel on ``plan`` (or
     :func:`gemm_plan`'s), its operands under TMA's rules; fp32 x the FMA
     body."""
-    from ..build import entry
-
     launch = entry("quant_matmul", symbol, *[ctypes.c_void_p] * 5,
                    *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2,
                    *[ctypes.c_int] * 3)
@@ -370,5 +367,5 @@ def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor, scale: torch.Tensor,
         mxu_q4_matmul)
 
 
-mxu_quant_matmul.launches = 0
-mxu_q4_matmul.launches = 0
+counted(mxu_quant_matmul)
+counted(mxu_q4_matmul)

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from ..build import counted, entry
 from .ref import ssd_chunk_ref
 
 MAX_DIM = 64                   # the kernel's largest head dim and state size
@@ -51,8 +52,6 @@ def _check(xb, B_, C_, seg, S_prev) -> None:
 
 
 def _launch(xb, B_, C_, seg, S_prev):
-    from ..build import entry
-
     Bb, L, nh, hd = xb.shape
     N = B_.shape[-1]
     if hd > MAX_DIM or N > MAX_DIM:
@@ -89,7 +88,7 @@ def ssd_chunk(xb: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     raise ValueError(f"unsupported device {xb.device}")
 
 
-ssd_chunk.launches = 0
+counted(ssd_chunk)
 
 
 def chunk_inputs(xh, dt, A, B_, C_, L: int):

@@ -236,8 +236,12 @@ def _shared_block(sp, x, cfg, *, positions, kv, cache_index, freqs,
 def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
          hetero_ctx=None):
     """Period structure: ``attn_every`` mamba layers then the shared block,
-    over the cache, which is updated in place."""
+    over the cache, which is updated in place. A prefill from position 0
+    starts from zero conv and SSM states, whatever the cache held (the
+    state of a fresh cache, so a reused cache carries nothing of an earlier
+    request)."""
     ae = cfg.ssm.attn_every
+    fresh = not decode and isinstance(cache_index, int) and cache_index == 0
     if cfg.n_layers % ae:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
                          f"multiple of attn_every={ae}")
@@ -252,7 +256,8 @@ def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
                     lp, x, cfg, conv_s, ssm_s, hetero_ctx=hetero_ctx)
             else:
                 x, new_conv, new_ssm = mamba_block(
-                    lp, x, cfg, conv_state=conv_s, ssm_state=ssm_s,
+                    lp, x, cfg, conv_state=None if fresh else conv_s,
+                    ssm_state=None if fresh else ssm_s,
                     hetero_ctx=hetero_ctx)
             conv_s.copy_(new_conv)
             ssm_s.copy_(new_ssm)

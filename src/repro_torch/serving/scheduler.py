@@ -7,8 +7,13 @@ chunks (``bucket_chunks``), finished requests return their blocks and the
 queue backfills. The HeteroInfer engine rides the serving path:
 
   * ``sync='device'`` — fast-sync decode (§4.3): a window of ``window``
-    decode steps per host round-trip (core/sync.py ``paged_decode_window``).
+    decode steps per host round-trip (core/sync.py ``paged_window_loop``).
     ``sync='host'`` reads each token back to the host (the baseline arm).
+    On the card both replay CUDA graphs that this batcher captured at its
+    first window or tick (the window's steps, or the tick's one step; the
+    tick samples outside its graph), whose inputs are staged on the host
+    and copied into the graph's buffers; the CPU runs the same loops
+    eagerly.
   * ``engine_mode=...`` — solver-planned prefill (§4.1/§4.2): prefill chunk
     matmuls run through a ``HeteroCtx`` holding the solver's plan. Decode
     stays on the flexible path, as in the reference.
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from ..configs import dtype_of
-from ..core.sync import paged_decode_window
+from ..core.sync import loop_stats, paged_step_loop, paged_window_loop
 from ..device import resolve_device
 from ..models import build_model
 from ..models.quant import WEIGHT_FORMATS, quantize_params
@@ -78,7 +83,8 @@ class PagedBatcher:
     null block table and length 0. With ``sync='device'`` each decode
     dispatch is a window of ``window`` steps with per-lane budgets and EOS
     masked on the device; lengths and blocks are reconciled on the host
-    after the window. Runs on ``device`` (the card unless ``"cpu"`` is
+    after the window: one copy in of the lanes' operands and one copy out
+    of the window's tokens. Runs on ``device`` (the card unless ``"cpu"`` is
     asked for).
 
     ``weight_quant`` in {'int8', 'w4a16'} quantizes the params at
@@ -149,7 +155,7 @@ class PagedBatcher:
         self.decode_steps = 0
         self.prefill_dispatches = 0
         self._prefill = partial(self.model.paged_prefill, hetero_ctx=self.ctx)
-        self._decode = self.model.paged_decode_step
+        self._loops: dict[tuple, object] = {}      # loop_key -> decode loop
 
     @property
     def total_dispatches(self) -> int:
@@ -164,6 +170,34 @@ class PagedBatcher:
             "prefill_dispatches": self.prefill_dispatches,
             "total_dispatches": self.total_dispatches,
         }
+
+    def graph_stats(self) -> dict:
+        """Decode graphs captured, their replays and pool bytes (none on the
+        CPU, where the loops run eagerly)."""
+        return loop_stats(self._loops.values())
+
+    def loop_key(self, kind: str) -> tuple:
+        """The key of this batcher's decode loop of ``kind`` ('window' or
+        'tick'): all that its graph bakes in beyond this instance's weights
+        and pool — the lanes' shapes, the pool's and the weights' formats
+        and, for a window, its steps, sampler and EOS."""
+        key = (kind, self.W, self.kv.max_blocks_per_seq,
+               self.kv.pool["k"].dtype, self.kv_quant, self.weight_quant)
+        if kind == "window":
+            return key + (self.window, self.sampler, self.eos_id)
+        return key
+
+    def _loop(self, kind: str):
+        key = self.loop_key(kind)
+        if key not in self._loops:
+            shape = (self.model, self.params, self.kv.pool, self.W,
+                     self.kv.max_blocks_per_seq)
+            self._loops[key] = (
+                paged_window_loop(*shape, self.window, sampler=self.sampler,
+                                  eos_id=self.eos_id,
+                                  generator=self.generator)
+                if kind == "window" else paged_step_loop(*shape))
+        return self._loops[key]
 
     @property
     def busy(self) -> bool:
@@ -262,7 +296,9 @@ class PagedBatcher:
         return True
 
     def _lane_arrays(self, active, steps_of):
-        """Host-built decode operands: tables, lengths, remaining, last."""
+        """Host-built decode operands: last, tables, lengths, remaining, in
+        page-locked memory on the card's path, so that copying them into a
+        graph's buffers does not wait."""
         tables = np.zeros((self.W, self.kv.max_blocks_per_seq), np.int64)
         lengths = np.zeros((self.W,), np.int64)
         remaining = np.zeros((self.W,), np.int64)
@@ -275,7 +311,11 @@ class PagedBatcher:
             lengths[i] = st.seq.length
             remaining[i] = steps
             last[i, 0] = st.req.output[-1]
-        return [self._tensor(a) for a in (tables, lengths, remaining, last)]
+        staged = [torch.from_numpy(a) for a in (last, tables, lengths,
+                                                 remaining)]
+        if self.device.type == "cuda":
+            staged = [t.pin_memory() for t in staged]
+        return staged
 
     def _emit(self, i: int, emitted: list[int]):
         st = self.lanes[i]
@@ -290,10 +330,8 @@ class PagedBatcher:
     def _decode_tick(self, active):
         """Host-synced baseline arm: one decode step, one host read per
         token (the paper's GPU-2 cost)."""
-        tables, lengths, _, last = self._lane_arrays(active, lambda st: 1)
-        logits, self.kv.pool = self._decode(
-            self.params, last, self.kv.pool, block_tables=tables,
-            lengths=lengths)
+        last, tables, lengths, _ = self._lane_arrays(active, lambda st: 1)
+        logits = self._loop("tick")(last, tables, lengths)
         self.decode_dispatches += 1
         toks = sample(logits[:, -1, :], self.generator, self.sampler).cpu()
         for i in active:
@@ -304,16 +342,11 @@ class PagedBatcher:
         every lane; each lane's blocks are pre-grown for its whole window
         (bounded by its budget, so inside the admission reservation)."""
         w = self.window
-        tables, lengths, remaining, last = self._lane_arrays(
-            active, lambda st: min(w, st.budget))
-        toks, valid, self.kv.pool, _, _ = paged_decode_window(
-            self.model, self.params, last, self.kv.pool, tables, lengths,
-            remaining, w, sampler=self.sampler, eos_id=self.eos_id,
-            generator=self.generator)
+        staged = self._lane_arrays(active, lambda st: min(w, st.budget))
+        toks = self._loop("window")(*staged).cpu().tolist()
         self.decode_dispatches += 1
-        toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
         for i in active:
-            self._emit(i, [int(t) for t in toks[i][valid[i]]])
+            self._emit(i, [t for t in toks[i] if t >= 0])
 
     def run(self, requests: list[Request], max_ticks: int = 10_000):
         for r in requests:

@@ -19,7 +19,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.engine import PREFILL_STRATEGIES, InferenceEngine, \
     build_plan
-from repro_torch.core.sync import generate_host_loop, generate_on_device
+from repro_torch.core.sync import generate_host_loop_eager, \
+    generate_on_device_eager
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch import serve
@@ -161,7 +162,7 @@ def test_on_device_loop_matches_host_loop(pair):
     model, params = pair[4:]
     toks = torch.from_numpy(_prompt(16, seed=0, batch=2)).long()
     outs = []
-    for gen in (generate_on_device, generate_host_loop):
+    for gen in (generate_on_device_eager, generate_host_loop_eager):
         cache = model.init_cache(batch=2, max_len=40, dtype=torch.float32,
                                  device="cpu")
         _, cache = model.prefill(params, toks, cache)
