@@ -83,6 +83,30 @@ on failure:
      steps, one pass of TF32 among them, fail it), ``attention_gate`` on
      this model, and its engine's ``phase_graph_decode`` pair.
 
+Among them run the phases of the solver's cost model and its two streams:
+
+  A. (after phase 2) ``phase_characterize``: launch + fence cost, one
+     cross-stream event wait on the card, HBM copy rate of one and of two
+     concurrent streams, torch.matmul's and the aligned path's device time
+     at the llama3-8b sites (M = 256) against the stage model, a fenced
+     M = 1 product beyond its bytes; each printed beside ``H100``'s
+     committed constant;
+  D. (after phase 3, smoke) ``phase_two_streams_smoke``: a plan that
+     splits every site (``split_plan``) on the fp32 smoke models gives the
+     same greedy tokens on two streams, on one (``_one_stream``) and on
+     the CPU, the engine's decode loop captured with splits inside;
+  B. (before phase 4) ``phase_profile``: ``profile_measured`` at full
+     width, uncapped, for llama3-8b (fp, int8, W4A16) and zamba2-2.7b:
+     wall time, decisions per strategy, where the plan differs from V5E's;
+  C. (in phase 4) each paged pair and each engine also runs a
+     hetero-tensor arm on the plan of its measured table, held to the
+     same first-token cosine;
+  D. (after phase 4's graph pairs) ``phase_two_streams``: llama3-8b on
+     ``split_plan`` on two streams and on one: first-token, eager and
+     captured decode logits bitwise equal, captured tokens equal; prefill
+     time, captured decode step time, and from profiler traces the share
+     of the aligned halves' device time that overlaps the flexible halves.
+
 The line before the last is the kernels JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1299,11 +1323,13 @@ def full_prompts(cfg, prompt_len: int = 300, n_requests: int = 4) -> list:
 
 
 def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
-               weight_quant, kv_quant, profile: bool = False) -> dict:
-    """One full-width PagedBatcher (sync device, window 8, width 8): a
-    first run over the prompts (which captures its decode graph), then a
-    timed run and, with ``profile``, a profiled run, each over new requests
-    for the same prompts. Returns the timed run's numbers."""
+               weight_quant, kv_quant, profile: bool = False,
+               table=None) -> dict:
+    """One full-width PagedBatcher (sync device, window 8, width 8; its
+    plan solved from ``table`` where given): a first run over the prompts
+    (which captures its decode graph), then a timed run and, with
+    ``profile``, a profiled run, each over new requests for the same
+    prompts. Returns the timed run's numbers."""
     import torch
     from repro_torch.core.sync import fence
 
@@ -1311,7 +1337,7 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
     cb, reqs = _serve(cfg, params, prompts, device="cuda", engine_mode=mode,
                       sync="device", window=8, decode_width=8,
                       new_tokens=new_tokens, weight_quant=weight_quant,
-                      kv_quant=kv_quant)
+                      kv_quant=kv_quant, table=table)
     fence(params["embed"])
     setup = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1374,13 +1400,16 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
     return arm
 
 
-def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
-               n_requests: int = 4) -> dict:
+def phase_full(cfg, params, tables: dict, prompt_len: int = 300,
+               new_tokens: int = 16, n_requests: int = 4) -> dict:
     """llama3-8b at full width: for each of FULL_PAIRS, the hetero-tensor
-    arm and the engine-less arm on the same seeded weights (quantized the
-    same way at construction) and prompts, each through captured decode
-    windows, the hetero-tensor arm also profiled. Returns {label: hetero
-    arm}."""
+    arm (the V5E plan), the engine-less arm and, phase C, the hetero-tensor
+    arm on the plan of the format's measured table (``tables``, phase B) on
+    the same seeded weights (quantized the same way at construction) and
+    prompts, each through captured decode windows, the first also
+    profiled; each hetero-tensor arm is held to the engine-less arm's
+    first-token logits. Returns {label: V5E hetero arm, with the measured
+    arm under "measured"}."""
     import torch
 
     prompts = full_prompts(cfg, prompt_len, n_requests)
@@ -1394,30 +1423,38 @@ def phase_full(cfg, params, prompt_len: int = 300, new_tokens: int = 16,
                                  profile=mode == "hetero-tensor")
                 for mode in ("hetero-tensor", None)}
         het, base = arms["hetero-tensor"], arms[None]
+        het["measured"] = _paged_arm(
+            cfg, params, prompts, new_tokens, label=f"{label} measured",
+            mode="hetero-tensor", weight_quant=wq, kv_quant=kvq,
+            table=tables[(cfg.name, wq)])
         if het["gemm_launches"] <= 0:
             raise AssertionError(f"{label}: hetero-tensor arm never launched "
                                  f"{KERNEL_OF_FORMAT[wq]}")
-        if sum(het["launches"].values()) != het["gemm_launches"] \
-                or sum(base["launches"].values()) != 0:
-            raise AssertionError(f"{label}: launches outside the plan: "
-                                 f"{het['launches']}, {base['launches']}")
-        for rid in range(n_requests):
-            a = het["first_logits"][rid]
+        for arm in (het, het["measured"]):
+            if sum(arm["launches"].values()) != arm["gemm_launches"] \
+                    or sum(base["launches"].values()) != 0:
+                raise AssertionError(f"{label}: launches outside the plan: "
+                                     f"{arm['launches']}, "
+                                     f"{base['launches']}")
+        for rid, plan in ((r, p) for r in range(n_requests)
+                          for p in ("V5E", "measured")):
+            a = (het if plan == "V5E" else het["measured"])[
+                "first_logits"][rid]
             b = base["first_logits"][rid]
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError(f"{label} request {rid}: non-finite "
                                      "logits")
             cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-            msg = (f"[full] {label} request {rid}: first-token logits cos "
-                   f"{cos:.6f}, rel_err {rel_err(a, b):.3g}")
+            msg = (f"[full] {label} request {rid} ({plan} plan): first-token"
+                   f" logits cos {cos:.6f}, rel_err {rel_err(a, b):.3g}")
             if fp_logits is not None:      # quantized vs fp weights: quality
                 msg += (", cos vs fp weights " + "%.6f" % float(
                     torch.nn.functional.cosine_similarity(
                         a, fp_logits[rid], dim=0)))
             log(msg)
             if cos < 0.99:
-                raise AssertionError(f"{label} request {rid}: cosine "
-                                     f"{cos:.4f} < 0.99")
+                raise AssertionError(f"{label} request {rid} ({plan} plan):"
+                                     f" cosine {cos:.4f} < 0.99")
         same = sum(x == y for o1, o2 in zip(het["outputs"], base["outputs"])
                    for x, y in zip(o1, o2))
         total = sum(len(o) for o in het["outputs"])
@@ -1664,7 +1701,7 @@ def ssd_gate(cfg, params, prompt, plain=None, *, check: bool = True) -> dict:
 
 def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
                 fast: bool, label: str, strict: bool = False,
-                profile: bool = False) -> dict:
+                profile: bool = False, table=None) -> dict:
     """One full-width InferenceEngine (hetero strategy): a first generate
     (which meets the chunk lengths and captures the decode graph), then a
     timed one, every kernel launching as predicted, decoding under CUDA's
@@ -1676,7 +1713,7 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
     from repro_torch.core.sync import fence
 
     eng = InferenceEngine(cfg, params, mode=mode, prefill_strategy="hetero",
-                          fast_sync=fast)
+                          fast_sync=fast, table=table)
     prefill, first = eng._prefill, {}
 
     def keep_logits(*a, **k):
@@ -1735,15 +1772,17 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
     return arm
 
 
-def phase_engine_full(cfg, params, prompt_len: int = 300,
+def phase_engine_full(cfg, params, table, prompt_len: int = 300,
                       new_tokens: int = 16, arms=ENGINE_ARMS, seed: int = 4,
                       gates=(attention_gate,)) -> dict:
     """The single-request engine at full width: one seeded prompt, hetero
     strategy, each of ``arms`` (mode, fast sync) through ``_engine_arm``
-    (captured decode loops); the hetero-tensor fast arm decodes its timed
-    run under the sync debug mode and is profiled. Then each of ``gates``
-    holds that arm's kernels against their plain versions. Returns {arm:
-    result}."""
+    (captured decode loops), then phase C's hetero-tensor / fast arm on the
+    plan of ``table``, the model's measured table (phase B); the
+    hetero-tensor fast arm decodes its timed run under the sync debug mode
+    and is profiled. Every arm is held to the xla arm's first-token logits.
+    Then each of ``gates`` holds the first arm's kernels against their
+    plain versions. Returns {arm: result}."""
     import numpy as np
     import torch
     from repro_torch.core.sync import measure_dispatch_overhead
@@ -1757,6 +1796,9 @@ def phase_engine_full(cfg, params, prompt_len: int = 300,
             cfg, params, prompt, new_tokens, mode=mode, fast=fast,
             label=label, strict=label == "hetero-tensor/fast",
             profile=label == "hetero-tensor/fast")
+    results["hetero-tensor/fast measured"] = _engine_arm(
+        cfg, params, prompt, new_tokens, mode="hetero-tensor", fast=True,
+        label="hetero-tensor/fast measured", table=table)
     base = results["xla/fast"]
     log(f"[engine-full] {cfg.name} hetero-tensor/fast decode loop replayed "
         "with sync debug mode 'error': no host sync inside it")
@@ -1864,12 +1906,14 @@ def hybrid_model():
     return cfg, params
 
 
-def phase_engine_hybrid(cfg, params) -> dict:
+def phase_engine_hybrid(cfg, params, table) -> dict:
     """zamba2-2.7b through the single-request engine: prompt 600 (chunks
     512 and 88: a two-launch SSD scan at full width, then a ragged L), 16
-    new tokens, hetero-tensor and xla with fast sync, then ``ssd_gate`` and
-    ``attention_gate`` on this model (D = 80, 32 / 32 heads)."""
-    return phase_engine_full(cfg, params, prompt_len=600, new_tokens=16,
+    new tokens, hetero-tensor and xla with fast sync and hetero-tensor on
+    the measured ``table``, then ``ssd_gate`` and ``attention_gate`` on
+    this model (D = 80, 32 / 32 heads)."""
+    return phase_engine_full(cfg, params, table, prompt_len=600,
+                             new_tokens=16,
                              arms=(("hetero-tensor", True), ("xla", True)),
                              seed=6, gates=(ssd_gate, attention_gate))
 
@@ -1925,6 +1969,527 @@ def _instrument(cb):
     return timers, undo
 
 
+# ------------------------------------------------- phases A-D: the solver --
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of ``fn()`` per call: ``iters`` calls captured into one
+    CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's launch cost (which ``cuda_time_ms`` sees where it exceeds the
+    kernels') drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # first-use costs, uncaptured
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def _event_wait_us(n: int = 400) -> tuple[float, float]:
+    """(device microseconds per cross-stream event wait, per tiny kernel):
+    ``n`` one-element adds queued behind a ``torch.cuda._sleep`` (so the
+    host is far ahead and the card runs them back to back), once on one
+    stream and once alternating between two streams with a wait at every
+    switch; the difference over the ``n`` waits is the waits' cost."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+
+    def chain(cross: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)         # ~30 ms: the host runs ahead
+        start.record()
+        for i in range(n):
+            if cross and i % 2:
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    x.add_(1)
+                main.wait_stream(side)
+            else:
+                x.add_(1)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3
+
+    chain(True)
+    plain = min(chain(False) for _ in range(3))
+    cross = min(chain(True) for _ in range(3))
+    return (cross - plain) / n, plain / n
+
+
+def _copy_fraction(n_streams: int, nbytes: int = 2 ** 30,
+                   reps: int = 5) -> float:
+    """HBM copy rate of ``n_streams`` concurrent streams, each copying its
+    own ``nbytes`` buffer ``reps`` times (read + write), over H100's
+    datasheet bandwidth."""
+    import torch
+    pairs = [(torch.empty(nbytes, dtype=torch.uint8, device="cuda"),
+              torch.empty(nbytes, dtype=torch.uint8, device="cuda"))
+             for _ in range(n_streams)]
+    main = torch.cuda.current_stream()
+    streams = [main] + [torch.cuda.Stream() for _ in range(n_streams - 1)]
+    for dst, src in pairs:
+        dst.copy_(src)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for s, (dst, src) in zip(streams, pairs):
+        s.wait_stream(main)
+        with torch.cuda.stream(s):
+            for _ in range(reps):
+                dst.copy_(src)
+    for s in streams[1:]:
+        main.wait_stream(s)
+    end.record()
+    end.synchronize()
+    seconds = start.elapsed_time(end) / 1e3
+    return 2 * nbytes * reps * n_streams / seconds / HBM_BYTES_PER_S
+
+
+def phase_characterize() -> dict:
+    """Phase A, the paper's characterization step on the card: the host's
+    launch + fence cost (``measure_dispatch_overhead``), the device cost of
+    one cross-stream event wait, HBM copy bandwidth of one stream and of
+    two concurrent streams (1 GiB each; the paper's Memory-1), and, at the
+    llama3-8b sites with M = 256 (the largest prefill chunk of the paths),
+    the device time of torch.matmul (the flexible path) and of
+    ``HeteroCtx._mxu`` (the aligned path, padding and order exchange
+    included) from CUDA graphs, against the stage model at peak; and a
+    fenced torch.matmul at M = 1 beyond its bytes. Each derived constant
+    is printed beside ``H100``'s committed one."""
+    import statistics
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.characteristics import H100, mxu_matmul_parts
+    from repro_torch.core.partition import HeteroCtx
+    from repro_torch.core.profiler import model_weight_shapes
+    from repro_torch.core.sync import fence, measure_dispatch_overhead
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cfg = get_config("llama3-8b")
+    ctx = HeteroCtx(mode="hetero-tensor")
+    at_peak = replace(H100, mxu_eff=1.0)
+    wait_us, add_us = _event_wait_us()
+    single, dual = _copy_fraction(1), _copy_fraction(2)
+    flops = xla_us = mxu_model_us = mxu_us = 0.0
+    overheads, rows = [], []
+    for site, (K, N) in model_weight_shapes(cfg).items():
+        w = torch.randn((K, N), generator=g, device="cuda").bfloat16()
+        x = torch.randn((256, K), generator=g, device="cuda").bfloat16()
+        t_xla = graph_ms(lambda: x @ w) * 1e3
+        t_mxu = graph_ms(lambda: ctx._mxu(x, w)) * 1e3
+        model = mxu_matmul_parts(256, K, N, at_peak)[0]
+        flops += 2 * 256 * K * N
+        xla_us += t_xla
+        mxu_model_us += model
+        mxu_us += t_mxu
+        x1 = x[:1].clone()
+        fence(x1 @ w)
+        walls = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            fence(x1 @ w)
+            walls.append((time.perf_counter() - t0) * 1e6)
+        nbytes = (K + N + K * N) * 2
+        over = statistics.median(walls) - nbytes / (HBM_BYTES_PER_S *
+                                                    single) * 1e6
+        overheads.append(over)
+        rows.append({"site": site, "K": K, "N": N, "xla_us": t_xla,
+                     "mxu_us": t_mxu, "mxu_model_at_peak_us": model,
+                     "fenced_m1_us": statistics.median(walls),
+                     "m1_overhead_us": over})
+        log(f"[characterize] {site} (256 x {K} x {N}): torch.matmul "
+            f"{t_xla:.2f} us, HeteroCtx._mxu {t_mxu:.2f} us (stage model "
+            f"at peak {model:.2f}); fenced M = 1 "
+            f"{statistics.median(walls):.2f} us, {over:.2f} beyond its "
+            "bytes")
+    measured = {
+        "dispatch_us": measure_dispatch_overhead(n=200),
+        "device_sync_us": wait_us,
+        "bw_frac_single": single,
+        "bw_frac_dual": dual,
+        "xla_eff": flops / (xla_us * 1e-6) / H100.peak_flops_bf16,
+        "xla_kernel_overhead_us": statistics.median(overheads),
+        "mxu_eff": mxu_model_us / mxu_us,
+    }
+    for k, v in measured.items():
+        log(f"[characterize] {k}: measured {v:.6g}, H100 committed "
+            f"{getattr(H100, k):.6g}")
+    log(f"[characterize] one-element add in a queued chain {add_us:.3f} us")
+    log("[characterize] " + json.dumps({"measured": measured, "sites": rows}))
+    return {"measured": measured, "sites": rows, "add_us": add_us}
+
+
+# (arch, weight format) of the measured latency tables
+PROFILE_CELLS = (("llama3-8b", None), ("llama3-8b", "int8"),
+                 ("llama3-8b", "w4a16"), ("zamba2-2.7b", None))
+# token counts profiled: the reference's grid plus the 64-token bucket
+PROFILE_MS = (1, 32, 64, 128, 256, 512)
+
+
+def phase_profile() -> dict:
+    """Phase B: ``profile_measured`` at full width, uncapped, for llama3-8b
+    (fp bf16, int8, W4A16) and zamba2-2.7b (fp): each table's wall time,
+    the measured plan's decisions per strategy, and every (site, M) where
+    it differs from the V5E plan. Each table is saved under build/tables/.
+    Returns {(arch, weight format): table}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.characteristics import H100
+    from repro_torch.core.engine import build_plan
+    from repro_torch.core.profiler import model_weight_shapes, \
+        profile_measured
+
+    out_dir = ROOT / "build" / "tables"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tables = {}
+    for arch, wq in PROFILE_CELLS:
+        cfg = get_config(arch)
+        label = f"{arch} {wq or 'fp'}"
+        t0 = time.perf_counter()
+        table = profile_measured(cfg, PROFILE_MS, weight_quant=wq)
+        wall = time.perf_counter() - t0
+        if table.spec is not H100 or table.mode != "measured" \
+                or table.sites != model_weight_shapes(cfg):
+            raise AssertionError(f"[profile] {label}: spec "
+                                 f"{table.spec.name}, mode {table.mode}, "
+                                 f"sites {table.sites}")
+        _, plan = build_plan(cfg, table=table, weight_quant=wq)
+        _, v5e = build_plan(cfg, weight_quant=wq)
+        diffs = [f"{s}@{m}: {v5e.decisions[(s, m)].strategy}:"
+                 f"{v5e.decisions[(s, m)].n_split}->{d.strategy}:{d.n_split}"
+                 for (s, m), d in plan.decisions.items()
+                 if (d.strategy, d.n_split, d.m_bucket) !=
+                 (v5e.decisions[(s, m)].strategy,
+                  v5e.decisions[(s, m)].n_split,
+                  v5e.decisions[(s, m)].m_bucket)]
+        log(f"[profile] {label}: table {len(table.entries)} entries in "
+            f"{wall:.2f}s; measured plan "
+            f"{dict(Counter(d.strategy for d in plan.decisions.values()))}"
+            f", V5E plan "
+            f"{dict(Counter(d.strategy for d in v5e.decisions.values()))}"
+            f"; {len(diffs)}/{len(plan.decisions)} decisions differ")
+        log(f"[profile] {label} differs at " + "; ".join(diffs))
+        for M in (1, 64, 256):
+            log(f"[profile] {label} M={M}: " + ", ".join(
+                f"{s} xla {table.entries[(s, M, 'xla')]:.1f}"
+                + (f" mxu {table.entries[(s, M, 'mxu')]:.1f}"
+                   if (s, M, "mxu") in table.entries else "")
+                + f" -> {plan.lookup(s, M).strategy}"
+                for s in table.sites) + " (us)")
+        table.save(out_dir / f"table_{arch}_{wq or 'fp'}.json")
+        tables[(arch, wq)] = table
+    return tables
+
+
+def split_plan(cfg, ms):
+    """A plan that splits every site of ``cfg``: at M = 1 by weight, and at
+    each token count of ``ms`` (the prefill chunk lengths) by weight, act
+    or hybrid in turn (site i at the j-th length: the (i + j) % 3-th), the
+    column split near the middle on a 128 boundary, the token split at the
+    middle."""
+    from repro_torch.core.profiler import model_weight_shapes
+    from repro_torch.core.solver import Decision, PartitionPlan
+
+    plan = PartitionPlan(arch=cfg.name, sync_mode="fast")
+    kinds = ("weight", "act", "hybrid")
+    for i, (site, (_, N)) in enumerate(model_weight_shapes(cfg).items()):
+        n = max(128, N // 256 * 128)
+        plan.decisions[(site, 1)] = Decision(site, 1, "weight", 0.0,
+                                             n_split=n, ratio="split")
+        for j, M in enumerate(ms):
+            kind = kinds[(i + j) % 3]
+            plan.decisions[(site, M)] = Decision(
+                site, M, kind, 0.0, n_split=0 if kind == "act" else n,
+                m_bucket=0 if kind == "weight" else max(1, M // 2),
+                ratio="split")
+    return plan
+
+
+class _one_stream:
+    """Inside this block a split runs both halves on the current stream:
+    ``core.partition.side_stream`` is patched to return it (for the
+    one-stream arm held against two streams; the port has no switch)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import partition
+        self.made = partition.side_stream
+        partition.side_stream = torch.cuda.current_stream
+
+    def __exit__(self, *exc):
+        from repro_torch.core import partition
+        partition.side_stream = self.made
+
+
+def _split_engine(cfg, params, plan, device="cuda", **kw):
+    """An InferenceEngine (hetero-tensor, hetero strategy) on ``plan`` whose
+    decode steps also run through its HeteroCtx, so a decode loop captured
+    on the card holds splits at M = 1."""
+    from dataclasses import replace
+    from functools import partial
+    from repro_torch.core.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, mode="hetero-tensor",
+                          prefill_strategy="hetero", plan=plan,
+                          device=device, **kw)
+    eng.model = replace(eng.model, decode_step=partial(
+        eng.model.decode_step, hetero_ctx=eng.ctx))
+    return eng
+
+
+def _split_logits(eng, prompt):
+    """fp32 first-token logits of ``prompt`` through ``eng`` (its prefill
+    chunks), the first decode step's logits run eagerly, and the same step
+    captured as a CUDA graph and replayed. For the dense transformer that
+    is the same step thrice: each writes the same KV slot (a hybrid's step
+    would advance its recurrent state each time). Returns (the logits,
+    the captured step, its inputs)."""
+    from repro_torch.core.sync import make_loop
+
+    seen, prefill = {}, eng._prefill
+
+    def keep(*a, **k):
+        seen["logits"], seen["cache"] = prefill(*a, **k)
+        return seen["logits"], seen["cache"]
+
+    eng._prefill = keep
+    try:
+        eng.generate(prompt, 1)
+    finally:
+        eng._prefill = prefill
+    import torch
+    cache = seen["cache"]
+    first = torch.argmax(seen["logits"][:, -1, :], dim=-1)[:, None]
+    eager, _ = eng.model.decode_step(eng.params, first, dict(cache))
+
+    def step(token, index):
+        return eng.model.decode_step(eng.params, token,
+                                     {**cache, "index": index})[0]
+
+    args = (first, cache["index"])
+    loop = make_loop(step, args)
+    captured = loop(*args)
+    return ({"first": seen["logits"][0, -1].float(),
+             "decode": eager[0, -1].float(),
+             "decode_captured": captured[0, -1].float().clone()},
+            loop, args)
+
+
+# the aligned half's kernels (the port's GEMMs); every kernel on their
+# stream is the aligned half, every kernel on another stream the flexible
+GEMM_KERNELS = ("gemm_tc", "splitk_reduce", "mm_output_stationary",
+                "mm_weight_stationary", "cast_from_f32", "quant_mm",
+                "qgemm_tc")
+
+
+def _overlap(label: str, run, by_name: bool = False) -> dict:
+    """``run()`` under torch.profiler (the card only), its Chrome trace read
+    back: the streams of the port's GEMM kernels, and the fraction of the
+    device time of every kernel on those streams (the aligned halves) that
+    overlaps a kernel on another stream (the flexible halves). With
+    ``by_name`` (a graph replay, whose branches the trace need not show as
+    streams) the aligned halves are the GEMM kernels themselves and the
+    flexible halves every other kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = ROOT / "build" / "traces" / f"{label.replace(' ', '_')}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and e.get("dur")]
+    path.unlink()
+    gemm = [any(k in e["name"] for k in GEMM_KERNELS) for e in events]
+    aligned_streams = {e["args"].get("stream")
+                       for e, is_gemm in zip(events, gemm) if is_gemm}
+    aligned = gemm if by_name else [e["args"].get("stream") in
+                                    aligned_streams for e in events]
+    side = [(e["ts"], e["ts"] + e["dur"])
+            for e, a in zip(events, aligned) if a]
+    other = sorted((e["ts"], e["ts"] + e["dur"])
+                   for e, a in zip(events, aligned) if not a)
+    union = []
+    for a, b in other:                   # the flexible halves' busy spans
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    busy = sum(b - a for a, b in side)
+    shared = sum(max(0.0, min(b, v) - max(a, u))
+                 for a, b in side for u, v in union)
+    row = {"kernels": len(events), "aligned_streams": sorted(
+        s for s in aligned_streams if s is not None),
+        "n_streams": len({e["args"].get("stream") for e in events}),
+        "aligned_busy_us": busy, "overlap_us": shared,
+        "overlap_fraction": shared / busy if busy else None}
+    log(f"[two-streams] {label} trace: {json.dumps(row)}")
+    return row
+
+
+def phase_two_streams_smoke() -> None:
+    """Phase D on the fp32 smoke models: a plan that splits every site
+    (``split_plan`` at the chunk lengths, weight at M = 1) gives the same
+    greedy tokens on two streams, on one stream (the hook patched) and on
+    the CPU: the engine (llama3 and zamba2; decode through the HeteroCtx,
+    its loop captured with the splits inside, two prompts so the second
+    replays it) and, for llama3, the paged batcher (splits in prefill)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.scheduler import PREFILL_BUCKETS, bucket_chunks
+
+    for arch in ("llama3-8b", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch).with_(param_dtype="float32",
+                                           compute_dtype="float32")
+        params = build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(7), device="cuda")
+        cpu_params = _to_device(params, "cpu")
+        prompts = [np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (1, 77)) for seed in (3, 5)]
+        plan = split_plan(cfg, (64, 13))
+        outs = {}
+        for arm in ("two streams", "one stream", "cpu"):
+            device = "cpu" if arm == "cpu" else "cuda"
+            with _one_stream() if arm == "one stream" else nullcontext():
+                eng = _split_engine(cfg, cpu_params if arm == "cpu"
+                                    else params, plan, device=device,
+                                    buckets=(32, 64))
+                _zero_counts()
+                outs[arm] = [eng.generate(p, 12).tolist() for p in prompts]
+            counts, graphs = _read_counts(), eng.graph_stats()
+            log(f"[two-streams] {arch} engine {arm}: chunks "
+                f"{eng._bucket_chunks(77)}, graphs {graphs}, launches "
+                f"{counts}, tokens {outs[arm][0][0]}")
+            if device == "cuda" and (graphs["graphs"] != 1
+                                     or counts["hetero_matmul"] <= 0):
+                raise AssertionError(f"[two-streams] {arch} {arm}: graphs "
+                                     f"{graphs}, launches {counts}")
+        if len({str(o) for o in outs.values()}) != 1:
+            raise AssertionError(f"[two-streams] {arch} engine tokens "
+                                 f"differ: {outs}")
+        if cfg.ssm is not None:
+            continue
+        sp = _smoke_prompts(cfg.vocab_size)
+        ms = sorted({c for p in sp for c in bucket_chunks(len(p),
+                                                          PREFILL_BUCKETS)})
+        plan = split_plan(cfg, [m for m in ms if m > 1])
+        outs = {}
+        for arm in ("two streams", "one stream", "cpu"):
+            device = "cpu" if arm == "cpu" else "cuda"
+            with _one_stream() if arm == "one stream" else nullcontext():
+                cb, reqs = _serve(cfg, cpu_params if arm == "cpu" else
+                                  params, sp, device=device,
+                                  engine_mode="hetero-tensor",
+                                  sync="device", window=4, decode_width=4,
+                                  new_tokens=12)
+                cb.ctx.plan = plan
+                cb.run(reqs)
+            outs[arm] = [r.output for r in reqs]
+        if len({str(o) for o in outs.values()}) != 1:
+            raise AssertionError(f"[two-streams] {arch} paged tokens "
+                                 f"differ: {outs}")
+        log(f"[two-streams] {arch}: engine and paged tokens equal on two "
+            f"streams, one stream and the CPU (chunk lengths {ms})")
+
+
+def phase_two_streams(cfg, params, prompt_len: int = 300,
+                      new_tokens: int = 8, seed: int = 4) -> dict:
+    """Phase D at full width: llama3-8b through the engine on
+    ``split_plan`` at its chunk lengths (every site split in prefill, every
+    site split by weight in decode), once on two streams and once with the
+    side-stream hook patched to the current stream. The first-token logits,
+    the first decode step's logits (eager and in a captured graph) and the
+    captured loop's greedy tokens must be bitwise equal, and the launches
+    equal; then each arm's prefill is timed and profiled, and the trace
+    gives the share of the aligned halves' device time that overlaps the
+    flexible halves."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sync import fence
+
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (1, prompt_len))
+    arms = {}
+    for arm in ("two streams", "one stream"):
+        with _one_stream() if arm == "one stream" else nullcontext():
+            eng = _split_engine(cfg, params, None)
+            eng.plan = eng.ctx.plan = split_plan(
+                cfg, [c for c, _ in eng._bucket_chunks(prompt_len)])
+            _zero_counts()
+            logits, step, args = _split_logits(eng, prompt)
+            tokens = eng.generate(prompt, new_tokens)[0].tolist()
+            counts = _read_counts()
+            step_ms = cuda_time_ms(lambda: step(*args))
+            step_trace = _overlap(f"llama3 decode step {arm}",
+                                  lambda: [step(*args) for _ in range(2)],
+                                  by_name=True)
+            walls = []
+            for _ in range(3):
+                fence(params["embed"])
+                t0 = time.perf_counter()
+                eng.generate(prompt, 1)
+                fence(params["embed"])
+                walls.append(time.perf_counter() - t0)
+            trace = _overlap(f"llama3 prefill {arm}",
+                             lambda: eng.generate(prompt, 1))
+        arms[arm] = {"logits": logits, "tokens": tokens, "launches": counts,
+                     "prefill_s": sorted(walls)[1], "trace": trace,
+                     "step_ms": step_ms, "step_trace": step_trace}
+        log(f"[two-streams] {cfg.name} {arm}: prefill (median of 3) "
+            f"{sorted(walls)[1]:.4f}s, captured split decode step "
+            f"{step_ms:.4f} ms, tokens {tokens}, launches {counts}")
+        del eng, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    two, one = arms["two streams"], arms["one stream"]
+    for name in two["logits"]:
+        a, b = two["logits"][name], one["logits"][name]
+        if not (torch.isfinite(a).all() and torch.equal(a, b)):
+            raise AssertionError(f"[two-streams] {name} logits differ: max "
+                                 f"|diff| {float((a - b).abs().max())}")
+    if two["tokens"] != one["tokens"] or two["launches"] != one["launches"] \
+            or two["launches"]["hetero_matmul"] <= 0:
+        raise AssertionError(f"[two-streams] tokens or launches differ: "
+                             f"{two['tokens']} / {one['tokens']}, "
+                             f"{two['launches']} / {one['launches']}")
+    if len(two["trace"]["aligned_streams"]) != 1 \
+            or one["trace"]["n_streams"] != 1:
+        raise AssertionError(f"[two-streams] streams: two "
+                             f"{two['trace']}, one {one['trace']}")
+    log(f"[two-streams] {cfg.name}: first-token, decode and captured decode "
+        f"logits bitwise equal on two streams and one; captured tokens "
+        f"equal; aligned halves overlap the flexible halves "
+        f"{two['trace']['overlap_fraction']:.3f} of their device time in "
+        f"the eager prefill, {two['step_trace']['overlap_fraction']:.3f} "
+        f"in the captured decode step; prefill {two['prefill_s']:.4f}s on "
+        f"two streams, {one['prefill_s']:.4f}s on one; captured step "
+        f"{two['step_ms']:.4f} ms on two, {one['step_ms']:.4f} ms on one")
+    return {k: {key: v[key] for key in ("tokens", "launches", "prefill_s",
+                                        "trace", "step_ms", "step_trace")}
+            for k, v in arms.items()}
+
+
 # ---------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1955,18 +2520,24 @@ def main() -> int:
     qkern = timed(phase_quant_kernels)
     attn = timed(phase_attention_kernels)
     ssd = timed(phase_ssd_kernel)
+    timed(phase_characterize)
     timed(phase_tokens)
     timed(phase_engine_tokens, "llama3-8b")
     timed(phase_engine_tokens, "zamba2-2.7b")
+    timed(phase_two_streams_smoke)
+    tables = timed(phase_profile)
     cfg, params = full_model()
-    full = timed(phase_full, cfg, params)
-    engine = timed(phase_engine_full, cfg, params)
+    full = timed(phase_full, cfg, params, tables)
+    engine = timed(phase_engine_full, cfg, params,
+                   tables[("llama3-8b", None)])
     graphs = timed(phase_graph_decode, cfg, params, full, engine)
+    streams = timed(phase_two_streams, cfg, params)
     del cfg, params                  # the llama3 weights leave the card
     gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
     hcfg, hparams = hybrid_model()
-    hybrid = timed(phase_engine_hybrid, hcfg, hparams)
+    hybrid = timed(phase_engine_hybrid, hcfg, hparams,
+                   tables[("zamba2-2.7b", None)])
     graphs.update(timed(phase_graph_decode, hcfg, hparams, None, hybrid))
 
     def entry(name, source, replaces, row, launches):
@@ -2040,6 +2611,16 @@ def main() -> int:
         + ", ".join(f"{k} {v['captured']['tok_per_s']:.2f} / "
                     f"{v['eager']['tok_per_s']:.2f}"
                     for k, v in graphs.items())
+        + "; measured plan tok/s paged "
+        + ", ".join(f"{k} {v['measured']['tok_per_s']:.2f}"
+                    for k, v in full.items())
+        + "; two streams: overlap eager prefill "
+        + f"{streams['two streams']['trace']['overlap_fraction']:.3f}, "
+        + "captured decode step "
+        + f"{streams['two streams']['step_trace']['overlap_fraction']:.3f}, "
+        + "prefill s two / one "
+        + f"{streams['two streams']['prefill_s']:.4f} / "
+        + f"{streams['one stream']['prefill_s']:.4f}"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

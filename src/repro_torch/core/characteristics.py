@@ -1,12 +1,14 @@
-"""The reference's TPU cost model, copied verbatim for the solver.
+"""Hardware cost models for the solver: the reference's TPU v5e, verbatim,
+and the H100 that the port runs on.
 
-THESE CONSTANTS DESCRIBE A TPU v5e, NOT THE H100 THIS PORT RUNS ON. They are
-``repro.core.characteristics`` (the paper's §3 characteristics ported to
-TPU v5e), kept unchanged on purpose: with the same cost model the solver
-makes the same decisions as the JAX package, so the aligned-path kernel is
-launched on exactly the sites where the reference launches it. None of
-these numbers was measured on the card. An H100 spec and a measured
-latency table replace them in a later slice.
+``TPUSpec`` / ``V5E`` are ``repro.core.characteristics`` (the paper's §3
+characteristics ported to TPU v5e), kept unchanged on purpose: planned on
+them, the solver makes the JAX package's decisions, which the CPU parity
+tests hold it to. ``GPUSpec`` / ``H100`` carry the same fields for an H100
+SXM5 80GB: datasheet peaks, and constants calibrated on the card by
+``chip_smoke.py``'s characterize phase (each names its run). A latency
+table measured on the card (``profiler.profile_measured``) carries
+``H100``, so the solver prices its analytic split candidates on it.
 
 Two execution paths with qualitatively different cost models:
 
@@ -50,6 +52,48 @@ class TPUSpec:
 
 
 V5E = TPUSpec()
+
+
+@dataclass(frozen=True)
+class GPUSpec(TPUSpec):
+    """A card in ``TPUSpec``'s fields, so every cost function takes either.
+    ``mxu_tile`` is the aligned kernel's 128-row tile and ``vmem_bytes`` the
+    on-chip working set (L2). One field more: ``mxu_eff``, the aligned
+    path's effective share of ``peak_flops_bf16`` in the stage model of
+    :func:`mxu_matmul_parts`, which sets its tile rate (``clock_hz``; the
+    TPU's systolic model has no such share, and ``n_mxu`` cancels there)."""
+    mxu_eff: float = 1.0
+
+    @property
+    def clock_hz(self) -> float:
+        return self.peak_flops_bf16 * self.mxu_eff / (
+            2 * self.mxu_tile ** 2 * self.n_mxu)
+
+
+# NVIDIA H100 SXM5 80GB. Datasheet (NVIDIA H100 Tensor Core GPU data sheet,
+# SXM5, dense, at the 700 W limit): the peaks, HBM3 bandwidth, 50 MB of L2,
+# 132 SMs and NVLink 4 (18 links of 25 GB/s each way). The calibrated
+# constants come from chip_smoke.py's characterize phase (its
+# "[characterize]" lines) on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, in the run of 2026-10-17 that PERF.md §6 records.
+H100 = GPUSpec(
+    name="h100_sxm5",
+    peak_flops_bf16=989e12,              # datasheet, dense bf16
+    hbm_bw=3.35e12,                      # datasheet, HBM3
+    ici_bw=25e9,                         # datasheet, NVLink 4 per link, each way
+    ici_links=18,                        # datasheet, NVLink 4
+    vmem_bytes=50 * 2 ** 20,             # datasheet, L2
+    mxu_tile=128,                        # the aligned GEMM's row tile
+    n_mxu=132,                           # SMs (cancels in the stage model)
+    # calibrated on the card (phase A; card, limit and run above)
+    dispatch_us=14.26,            # measure_dispatch_overhead: launch + fence
+    device_sync_us=0.141,         # one cross-stream event wait, device side
+    bw_frac_single=0.878,         # one stream's copy rate / hbm_bw
+    bw_frac_dual=0.899,           # two concurrent streams' copy rate / hbm_bw
+    xla_eff=0.623,                # torch.matmul at the llama3-8b sites, M = 256
+    xla_kernel_overhead_us=20.91,  # fenced torch.matmul at M = 1, beyond its bytes
+    mxu_eff=0.738,                # HeteroCtx._mxu at those sites / the stage model
+)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -128,7 +172,20 @@ def xla_matmul_time_us(M: int, K: int, N: int, spec: TPUSpec = V5E,
                                            w_bytes_per_el=w_bytes_per_el), spec)
 
 
+def dual_path_memory_time_us(bytes_a: int, bytes_b: int,
+                             spec: TPUSpec = V5E) -> float:
+    """Memory-1: two concurrent streams share an aggregated-bandwidth pool."""
+    return (bytes_a + bytes_b) / (spec.hbm_bw * spec.bw_frac_dual) * 1e6
+
+
 def sync_cost_us(mode: str, spec: TPUSpec = V5E) -> float:
     """GPU-2: 'host' = blocking host sync per kernel (clFinish analogue);
     'fast' = on-device chaining (the paper's flag-polling analogue)."""
     return spec.dispatch_us if mode == "host" else spec.device_sync_us
+
+
+def compile_time_model_us(M: int, K: int, N: int) -> float:
+    """'NPU graph generation' analogue (paper Fig 8): per-graph build
+    latency, affine in sequence length, calibrated to the paper's own
+    measurements (~100 ms/graph at S=135, ~500 ms/graph at S=1000)."""
+    return 5e4 + 350.0 * M

@@ -44,23 +44,35 @@ PREFILL_STRATEGIES = ("online-prepare", "padding", "pipe", "hetero")
 
 
 def build_plan(cfg, *, sync_mode: str = "fast",
-               table: Optional[LatencyTable] = None,
+               table: Optional[LatencyTable] = None, mixed_pairs=(),
+               verify_ks=(), extra_ms=(),
                weight_quant: Optional[str] = None
                ) -> tuple[LatencyTable, PartitionPlan]:
-    """Profile (analytic, the reference's cost model) and solve.
-    ``weight_quant`` (None | 'int8' | 'w4a16') prices the weight stream at
-    the quantized bytes, so a quantized deployment gets its own plan."""
+    """Profile and solve: the analytic table of the reference's cost model
+    unless ``table`` is given (e.g. ``profile_measured`` on the card),
+    whose spec then prices the split candidates. ``mixed_pairs``: (prefill
+    chunk, decode width) pairs solved into ``plan.mixed_decisions``;
+    ``verify_ks``: (k, lanes) verification shapes solved into
+    ``plan.verify_decisions``; ``extra_ms``: token counts added to the
+    solve grid. ``weight_quant`` (None | 'int8' | 'w4a16') prices the
+    weight stream at the quantized bytes, so a quantized deployment gets
+    its own plan."""
     table = table or profile_analytic(cfg, weight_quant=weight_quant)
     solver = PartitionSolver(table, sync_mode=sync_mode,
                              weight_quant=weight_quant)
-    return table, solver.solve(cfg)
+    return table, solver.solve(cfg, mixed_pairs=mixed_pairs,
+                               verify_ks=verify_ks, extra_ms=extra_ms)
 
 
 def build_hetero_ctx(cfg, mode: str, *, sync_mode: str = "fast",
+                     table: Optional[LatencyTable] = None, mixed_pairs=(),
+                     verify_ks=(), extra_ms=(),
                      weight_quant: Optional[str] = None) -> HeteroCtx:
-    """Profile + solve + wrap in the HeteroCtx covering every matmul site,
-    the LM head included."""
-    _, plan = build_plan(cfg, sync_mode=sync_mode, weight_quant=weight_quant)
+    """Profile + solve (``build_plan``) and wrap the plan in the HeteroCtx
+    covering every matmul site, the LM head included."""
+    _, plan = build_plan(cfg, sync_mode=sync_mode, table=table,
+                         mixed_pairs=mixed_pairs, verify_ks=verify_ks,
+                         extra_ms=extra_ms, weight_quant=weight_quant)
     return HeteroCtx(mode=mode, plan=plan)
 
 
@@ -237,7 +249,8 @@ class InferenceEngine:
 
     def predicted_prefill_us(self, S: int) -> float:
         """Solver-predicted prefill matmul latency for length S over all
-        layers (the LM head excluded), from the plan's latency table."""
+        layers (the LM head excluded), from the plan's latency table,
+        priced on the table's spec."""
         solver = PartitionSolver(self.table, sync_mode="fast"
                                  if self.fast_sync else "host")
         total = sum(solver.solve_site(site, max(S, 1)).t_us

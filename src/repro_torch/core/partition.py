@@ -14,10 +14,19 @@ engine mode) and executes the chosen strategy:
              tail on the flexible path
   hybrid   : act bucketing + weight split of the bucketed part
 
-The two halves of a split run one after the other on the current stream;
-two-stream concurrency is later work. Weights keep the reference's
+On the card the two halves of a weight / act / hybrid split run
+concurrently, as the solver prices them (Memory-1): the aligned half on the
+device's side stream (``side_stream``, made once), the flexible half on the
+current stream. The side stream waits for the current one before it
+starts, and the current one waits for the side stream before the ``cat``;
+inside a CUDA graph capture that fork and join are captured as well. On the
+CPU the halves run one after the other. Weights keep the reference's
 ``[K, N]`` layout, and slices and transposes reach the kernel as strided
 views, never as copies.
+
+Speculative-decoding verification dispatches use a view from
+``for_verify(k, lanes)``: the same strategies, but sites resolve through
+the plan's VERIFY decisions (``solver.solve_verify``) first.
 
 A weight may be a :class:`QuantWeight` (int8 or packed int4 codes with a
 per-column scale): the aligned path then launches the dequantizing GEMMs
@@ -27,8 +36,9 @@ columns with ``slice_n``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from functools import lru_cache
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +50,6 @@ from .characteristics import mxu_matmul_time_us
 from .solver import Decision, PartitionPlan
 
 ALIGN = 128
-LAYER_MXU_THRESHOLD = 128      # hetero-layer: M >= this -> aligned path
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -128,29 +137,92 @@ def matmul_any(x: torch.Tensor, w, name: Optional[str] = None):
     return x @ w
 
 
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of CUDA ``device`` on which a split runs its aligned
+    half: one per device, made at its first use."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _side_stream(index)
+
+
+@lru_cache(maxsize=None)
+def _side_stream(index: int) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device=index)
+
+
+def _weight_tensors(w) -> tuple:
+    return (w.wq, w.scale) if isinstance(w, QuantWeight) else (w,)
+
+
+def _concurrent(aligned: Callable, flexible: Callable, x2, w):
+    """``(aligned(), flexible())``, the two halves of a split of
+    ``x2 @ w``. On the card ``aligned`` runs on the device's side stream
+    (its wrappers launch on the current stream, so the call goes inside
+    ``torch.cuda.stream(side)``) and ``flexible`` on the current stream;
+    the side stream first waits for the current one, and the current one
+    waits for the side stream before returning, so a CUDA graph capture
+    records the fork and the join. For the caching allocator: ``x2`` and
+    the weight, made on the current stream, are marked as read on the side
+    stream; the aligned output, made on the side stream, as read on the
+    current one. On the CPU the halves run one after the other."""
+    if x2.device.type != "cuda":
+        return aligned(), flexible()
+    main = torch.cuda.current_stream(x2.device)
+    side = side_stream(x2.device)
+    side.wait_stream(main)
+    for t in (x2, *_weight_tensors(w)):
+        t.record_stream(side)
+    with torch.cuda.stream(side):
+        ya = aligned()
+    yf = flexible()
+    main.wait_stream(side)
+    ya.record_stream(main)
+    return ya, yf
+
+
 @dataclass
 class HeteroCtx:
-    """mode: 'xla' | 'mxu' | 'hetero-layer' | 'hetero-tensor'."""
+    """mode: 'xla' | 'mxu' | 'hetero-layer' | 'hetero-tensor'.
+
+    ``order_exchange``: let the aligned path take y = (w^T @ x^T)^T where
+    the cost model prefers it; ``layer_mxu_threshold``: the token count
+    from which hetero-layer mode takes the aligned path; ``stationary``:
+    the aligned kernel's grid order ('output' or 'weight');
+    ``verify_key``: (k, lanes) of a verification view (``for_verify``)."""
     mode: str = "hetero-tensor"
     plan: Optional[PartitionPlan] = None
+    order_exchange: bool = True
+    layer_mxu_threshold: int = 128       # hetero-layer: M >= this -> aligned
+    stationary: str = "output"
+    verify_key: Optional[tuple] = None
+
+    def for_verify(self, k: int, lanes: int = 1) -> "HeteroCtx":
+        """This context for verification dispatches: the same plan and
+        mode, its sites resolved through the VERIFY decisions solved for
+        (k, lanes)."""
+        return replace(self, verify_key=(k, lanes))
 
     # ---------------------------------------------------------- primitives --
     def _mxu(self, x2, w):
-        """Aligned-path matmul (output-stationary, the reference's order)
-        with stage padding + NPU-2 order exchange. A QuantWeight goes to
-        the dequantizing kernels instead; the exchange is fp-only (packed
-        codes cannot become the streamed operand)."""
+        """Aligned-path matmul with stage padding + NPU-2 order exchange.
+        The exchange is priced on the reference's V5E model, as the
+        reference prices it, whatever spec planned the split: a measured
+        table times this method, exchange included, so the plan prices
+        what runs. A QuantWeight goes to the dequantizing kernels instead;
+        the exchange is fp-only (packed codes cannot become the streamed
+        operand)."""
         if isinstance(w, QuantWeight):
             return self._mxu_quant(x2, w)
         M, K = x2.shape
         N = w.shape[1]
-        use_exchange = mxu_matmul_time_us(N, K, M) < mxu_matmul_time_us(M, K, N)
+        use_exchange = (self.order_exchange and
+                        mxu_matmul_time_us(N, K, M) < mxu_matmul_time_us(M, K, N))
         xp = _pad_to(_pad_to(x2, ALIGN, 0), ALIGN, 1)
         wp = _pad_to(_pad_to(w.to(x2.dtype), ALIGN, 0), ALIGN, 1)
         if use_exchange:
-            y = mxu_matmul(wp.T, xp.T).T
+            y = mxu_matmul(wp.T, xp.T, stationary=self.stationary).T
         else:
-            y = mxu_matmul(xp, wp)
+            y = mxu_matmul(xp, wp, stationary=self.stationary)
         return y[:M, :N]
 
     def _mxu_quant(self, x2, w: QuantWeight):
@@ -184,7 +256,7 @@ class HeteroCtx:
         elif self.mode == "mxu":
             y = self._mxu(x2, w)
         elif self.mode == "hetero-layer":
-            y = self._mxu(x2, w) if M >= LAYER_MXU_THRESHOLD else \
+            y = self._mxu(x2, w) if M >= self.layer_mxu_threshold else \
                 self._xla(x2, w)
         else:
             y = self._tensor_level(x2, w, name, M)
@@ -193,7 +265,10 @@ class HeteroCtx:
     def _tensor_level(self, x2, w, name, M):
         dec = None
         if self.plan is not None and name is not None:
-            dec = self.plan.decision(name, M)
+            if self.verify_key is not None:
+                dec = self.plan.verify_decision(name, *self.verify_key)
+            if dec is None:
+                dec = self.plan.decision(name, M)
             if dec is None:       # nearest-M fallback (solver probes a grid)
                 ms = sorted({m for (s, m) in self.plan.decisions if s == name})
                 if ms:
@@ -212,20 +287,22 @@ class HeteroCtx:
             return self._mxu(x2, w)     # _mxu pads M internally (stage padding)
         if s == "weight":
             n = min(dec.n_split, N - 1)
-            y1 = self._mxu(x2, _weight_cols(w, 0, n))
-            y2 = self._xla(x2, _weight_cols(w, n, N))
+            y1, y2 = _concurrent(
+                lambda: self._mxu(x2, _weight_cols(w, 0, n)),
+                lambda: self._xla(x2, _weight_cols(w, n, N)), x2, w)
             return torch.cat([y1, y2], dim=-1)
         if s == "act":
             b = min(dec.m_bucket, M - 1) if dec.m_bucket < M else M - ALIGN
             b = max(b, 1)
-            y1 = self._mxu(x2[:b], w)
-            y2 = self._xla(x2[b:], w)
+            y1, y2 = _concurrent(lambda: self._mxu(x2[:b], w),
+                                 lambda: self._xla(x2[b:], w), x2, w)
             return torch.cat([y1, y2], dim=0)
         if s == "hybrid":
             b = max(min(dec.m_bucket, M - 1), 1)
             n = min(dec.n_split, N - 1)
-            y1a = self._mxu(x2[:b], _weight_cols(w, 0, n))
-            y1b = self._xla(x2[:b], _weight_cols(w, n, N))
-            y2 = self._xla(x2[b:], w)
+            y1a, (y1b, y2) = _concurrent(
+                lambda: self._mxu(x2[:b], _weight_cols(w, 0, n)),
+                lambda: (self._xla(x2[:b], _weight_cols(w, n, N)),
+                         self._xla(x2[b:], w)), x2, w)
             return torch.cat([torch.cat([y1a, y1b], dim=-1), y2], dim=0)
         raise ValueError(f"unknown strategy {s}")

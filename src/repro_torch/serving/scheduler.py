@@ -93,6 +93,10 @@ class PagedBatcher:
     the product, so engine modes and sync arms stay token-identical.
     ``kv_quant='int8'`` stores the pool as int8 codes with per-slot bf16
     scales (quantize on write, dequantize in the gather).
+
+    ``table`` (a ``LatencyTable``, e.g. ``profile_measured`` on the card
+    for this ``weight_quant``) is what the engine mode's plan is solved
+    from; by default the analytic table of the reference's cost model.
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
@@ -102,7 +106,7 @@ class PagedBatcher:
                  sync: str = "host", window: int = 8,
                  engine_mode: str | None = None, eos_id: int | None = None,
                  weight_quant: str | None = None,
-                 kv_quant: str | None = None, device="cuda"):
+                 kv_quant: str | None = None, device="cuda", table=None):
         if sync not in ("host", "device"):
             raise ValueError(f"sync must be 'host' or 'device', got {sync!r}")
         if window < 1:
@@ -113,6 +117,9 @@ class PagedBatcher:
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be 'int8' or None, "
                              f"got {kv_quant!r}")
+        if table is not None and table.weight_quant != weight_quant:
+            raise ValueError(f"table profiled for weights "
+                             f"{table.weight_quant!r}, served {weight_quant!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
@@ -146,7 +153,7 @@ class PagedBatcher:
             self.ctx = build_hetero_ctx(
                 cfg, engine_mode,
                 sync_mode="fast" if sync == "device" else "host",
-                weight_quant=weight_quant)
+                table=table, weight_quant=weight_quant)
         else:
             self.ctx = None
         # host dispatches issued vs tokens produced: the fused-window win is
