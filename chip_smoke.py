@@ -107,7 +107,29 @@ Among them run the phases of the solver's cost model and its two streams:
      time, captured decode step time, and from profiler traces the share
      of the aligned halves' device time that overlaps the flexible halves.
 
-The line before the last is the kernels JSON line; the last line is
+  E. (after D, before the llama3 weights leave the card)
+     ``phase_serving_arms``: mixed batching, speculative decoding and the
+     prefix cache. On the fp32 llama3 smoke model, hetero-tensor, on the
+     card and on the CPU: mixed (sync device, window 3, and sync host),
+     spec (k = 3, self-drafted and with an independent fp32 smollm smoke
+     draft, both syncs), prefix (two waves sharing a 64-token prefix, fp
+     and int8 pools), int8 + int8 KV and W4A16 with mixed and prefix; each
+     gives the non-arm batcher's tokens of its format on its device, and
+     the card's tokens equal the CPU's. Then llama3-8b at full width
+     (bf16, V5E plan, sync device, window 8, width 8, block 32): a mixed
+     arm on phase 4's prompts (fused steps, fewer standalone prefill
+     dispatches than phase 4's fp arm, GEMM 2.1 launched in the
+     chunk-carrying windows), a spec arm (self-draft, k = 4: verify
+     dispatches below the fp arm's decode steps, flash attention launched
+     by the draft prefill; acceptance and token agreement printed) and a
+     prefix arm (two waves of four requests sharing a 256-token prefix
+     against a plain batcher on the same waves: a warm hit, every block
+     back); every arm's first-token logits at cosine >= 0.99 of its plain
+     arm's. Each arm's tok/s, prefill and decode time, stats, graphs,
+     capture seconds, pool bytes and launches are logged (``[arms]``).
+
+The line before the last is the kernels JSON line (each kernel launched
+on a phase E arm also carries ``serving_arms_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2492,6 +2514,407 @@ def phase_two_streams(cfg, params, prompt_len: int = 300,
 
 # ---------------------------------------------------------------------- main --
 
+# ---------------------------------------------- phase E: the serving arms --
+
+def _instrument_arms(cb):
+    """Wrap a batcher's dispatches with device-synced wall timers: target
+    prefill (``prefill``, and by chunk length ``prefill_by_len``: {length:
+    [dispatches, seconds]}), decode windows / ticks / speculative rounds
+    (``decode``), the draft lanes' prompt prefill (``draft_prefill``); keep
+    each request's first-token logits (a standalone prefill's, or the
+    mixed window's chunk logits); and count the launches of each kernel
+    inside the windows that carry a prefill chunk (``mixed_launches``),
+    inside the speculative rounds (``verify_launches``: the draft loop runs
+    no kernel of the port, so these are the verify dispatch's) and inside
+    the draft prefill (``draft_launches``). Returns the record."""
+    from repro_torch.core.sync import fence
+    rec = {"prefill": 0.0, "decode": 0.0, "draft_prefill": 0.0,
+           "mixed_windows": 0, "first_logits": {},
+           "mixed_launches": Counter(), "draft_launches": Counter(),
+           "verify_launches": Counter(), "prefill_by_len": {}}
+    last = {}
+    anchor = cb.kv.pool["k"]
+
+    def timed(fn, key, launches=None, when=lambda *a: True):
+        def run(*a, **k):
+            fence(anchor)
+            before = _read_counts()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            fence(anchor)
+            rec[key] += time.perf_counter() - t0
+            if launches is not None and when(*a):
+                after = _read_counts()
+                rec[launches].update({n: after[n] - before[n] for n in after
+                                      if after[n] != before[n]})
+            return out
+        return run
+
+    prefill, place, finish = cb._prefill, cb._place, cb._finish_admission
+
+    def keep_logits(params, tokens, *a, **k):
+        fence(anchor)
+        t0 = time.perf_counter()
+        out = prefill(params, tokens, *a, **k)
+        fence(anchor)
+        dt = time.perf_counter() - t0
+        rec["prefill"] += dt
+        n_s = rec["prefill_by_len"].setdefault(int(tokens.shape[1]), [0, 0.0])
+        n_s[0] += 1
+        n_s[1] += dt
+        last["logits"] = out[0]
+        return out
+
+    def keep_chunk_logits(pre_logits):
+        last["logits"] = pre_logits
+        return finish(pre_logits)
+
+    def place_and_record(req, seq, first):
+        rec["first_logits"][req.rid] = last["logits"][0, -1].float()
+        return place(req, seq, first)
+
+    def mixed(*a):
+        if len(a) > 1 and a[1] is not None:
+            rec["mixed_windows"] += 1
+            return True
+        return False
+
+    cb._prefill = keep_logits
+    cb._finish_admission = keep_chunk_logits
+    cb._place = place_and_record
+    cb._decode_window = timed(cb._decode_window, "decode", "mixed_launches",
+                              mixed)
+    cb._decode_tick = timed(cb._decode_tick, "decode", "mixed_launches",
+                            mixed)
+    cb._spec_round = timed(cb._spec_round, "decode", "verify_launches")
+    if cb.drafts is not None:
+        cb.drafts.prefill = timed(cb.drafts.prefill, "draft_prefill",
+                                  "draft_launches")
+    return rec
+
+
+def _run_waves(cb, waves, new_tokens: int, device) -> dict:
+    """Each wave of prompts through ``cb`` in turn (request ids 0.., then
+    100.., ...): the tokens and first-token logits of each wave, its wall
+    and the record's times, launches per kernel, and ``stats()`` after
+    the last wave."""
+    from repro_torch.core.sync import fence
+    rec = _instrument_arms(cb)
+    anchor = cb.kv.pool["k"]
+    out = {"waves": [], "record": rec}
+    _zero_counts()
+    for w, prompts in enumerate(waves):
+        reqs = _requests(prompts, new_tokens)
+        for r in reqs:
+            r.rid += 100 * w
+        rec["first_logits"] = {}
+        before = {k: rec[k] for k in ("prefill", "decode", "draft_prefill")}
+        fence(anchor)
+        t0 = time.perf_counter()
+        cb.run(reqs)
+        fence(anchor)
+        wall = time.perf_counter() - t0
+        cb.kv.assert_drained()
+        for r in reqs:
+            if len(r.output) != new_tokens:
+                raise AssertionError(f"request {r.rid}: {len(r.output)} "
+                                     "tokens")
+        tok = sum(len(r.output) for r in reqs)
+        out["waves"].append({
+            "outputs": [r.output for r in reqs], "wall_s": wall,
+            "tok_per_s": tok / wall,
+            "first_logits": [rec["first_logits"][r.rid] for r in reqs],
+            **{k: rec[k] - before[k] for k in before}})
+    out["launches"] = _read_counts()
+    out["stats"] = cb.stats()
+    out["graphs"] = cb.graph_stats()
+    out["capture_s"] = sum(getattr(lp, "capture_s", 0.0) for lp in
+                           list(cb._loops.values())
+                           + list((cb.drafts.loops if cb.drafts else
+                                   {}).values()))
+    return out
+
+
+def _prefix_waves(vocab: int, prefix_len: int, suffixes, seed: int = 6):
+    """Two waves of requests sharing one ``prefix_len``-token prefix, the
+    second the first's prompts again (every full block of the prefix and
+    of each suffix hits)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, prefix_len)
+    wave = [np.concatenate([prefix, rng.integers(0, vocab, n)]).astype(
+        np.int32) for n in suffixes]
+    return [wave, [p.copy() for p in wave]]
+
+
+# the serving arms of phase E on the smoke models: (label, batcher kwargs,
+# waves: "plain" prompts or the two "prefix" waves)
+SMOKE_ARMS = (
+    ("mixed/device", dict(mixed_batch=True, sync="device", window=3),
+     "plain"),
+    ("mixed/host", dict(mixed_batch=True, sync="host"), "plain"),
+    ("spec self/device", dict(spec=3, sync="device"), "plain"),
+    ("spec self/host", dict(spec=3, sync="host"), "plain"),
+    ("spec smollm/device", dict(spec="smollm", sync="device"), "plain"),
+    ("spec smollm/host", dict(spec="smollm", sync="host"), "plain"),
+    ("prefix/device", dict(prefix_cache=True, sync="device", window=3),
+     "prefix"),
+    ("prefix kv8/device", dict(prefix_cache=True, sync="device", window=3,
+                               kv_quant="int8"), "prefix"),
+    ("int8+kv8 mixed/device", dict(mixed_batch=True, sync="device",
+                                   window=3, weight_quant="int8",
+                                   kv_quant="int8"), "plain"),
+    ("int8+kv8 prefix/device", dict(prefix_cache=True, sync="device",
+                                    window=3, weight_quant="int8",
+                                    kv_quant="int8"), "prefix"),
+    ("w4a16 mixed/device", dict(mixed_batch=True, sync="device", window=3,
+                                weight_quant="w4a16"), "plain"),
+    ("w4a16 prefix/device", dict(prefix_cache=True, sync="device",
+                                 window=3, weight_quant="w4a16"), "prefix"),
+)
+
+
+def _smoke_arms(devices=("cuda", "cpu")) -> dict:
+    """Phase E on the fp32 llama3 smoke model: every arm of SMOKE_ARMS
+    (hetero-tensor) on each of ``devices`` gives the non-arm batcher's
+    tokens of its format on that device (sync device, window 3, over the
+    same waves), and the card's tokens equal the CPU's. The spec arms
+    draft with the target (k = 3) or an independent fp32 smollm smoke draft
+    (k = 3) that shares its vocab. On the card each mixed arm launches the
+    format's GEMM inside its chunk-carrying windows where its plan sends
+    work to the aligned path (sync device; under sync host the plan keeps
+    every smoke-size site xla_only), and each spec arm the flash kernel in
+    its draft prefill."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.spec import SpecConfig
+
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    cfg = get_smoke_config("llama3-8b").with_(**fp32)
+    dcfg = get_smoke_config("smollm-135m").with_(**fp32)
+    gen = torch.Generator(device=devices[0])
+    params = {devices[0]: build_model(cfg).init(gen.manual_seed(7),
+                                                device=devices[0])}
+    dparams = {devices[0]: build_model(dcfg).init(gen.manual_seed(8),
+                                                  device=devices[0])}
+    for d in devices[1:]:
+        params[d] = _to_device(params[devices[0]], d)
+        dparams[d] = _to_device(dparams[devices[0]], d)
+    prompts = _smoke_prompts(cfg.vocab_size)
+    waves = {"plain": [prompts],
+             "prefix": _prefix_waves(cfg.vocab_size, 64, (9, 40, 0, 71))}
+    new_tokens = 12
+    base, outs = {}, {}
+
+    def run(label, kw, shape, device):
+        kw = dict(kw)
+        if kw.get("spec") == "smollm":
+            kw["spec"] = SpecConfig(k=3, draft=dcfg)
+            kw["spec_draft_params"] = dparams[device]
+        cb, _ = _serve(cfg, params[device], waves[shape][0], device=device,
+                       engine_mode="hetero-tensor", decode_width=4,
+                       new_tokens=new_tokens,
+                       **{"sync": "device", "window": 3, **kw})
+        got = _run_waves(cb, waves[shape], new_tokens, device)
+        # under sync host the reference's 50 us T_sync keeps every
+        # smoke-size site xla_only: no GEMM launch is expected there
+        got["planned"] = any(d.strategy != "xla_only"
+                             for d in cb.ctx.plan.decisions.values())
+        rec = got["record"]
+        log(f"[arms] smoke {label} {device}: {got['stats']} graphs "
+            f"{got['graphs']} launches {got['launches']}; mixed windows "
+            f"{rec['mixed_windows']} launching {dict(rec['mixed_launches'])}"
+            f"; draft prefill launching {dict(rec['draft_launches'])}")
+        return got
+
+    for label, kw, shape in SMOKE_ARMS:
+        fmt = (kw.get("weight_quant"), kw.get("kv_quant"))
+        for device in devices:
+            if (fmt, shape, device) not in base:
+                plain = run(f"{fmt[0] or 'fp'}/kv={fmt[1]} plain {shape}",
+                            dict(weight_quant=fmt[0], kv_quant=fmt[1]),
+                            shape, device)
+                base[fmt, shape, device] = [w["outputs"]
+                                            for w in plain["waves"]]
+            got = run(label, kw, shape, device)
+            rec = got["record"]
+            outs[label, device] = [w["outputs"] for w in got["waves"]]
+            if outs[label, device] != base[fmt, shape, device]:
+                raise AssertionError(
+                    f"[arms] smoke {label} on {device}: tokens "
+                    f"{outs[label, device]} differ from the non-arm "
+                    f"batcher's {base[fmt, shape, device]}")
+            if shape == "prefix" and got["stats"]["prefix_hits"] <= 0:
+                raise AssertionError(f"[arms] smoke {label}: no prefix hit")
+            if device != "cuda":
+                continue
+            gemm = KERNEL_OF_FORMAT[fmt[0]]
+            if kw.get("mixed_batch") and \
+                    (rec["mixed_launches"][gemm] > 0) != got["planned"]:
+                raise AssertionError(
+                    f"[arms] smoke {label}: {rec['mixed_launches'][gemm]} "
+                    f"{gemm} launches in the chunk-carrying windows, "
+                    f"expected {'some' if got['planned'] else 'none'}")
+            if "spec" in kw and rec["draft_launches"]["flash_attention"] <= 0:
+                raise AssertionError(f"[arms] smoke {label}: the draft "
+                                     "prefill never launched flash attention")
+    for label, _, _ in SMOKE_ARMS:
+        if len({str(outs[label, d]) for d in devices}) != 1:
+            raise AssertionError(f"[arms] smoke {label}: card and CPU tokens "
+                                 f"differ: {[outs[label, d] for d in devices]}")
+    log(f"[arms] smoke: {len(SMOKE_ARMS)} arms on {', '.join(devices)} give "
+        "the non-arm batcher's tokens, card equal to CPU")
+    return outs
+
+
+def _cosines(label: str, got, want) -> list:
+    """First-token logits of each request against the plain arm's: cosine
+    (gated at 0.99) and rel_err, logged."""
+    import torch
+    cos = []
+    for rid, (a, b) in enumerate(zip(got, want)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"[arms] {label} request {rid}: non-finite "
+                                 "logits")
+        c = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        cos.append(c)
+        log(f"[arms] {label} request {rid}: first-token logits cos {c:.6f}, "
+            f"rel_err {rel_err(a, b):.3g}")
+        if c < 0.99:
+            raise AssertionError(f"[arms] {label} request {rid}: cosine "
+                                 f"{c:.4f} < 0.99")
+    return cos
+
+
+def _full_arm(cfg, params, waves, new_tokens: int, label: str,
+              device="cuda", **kw) -> dict:
+    """One full-width PagedBatcher arm (hetero-tensor, sync device, window
+    8, width 8): a first pass over the waves, which captures its graphs,
+    then a timed pass over new requests for the same prompts. Returns the
+    timed pass (``stats`` counting both passes)."""
+    import torch
+    cb, _ = _serve(cfg, params, [p for w in waves for p in w], device=device,
+                   engine_mode="hetero-tensor", decode_width=8,
+                   new_tokens=new_tokens, **{"sync": "device", "window": 8,
+                                             **kw})
+    t0 = time.perf_counter()
+    first = _run_waves(cb, waves, new_tokens, device)
+    first_s = time.perf_counter() - t0
+    if kw.get("prefix_cache"):          # the timed pass starts cold again
+        cb.kv._reclaim(cb.kv.allocator.n_cached)
+    run = _run_waves(cb, waves, new_tokens, device)
+    run["first_pass_s"] = first_s
+    run["first_pass_stats"] = first["stats"]
+    run["pool_bytes"] = cb.kv.pool_bytes()
+    w = run["waves"]
+    log(f"[arms] {label}: " + "; ".join(
+        f"wave {i + 1}: {x['tok_per_s']:.2f} tok/s in {x['wall_s']:.3f}s, "
+        f"prefill {x['prefill']:.3f}s, decode {x['decode']:.3f}s"
+        + (f", draft prefill {x['draft_prefill']:.3f}s"
+           if x["draft_prefill"] else "") for i, x in enumerate(w))
+        + f"; stats {run['stats']}; graphs {run['graphs']}, capture "
+        f"{run['capture_s']:.2f}s (first pass {first_s:.2f}s); launches "
+        f"{run['launches']}; mixed windows {run['record']['mixed_windows']} "
+        f"launching {dict(run['record']['mixed_launches'])}; verify "
+        f"launching {dict(run['record']['verify_launches'])}; draft prefill "
+        f"launching {dict(run['record']['draft_launches'])}; target prefill "
+        "by chunk length {length: [dispatches, s]} (both waves) "
+        + str({n: [c, round(t, 4)] for n, (c, t) in
+               sorted(run['record']['prefill_by_len'].items())}))
+    del cb
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return run
+
+
+def phase_serving_arms(cfg, params, full, new_tokens: int = 16,
+                       device="cuda") -> dict:
+    """Phase E: mixed batching, speculative decoding and the prefix cache.
+    First on the smoke models (``_smoke_arms``), then at full width on
+    llama3-8b (bf16, hetero-tensor on the V5E plan, sync device, window 8,
+    width 8, block 32), each held to a plain arm by first-token cosine
+    (>= 0.99):
+
+      * mixed: phase 4's prompts (256, 44, 37, 193; 16 new tokens), all
+        submitted at once, so every admission after the first rides a
+        running lane's window: fused steps > 0, fewer standalone prefill
+        dispatches than the plain fp arm (``full["fp"]``), GEMM 2.1
+        launched inside the chunk-carrying windows;
+      * spec: the same prompts, self-draft, k = 4: verify dispatches fewer
+        than the plain arm's decode steps, kernel 2.4 launched by the draft
+        prefill; acceptance and token agreement printed, not gated;
+      * prefix: two waves of four requests sharing a 256-token prefix
+        (suffixes 44, 37, 193, 16) against a plain batcher on the same
+        waves: wave 2 hits, every block back after the run.
+
+    Returns {arm: record}, each with its launches per kernel. (``device``
+    "cpu" rehearses the phase on the CPU, where no kernel launches.)"""
+    smoke = _smoke_arms(("cuda", "cpu") if device == "cuda" else ("cpu",))
+    plain = full["fp"]
+    prompts = plain["prompts"]
+    out = {"smoke_arms": len(smoke)}
+    card = device == "cuda"
+
+    mixed = _full_arm(cfg, params, [prompts], new_tokens, "mixed", device,
+                      mixed_batch=True)
+    s, ps = mixed["stats"], plain["stats"]
+    _cosines("mixed", mixed["waves"][0]["first_logits"],
+             [plain["first_logits"][r] for r in range(len(prompts))])
+    gemm = mixed["record"]["mixed_launches"]["hetero_matmul"]
+    if s["fused_steps"] <= 0 or \
+            s["prefill_dispatches"] >= ps["prefill_dispatches"] or \
+            (card and gemm <= 0):
+        raise AssertionError(f"[arms] mixed: fused {s['fused_steps']}, "
+                             f"prefill dispatches {s['prefill_dispatches']} "
+                             f"(plain {ps['prefill_dispatches']}), GEMM "
+                             f"launches in mixed windows {gemm}")
+    out["mixed"] = mixed
+
+    spec = _full_arm(cfg, params, [prompts], new_tokens, "spec k=4", device,
+                     spec=4)
+    s = spec["stats"]
+    _cosines("spec", spec["waves"][0]["first_logits"],
+             [plain["first_logits"][r] for r in range(len(prompts))])
+    same = sum(x == y for a, b in zip(spec["waves"][0]["outputs"],
+                                      plain["outputs"])
+               for x, y in zip(a, b))
+    total = sum(len(o) for o in plain["outputs"])
+    flash = spec["record"]["draft_launches"]["flash_attention"]
+    log(f"[arms] spec: acceptance {s['acceptance_rate']:.4f} "
+        f"({s['accepted_tokens']}/{s['drafted_tokens']}), verify dispatches "
+        f"{s['verify_dispatches']} against the plain arm's "
+        f"{ps['decode_steps']} decode steps; tokens equal to the plain "
+        f"arm's {same}/{total}; flash launches by the draft prefill {flash}")
+    if s["verify_dispatches"] >= ps["decode_steps"] or (card and flash <= 0):
+        raise AssertionError(f"[arms] spec: verify dispatches "
+                             f"{s['verify_dispatches']} (plain decode steps "
+                             f"{ps['decode_steps']}), draft flash launches "
+                             f"{flash}")
+    spec["agreement"] = same / total
+    out["spec"] = spec
+
+    waves = _prefix_waves(cfg.vocab_size, 256, (44, 37, 193, 16))
+    base = _full_arm(cfg, params, waves, new_tokens, "prefix plain", device)
+    pre = _full_arm(cfg, params, waves, new_tokens, "prefix", device,
+                    prefix_cache=True)
+    for w in range(2):
+        _cosines(f"prefix wave {w + 1}", pre["waves"][w]["first_logits"],
+                 base["waves"][w]["first_logits"])
+    s = pre["stats"]
+    if s["prefix_hits"] <= 0:
+        raise AssertionError(f"[arms] prefix: no warm hit: {s}")
+    log(f"[arms] prefix: wave 2 prefill {pre['waves'][1]['prefill']:.4f}s "
+        f"against wave 1's {pre['waves'][0]['prefill']:.4f}s (plain "
+        f"{base['waves'][1]['prefill']:.4f}s / "
+        f"{base['waves'][0]['prefill']:.4f}s); hits {s['prefix_hits']}, "
+        f"tokens reused {s['prefix_tokens_reused']}, cached blocks "
+        f"{s['cached_blocks']}, all blocks back")
+    out["prefix"], out["prefix plain"] = pre, base
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2532,6 +2955,7 @@ def main() -> int:
                    tables[("llama3-8b", None)])
     graphs = timed(phase_graph_decode, cfg, params, full, engine)
     streams = timed(phase_two_streams, cfg, params)
+    arms = timed(phase_serving_arms, cfg, params, full)
     del cfg, params                  # the llama3 weights leave the card
     gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
@@ -2539,6 +2963,14 @@ def main() -> int:
     hybrid = timed(phase_engine_hybrid, hcfg, hparams,
                    tables[("zamba2-2.7b", None)])
     graphs.update(timed(phase_graph_decode, hcfg, hparams, None, hybrid))
+
+    def arms_launches(name):
+        """The kernel's launches on each serving arm's timed pass (phase
+        E), where it launched there."""
+        got = {arm: arms[arm]["launches"][name]
+               for arm in ("mixed", "spec", "prefix")
+               if arms[arm]["launches"][name]}
+        return {"serving_arms_launches": got} if got else {}
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -2548,7 +2980,7 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "shape": [row["M"], row["K"], row["N"]],
-                "dtype": row["dtype"],
+                "dtype": row["dtype"], **arms_launches(name),
                 **{k: row[k] for k in ("device_ms", "plan_bn", "plan_split",
                                        "matmul_bf16_device_ms",
                                        "library_device_ms") if k in row}}
@@ -2564,7 +2996,7 @@ def main() -> int:
                 "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": row["shape"],
-                "dtype": row["dtype"],
+                "dtype": row["dtype"], **arms_launches(name),
                 **{k: row[k] for k in ("device_ms", "library_device_ms",
                                        "n_split", "split_1_device_ms",
                                        "split_max", "split_max_device_ms",
@@ -2621,6 +3053,12 @@ def main() -> int:
         + "prefill s two / one "
         + f"{streams['two streams']['prefill_s']:.4f} / "
         + f"{streams['one stream']['prefill_s']:.4f}"
+        + "; serving arms tok/s mixed "
+        + f"{arms['mixed']['waves'][0]['tok_per_s']:.2f}, spec "
+        + f"{arms['spec']['waves'][0]['tok_per_s']:.2f} (acceptance "
+        + f"{arms['spec']['stats']['acceptance_rate']:.3f}), prefix wave "
+        + "1 / 2 " + " / ".join(f"{w['tok_per_s']:.2f}"
+                               for w in arms['prefix']['waves'])
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -25,6 +25,11 @@ runs every launch of the loop, with no Python between them.
     reference's ``_masked_step`` does: a lane whose budget ran out or that
     hit EOS gets the null block table and length 0, so its writes sink into
     the pool's null block.
+  * ``paged_mixed_window_loop`` / ``paged_mixed_step_loop`` — the window
+    and the tick carrying one prefill chunk of an admitting request (mixed
+    batching: step 0 is the model's ``mixed_step``), one loop per chunk
+    length; ``slot_decode_loop`` — speculative decoding's draft round,
+    k + 1 greedy steps over a dense cache with per-slot indices.
   * ``generate_on_device_eager``, ``generate_host_loop_eager`` and
     ``paged_decode_window_eager`` — the plain versions, issued step by step:
     the graphs' bodies, what the CPU runs, and the yardstick the card's
@@ -37,6 +42,7 @@ from __future__ import annotations
 import gc
 import time
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -141,6 +147,16 @@ def make_loop(body, inputs, *, generator=None):
     return body
 
 
+def stage(*arrays, device) -> list:
+    """Host arrays as int64 tensors for a loop's inputs: page-locked when
+    ``device`` is the card, so that copying them into a graph's buffers
+    does not wait for the host."""
+    staged = [torch.from_numpy(np.asarray(a, np.int64)) for a in arrays]
+    if torch.device(device).type == "cuda":
+        staged = [t.pin_memory() for t in staged]
+    return staged
+
+
 def loop_stats(loops) -> dict:
     """Graphs captured among ``loops``, their replays and pool bytes."""
     graphs = [lp for lp in loops if isinstance(lp, CapturedLoop)]
@@ -186,10 +202,34 @@ def generate_host_loop_eager(model, params, first_token, cache,
     return torch.stack(toks, dim=1), cache
 
 
+def _masked_step(run, token, lengths, remaining, block_tables, *, sampler,
+                 eos_id, generator):
+    """One masked batched decode step of a window. ``run(token, tables,
+    lengths)`` is the step's body (a paged decode step, or a mixed step);
+    finished lanes get the null table and length 0, so their writes sink
+    into the null block. Returns (next tokens [W], active [W], lengths,
+    remaining)."""
+    active = remaining > 0
+    logits = run(token, torch.where(active[:, None], block_tables, 0),
+                 torch.where(active, lengths, 0))
+    if sampler is None or sampler.temperature <= 0.0:
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+    else:
+        nxt = sample(logits[:, -1, :], generator, sampler)
+    nxt = torch.where(active, nxt, token[:, 0])
+    new_remaining = torch.where(active, remaining - 1, 0)
+    if eos_id is not None:
+        new_remaining = torch.where(active & (nxt == eos_id), 0,
+                                    new_remaining)
+    return nxt, active, lengths + active.long(), new_remaining
+
+
 def paged_decode_window_eager(model, params, last_token, pool, block_tables,
                               lengths, remaining, n_steps: int, *,
                               sampler: SamplerConfig | None = None,
-                              eos_id=None, generator=None):
+                              eos_id=None, generator=None,
+                              prefill_tokens=None, prefill_table=None,
+                              prefill_start=0, mixed_step_fn=None):
     """``n_steps`` masked batched decode steps issued one by one, with no
     host read.
 
@@ -199,32 +239,43 @@ def paged_decode_window_eager(model, params, last_token, pool, block_tables,
     Greedy when ``sampler`` is None or temperature 0, else draws from
     ``generator``. Returns (tokens [W, n_steps], valid [W, n_steps] bool,
     pool, final lengths [W], final remaining [W]), all on the device.
+
+    With ``prefill_tokens`` ([1, C]), ``prefill_table`` ([1, NBmax]) and
+    ``prefill_start`` (an int or a 0-dim tensor) the window carries one
+    prefill chunk of an admitting request: step 0 is ``mixed_step_fn``
+    (the model's ``mixed_step``, its chunk through the batcher's
+    HeteroCtx), the other ``n_steps - 1`` steps plain decode, and the
+    return gains the chunk's last-token logits third: (tokens, valid,
+    prefill logits [1, 1, V], pool, lengths, remaining).
     """
+    def decode(token, tables, lens):
+        return model.paged_decode_step(params, token, pool,
+                                       block_tables=tables, lengths=lens)[0]
+
+    pre_logits = []
+
+    def mixed(token, tables, lens):
+        logits, pre, _ = mixed_step_fn(
+            params, token, prefill_tokens, pool, decode_tables=tables,
+            decode_lengths=lens, prefill_table=prefill_table,
+            prefill_start=prefill_start)
+        pre_logits.append(pre)
+        return logits
+
     token = last_token
     toks, valids = [], []
-    for _ in range(n_steps):
-        active = remaining > 0
-        eff_tables = torch.where(active[:, None], block_tables, 0)
-        eff_lengths = torch.where(active, lengths, 0)
-        logits, pool = model.paged_decode_step(params, token, pool,
-                                               block_tables=eff_tables,
-                                               lengths=eff_lengths)
-        if sampler is None or sampler.temperature <= 0.0:
-            nxt = torch.argmax(logits[:, -1, :], dim=-1)
-        else:
-            nxt = sample(logits[:, -1, :], generator, sampler)
-        nxt = torch.where(active, nxt, token[:, 0])
-        new_remaining = torch.where(active, remaining - 1, 0)
-        if eos_id is not None:
-            new_remaining = torch.where(active & (nxt == eos_id), 0,
-                                        new_remaining)
-        lengths = lengths + active.long()
-        remaining = new_remaining
+    for step in range(n_steps):
+        run = mixed if step == 0 and prefill_tokens is not None else decode
+        nxt, active, lengths, remaining = _masked_step(
+            run, token, lengths, remaining, block_tables, sampler=sampler,
+            eos_id=eos_id, generator=generator)
         token = nxt[:, None]
         toks.append(nxt)
         valids.append(active)
-    return (torch.stack(toks, dim=1), torch.stack(valids, dim=1), pool,
-            lengths, remaining)
+    toks, valid = torch.stack(toks, dim=1), torch.stack(valids, dim=1)
+    if prefill_tokens is None:
+        return toks, valid, pool, lengths, remaining
+    return toks, valid, pre_logits[0], pool, lengths, remaining
 
 
 # ------------------------------------------------------- the engine's loops --
@@ -317,6 +368,78 @@ def paged_step_loop(model, params, pool, width: int, max_blocks: int):
 
     return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
                             zeros(width)))
+
+
+def paged_mixed_window_loop(model, params, pool, width: int,
+                            max_blocks: int, n_steps: int, chunk: int, *,
+                            mixed_step_fn, sampler: SamplerConfig | None = None,
+                            eos_id=None, generator=None):
+    """The batcher's window carrying one prefill chunk of ``chunk`` tokens
+    (see :func:`make_loop`): ``loop(last, tables, lengths, remaining,
+    chunk_tokens [1, C], chunk_table [1, NBmax], start)``, ``start`` a
+    0-dim tensor, runs :func:`paged_decode_window_eager`'s mixed window and
+    returns (tokens [W, n_steps] with -1 where a lane emitted nothing, the
+    chunk's last-token logits [1, 1, V]). One loop per chunk length (the
+    admission buckets bound them). Captured on all-zero inputs: every lane
+    inactive and the chunk at the null table, every write in the null
+    block."""
+    zeros = _zeros(pool["k"].device)
+    sampled = sampler is not None and sampler.temperature > 0.0
+
+    def body(last, tables, lengths, remaining, tokens, table, start):
+        toks, valid, pre, _, _, _ = paged_decode_window_eager(
+            model, params, last, pool, tables, lengths, remaining, n_steps,
+            sampler=sampler, eos_id=eos_id, generator=generator,
+            prefill_tokens=tokens, prefill_table=table, prefill_start=start,
+            mixed_step_fn=mixed_step_fn)
+        return torch.where(valid, toks, -1), pre
+
+    return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
+                            zeros(width), zeros(width), zeros(1, chunk),
+                            zeros(1, max_blocks), zeros()),
+                     generator=generator if sampled else None)
+
+
+def paged_mixed_step_loop(model, params, pool, width: int, max_blocks: int,
+                          chunk: int, *, mixed_step_fn):
+    """The host-synced tick carrying one prefill chunk of ``chunk`` tokens
+    (see :func:`make_loop`): ``loop(last, tables, lengths, chunk_tokens,
+    chunk_table, start)`` returns (decode logits [W, 1, V], the chunk's
+    last-token logits [1, 1, V]) of one ``mixed_step``; sampling stays
+    with the caller. Captured on all-zero inputs, as
+    :func:`paged_mixed_window_loop`."""
+    zeros = _zeros(pool["k"].device)
+
+    def body(last, tables, lengths, tokens, table, start):
+        logits, pre, _ = mixed_step_fn(
+            params, last, tokens, pool, decode_tables=tables,
+            decode_lengths=lengths, prefill_table=table,
+            prefill_start=start)
+        return logits, pre
+
+    return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
+                            zeros(width), zeros(1, chunk),
+                            zeros(1, max_blocks), zeros()))
+
+
+def slot_decode_loop(model, params, cache, n_steps: int):
+    """The draft lanes' round (see :func:`make_loop`): ``loop(token [W, 1],
+    index [W])`` runs ``n_steps`` greedy decode steps over the dense
+    ``cache`` with per-slot indices and returns (tokens [W, n_steps],
+    index + n_steps). Captured with every lane at the cache's last slot,
+    which no lane's valid position reaches, so the warm-up overwrites
+    nothing a lane reads (the per-slot write clamps there)."""
+    device = cache["k"].device
+    width, last = cache["k"].shape[1], cache["k"].shape[2] - 1
+    token = torch.zeros((width, 1), dtype=torch.long, device=device)
+    index = torch.full((width,), last, dtype=torch.int32, device=device)
+
+    def body(token, index):
+        toks, run = generate_on_device_eager(
+            model, params, token, {**cache, "index": index}, n_steps)
+        return toks, run["index"]
+
+    return make_loop(body, (token, index))
 
 
 def _zeros(device):

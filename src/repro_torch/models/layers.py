@@ -3,9 +3,11 @@
 Attention over the paged pool is blockwise with an online softmax in fp32,
 written as plain torch ops (einsum, masking) the way ``repro.models.layers``
 computes it. Attention over the dense cache goes through the flash- and
-decode-attention kernels. Products that the reference takes with
-``preferred_element_type=float32`` are taken here on fp32 copies of the
-operands, which gives the same exact products of bf16/fp16 values.
+decode-attention kernels, but for per-slot indices (one position a lane,
+``slot_attention``), which is plain torch too. Products that the
+reference takes with ``preferred_element_type=float32`` are taken here on
+fp32 copies of the operands, which gives the same exact products of
+bf16/fp16 values.
 """
 from __future__ import annotations
 
@@ -214,6 +216,34 @@ def attention(p: dict, x, cfg, *, positions, cache: dict, cache_index,
         end = cache_index + S
         o = flash_attention(q, ck[:, :end], cv[:, :end], causal=True)
     out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
+    return out, cache
+
+
+def slot_attention(p: dict, x, cfg, *, lengths, cache: dict, freqs,
+                   hetero_ctx=None):
+    """GQA attention of one token per lane over one layer of the dense
+    cache with per-slot indices: lane ``b`` writes its K/V at
+    ``lengths[b]`` IN PLACE (a scatter on the sequence axis, the write
+    clamped into the cache as the reference's ``dynamic_update_slice``
+    clamps it) and attends over the whole cache masked at its own
+    position. The attention is plain torch (``blockwise_attention``), as
+    the reference computes it: kernel 2.5 takes one length for the whole
+    batch, in both packages. ``lengths`` is a [B] device tensor, never read
+    on the host. Returns (out, cache)."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"per-slot indices take one token a lane, got {S}")
+    positions = lengths[:, None].long()
+    q, k, v, mm = _qkv_rope(p, x, cfg, positions, hetero_ctx, freqs)
+    ck, cv = cache["k"], cache["v"]
+    Smax, Hkv, D = ck.shape[1:]
+    at = positions.clamp(max=Smax - 1)[:, :, None, None].expand(B, 1, Hkv, D)
+    ck.scatter_(1, at, k.to(ck.dtype))
+    cv.scatter_(1, at, v.to(cv.dtype))
+    kv_pos = torch.arange(Smax, dtype=torch.long, device=x.device)
+    o = blockwise_attention(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
+                            causal=True, block_k=cfg.attn_block_k)
+    out = mm(o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"], name="wo")
     return out, cache
 
 

@@ -15,7 +15,15 @@ None for the hybrid, whose recurrent state is O(1) and needs no paging:
         -> (last_logits, pool)
     paged_decode_step(params, token, pool, block_tables=, lengths=)
         -> (logits, pool)
-Every step accepts ``hetero_ctx=``; partitioning is an execution
+    paged_verify(params, tokens, pool, block_table=, start_index=)
+        -> (per_position_logits, pool)
+    mixed_step(params, decode_tokens, prefill_tokens, pool,
+               decode_tables=, decode_lengths=, prefill_table=,
+               prefill_start=) -> (decode_logits, prefill_logits, pool)
+and ``prefill_slot(params, cache, tokens, slot, start)`` -> (last_logits,
+cache), one request's chunk into one slot of a batched dense cache (the
+draft lanes of speculative decoding; ``decode_step`` then takes a [B]
+``cache["index"]``). Every step accepts ``hetero_ctx=``; partitioning is an execution
 schedule, never a numerics change beyond the order of fp32 sums.
 """
 from __future__ import annotations
@@ -45,6 +53,13 @@ class Model:
     init_paged_cache: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
+    # speculative decoding: K+1-position verification in one dispatch
+    paged_verify: Optional[Callable] = None
+    # stage-parallel mixed batch: one batched paged decode step for all
+    # lanes and one prefill chunk, over one pool
+    mixed_step: Optional[Callable] = None
+    # one request's prompt chunk into one slot of a batched dense cache
+    prefill_slot: Optional[Callable] = None
 
 
 def build_model(cfg) -> Model:
@@ -62,6 +77,9 @@ def build_model(cfg) -> Model:
             init_paged_cache=partial(transformer.init_paged_cache, cfg),
             paged_prefill=partial(transformer.paged_prefill, cfg=cfg),
             paged_decode_step=partial(transformer.paged_decode_step, cfg=cfg),
+            paged_verify=partial(transformer.paged_verify, cfg=cfg),
+            mixed_step=partial(transformer.mixed_step, cfg=cfg),
+            prefill_slot=partial(transformer.prefill_slot, cfg=cfg),
         )
     return Model(
         cfg=cfg,

@@ -16,7 +16,8 @@ from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
 from .layers import (attention, init_attention, init_swiglu, normal_stack,
-                     paged_attention, rms_norm, rope_table, swiglu)
+                     paged_attention, rms_norm, rope_table, slot_attention,
+                     swiglu)
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -92,16 +93,18 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _run_layers_dense(params, x, cfg, *, positions, cache, cache_index,
-                      hetero_ctx=None):
-    """All layers over the dense cache, which is updated in place."""
+def _run_layers_dense(params, x, cfg, *, cache, hetero_ctx=None,
+                      attend=attention, **attend_kw):
+    """All layers over the dense cache, which is updated in place;
+    ``attend`` is :func:`layers.attention` (``positions`` and
+    ``cache_index`` in ``attend_kw``) or :func:`layers.slot_attention`
+    (``lengths``)."""
     freqs = rope_table(cfg, x.device)
     for i in range(cfg.n_layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         x = _layer(layer_params(params["layers"], i), x, cfg,
-                   partial(attention, cfg=cfg, positions=positions,
-                           cache=layer_cache, cache_index=cache_index,
-                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
+                   partial(attend, cfg=cfg, cache=layer_cache, freqs=freqs,
+                           hetero_ctx=hetero_ctx, **attend_kw), hetero_ctx)
     return x
 
 
@@ -115,8 +118,8 @@ def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
     x = _embed(params, tokens, cfg)
     positions = torch.arange(start_index, start_index + S, dtype=torch.long,
                              device=x.device)
-    x = _run_layers_dense(params, x, cfg, positions=positions, cache=cache,
-                          cache_index=start_index, hetero_ctx=hetero_ctx)
+    x = _run_layers_dense(params, x, cfg, cache=cache, hetero_ctx=hetero_ctx,
+                          positions=positions, cache_index=start_index)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head_logits(params, x[:, -1:, :], cfg, hetero_ctx)
     index = torch.full((), start_index + S, dtype=torch.int32,
@@ -125,21 +128,42 @@ def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
 
 
 def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
-    """One autoregressive step of a uniform batch. token: [B, 1]. The write
-    position ``cache["index"]`` is a device scalar and stays there: nothing
-    in the step reads it on the host. Returns (logits [B, 1, V], cache with
-    ``index + 1``)."""
+    """One autoregressive step. token: [B, 1]. The write position
+    ``cache["index"]`` is a device scalar (a uniform batch: the
+    decode-attention kernel) or a [B] tensor of per-slot positions (the
+    draft lanes of speculative decoding: ``layers.slot_attention``, plain
+    torch); it stays on the device, nothing in the step reads it on the
+    host. Returns (logits [B, 1, V], cache with ``index + 1``)."""
     idx = cache["index"]
-    if idx.ndim != 0:
-        raise NotImplementedError("per-slot cache indices (the dense "
-                                  "continuous batcher) are not ported")
     x = _embed(params, token, cfg)
-    positions = idx.reshape(1).long()
-    x = _run_layers_dense(params, x, cfg, positions=positions, cache=cache,
-                          cache_index=idx, hetero_ctx=hetero_ctx)
+    if idx.ndim == 1:
+        if idx.shape[0] != x.shape[0]:
+            raise ValueError(f"per-slot indices for {idx.shape[0]} lanes, "
+                             f"tokens for {x.shape[0]}")
+        x = _run_layers_dense(params, x, cfg, cache=cache,
+                              hetero_ctx=hetero_ctx, attend=slot_attention,
+                              lengths=idx)
+    else:
+        x = _run_layers_dense(params, x, cfg, cache=cache,
+                              hetero_ctx=hetero_ctx,
+                              positions=idx.reshape(1).long(),
+                              cache_index=idx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head_logits(params, x, cfg, hetero_ctx)
     return logits, {"k": cache["k"], "v": cache["v"], "index": idx + 1}
+
+
+def prefill_slot(params, cache, tokens, slot: int, start: int, cfg):
+    """Prefill one prompt chunk (tokens ``[C]``) of one request into lane
+    ``slot`` of a batched dense cache (``[L, B, S, Hkv, D]``) at position
+    ``start``: :func:`prefill` on the ``[L, 1, S, Hkv, D]`` view of the
+    slot, which it writes in place (so its attention is the flash kernel).
+    ``slot`` and ``start`` are host ints. The draft lanes' prompt prefill
+    (serving/spec.py). Returns (last-token logits [1, 1, V], cache)."""
+    view = {"k": cache["k"][:, slot:slot + 1],
+            "v": cache["v"][:, slot:slot + 1]}
+    logits, _ = prefill(params, tokens[None, :], view, cfg, start_index=start)
+    return logits, cache
 
 
 def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
@@ -182,27 +206,86 @@ def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
     return x, pool
 
 
+def _positions(start_index, S: int, device) -> torch.Tensor:
+    """Absolute positions of ``S`` tokens from ``start_index``: a host int
+    or 0-dim tensor (a uniform batch) -> [S]; a [B] tensor of per-lane
+    starts -> [B, S]."""
+    if isinstance(start_index, int):
+        return torch.arange(start_index, start_index + S, dtype=torch.long,
+                            device=device)
+    start = torch.as_tensor(start_index, device=device).long()
+    steps = torch.arange(S, dtype=torch.long, device=device)
+    return start[:, None] + steps[None, :] if start.ndim == 1 else start + steps
+
+
 def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
                   hetero_ctx=None):
     """Prefill a prompt chunk into the request's pages. tokens: [B, S];
     block_table: [B, NBmax]; ``start_index`` an int (uniform batch) or a
     [B] tensor of per-lane starts. Returns (last-token logits [B, 1, V],
     pool)."""
-    S = tokens.shape[1]
     x = _embed(params, tokens, cfg)
-    if isinstance(start_index, int):
-        positions = torch.arange(start_index, start_index + S,
-                                 dtype=torch.long, device=x.device)
-    else:
-        start = torch.as_tensor(start_index, device=x.device).long()
-        steps = torch.arange(S, dtype=torch.long, device=x.device)
-        positions = (start[:, None] + steps[None, :] if start.ndim == 1
-                     else start + steps)
+    positions = _positions(start_index, tokens.shape[1], x.device)
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_table,
                                 hetero_ctx=hetero_ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x[:, -1:, :], cfg, hetero_ctx), pool
+
+
+def paged_verify(params, tokens, pool, cfg, *, block_table, start_index,
+                 hetero_ctx=None):
+    """Speculative-decoding verification: append ``tokens`` ([B, K+1], each
+    lane's pending token and its K drafts) after each lane's cached prefix
+    and return the logits of EVERY position, [B, K+1, V]. ``start_index``:
+    [B] per-lane write positions, or an int. Rejected positions are
+    reclaimed afterwards by ``PagedKVCache.truncate_to``; their stale slots
+    are masked positionally and rewritten before a later query reads
+    them. A ``hetero_ctx`` made by ``for_verify`` routes the M = B·(K+1)
+    matmuls through the solver's VERIFY decisions. Returns (logits, pool).
+    """
+    x = _embed(params, tokens, cfg)
+    positions = _positions(start_index, tokens.shape[1], x.device)
+    x, pool = _run_layers_paged(params, x, cfg, positions=positions,
+                                pool=pool, block_table=block_table,
+                                hetero_ctx=hetero_ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head_logits(params, x, cfg, hetero_ctx), pool
+
+
+def mixed_step(params, decode_tokens, prefill_tokens, pool, cfg, *,
+               decode_tables, decode_lengths, prefill_table, prefill_start=0,
+               hetero_ctx=None):
+    """Stage-parallel mixed batch: one batched paged decode step of every
+    lane AND one prefill chunk of an admitting request, over the same pool.
+    Per layer the decode lanes run first, with no ``hetero_ctx`` (the
+    flexible path), then the chunk, through ``hetero_ctx``; their block
+    tables are disjoint, so the order changes no number. decode_tokens:
+    [W, 1]; prefill_tokens: [1, C]; decode_tables: [W, NBmax];
+    decode_lengths: [W]; prefill_table: [1, NBmax]; ``prefill_start`` an
+    int or a 0-dim device tensor. The pool is written in place. Returns
+    (decode logits [W, 1, V], prefill logits [1, 1, V], pool); the decode
+    head stays on the flexible path."""
+    xd = _embed(params, decode_tokens, cfg)
+    xp = _embed(params, prefill_tokens, cfg)
+    dec_pos = decode_lengths[:, None].long()
+    pre_pos = _positions(prefill_start, prefill_tokens.shape[1], xp.device)
+    freqs = rope_table(cfg, xd.device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        layer_pool = {name: t[i] for name, t in pool.items()}
+        xd = _layer(lp, xd, cfg,
+                    partial(paged_attention, cfg=cfg, positions=dec_pos,
+                            pool=layer_pool, block_table=decode_tables,
+                            freqs=freqs), None)
+        xp = _layer(lp, xp, cfg,
+                    partial(paged_attention, cfg=cfg, positions=pre_pos,
+                            pool=layer_pool, block_table=prefill_table,
+                            freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
+    xd = rms_norm(xd, params["final_norm"], cfg.norm_eps)
+    xp = rms_norm(xp, params["final_norm"], cfg.norm_eps)
+    return (_head_logits(params, xd, cfg),
+            _head_logits(params, xp[:, -1:, :], cfg, hetero_ctx), pool)
 
 
 def paged_decode_step(params, token, pool, cfg, *, block_tables, lengths,
@@ -218,4 +301,3 @@ def paged_decode_step(params, token, pool, cfg, *, block_tables, lengths,
                                 hetero_ctx=hetero_ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x, cfg, hetero_ctx), pool
-

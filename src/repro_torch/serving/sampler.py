@@ -1,4 +1,5 @@
-"""Token sampling — greedy / temperature / top-k / top-p."""
+"""Token sampling — greedy / temperature / top-k / top-p — plus the
+speculative-decoding acceptance rule (``greedy_verify``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -43,3 +44,27 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filter_logits(logits.float(), cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def greedy_verify(draft_tokens: torch.Tensor, target_logits: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy speculative acceptance (lossless: the emitted stream is what
+    per-token greedy decoding of the target gives, whatever the drafts).
+
+    draft_tokens: [B, K], each lane's drafts; target_logits: [B, K+1, V]
+    from one ``paged_verify``, position ``j`` scoring the token after the
+    j-th appended one. A draft is accepted while it equals the target's
+    greedy choice (``argmax``: ties go to the first maximal index); the
+    first mismatch contributes the target's token, full acceptance the
+    bonus token after the last draft. Returns (emitted [B, K+1],
+    n_emitted [B]): ``emitted[b, :n_emitted[b]]`` is lane b's stream for
+    the round, 1..K+1 tokens; the slots past it hold the target's greedy
+    tokens, which callers ignore."""
+    greedy = torch.argmax(target_logits, dim=-1)                 # [B, K+1]
+    drafts = draft_tokens.to(greedy.dtype)
+    match = drafts == greedy[:, :-1]
+    accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    slots = torch.arange(greedy.shape[1], device=greedy.device)[None, :]
+    drafts_pad = torch.nn.functional.pad(drafts, (0, 1))
+    emitted = torch.where(slots < accepted[:, None], drafts_pad, greedy)
+    return emitted, accepted + 1

@@ -85,11 +85,14 @@ def test_prefill_and_decode_step_match_reference(pair, chunks):
 
 
 def test_decode_step_refuses_per_slot_indices(pair):
+    """Per-slot indices (speculative decoding's draft lanes) are served
+    (tests/test_torch_spec.py), but only one per lane: indices for 3 lanes
+    with tokens for 2 are refused."""
     model, params = pair[4:]
     cache = model.init_cache(batch=2, max_len=8, dtype=torch.float32,
                              device="cpu")
-    cache["index"] = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="per-slot"):
+    cache["index"] = torch.zeros((3,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="per-slot"):
         model.decode_step(params, torch.zeros((2, 1), dtype=torch.long),
                           cache)
 
