@@ -128,8 +128,32 @@ Among them run the phases of the solver's cost model and its two streams:
      arm's. Each arm's tok/s, prefill and decode time, stats, graphs,
      capture seconds, pool bytes and launches are logged (``[arms]``).
 
+  F. (after E, before the llama3 weights leave the card)
+     ``phase_front_end``: the serving front end. F0, on the fp32 llama3
+     smoke model on the card and the CPU: the dense ContinuousBatcher, and
+     AsyncServer (open loop on a FakeClock, a priority mix on an 11-block
+     pool) over PagedBatcher with host sync and the prefix cache and with
+     device sync, each through a preemption and its resume, give the
+     port's sequential reference's tokens, a traced run the untraced run's
+     (its counters reconciled), and the card the CPU's. F1: llama3-8b at
+     full width through AsyncServer over PagedBatcher (hetero-tensor, sync
+     device, window 8, width 8, prefix cache) on a MonotonicClock with a
+     live Tracer: 8 requests drawn as serve.py draws them (lengths 8..300,
+     priority mix 0.5, 16 new tokens) arriving Poisson at 4 req/s on a
+     pool of 12 blocks of 32 (gates: every stream complete, a preemption,
+     no leaked block, counters reconciled with stats(), the saved Chrome
+     trace valid under scripts/check_trace.py with every fused_window span
+     (the fenced replay) inside its window's span, a drift row for every plan
+     site, GEMM 2.1 launched; TTFT / TPOT / queue delay, goodput, the
+     drift table and the tokens against a closed-loop run are logged).
+     F2: the dense ContinuousBatcher (4 slots) on phase 4's prompts, closed
+     loop through AsyncServer: first-token cosine >= 0.999 against phase
+     4's engine-less fp arm, kernels 2.4 and 2.5 launched. (``[front-end]``
+     lines.)
+
 The line before the last is the kernels JSON line (each kernel launched
-on a phase E arm also carries ``serving_arms_launches``); the last line is
+on a phase E arm also carries ``serving_arms_launches``, and on phase F's
+F1 / F2 ``front_end_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1485,6 +1509,8 @@ def phase_full(cfg, params, tables: dict, prompt_len: int = 300,
         if wq is None:
             fp_logits = base["first_logits"]
         het["prompts"] = prompts
+        het["plain_first_logits"] = base["first_logits"]
+        het["plain_outputs"] = base["outputs"]
         hetero[label] = het
     return hetero
 
@@ -2915,6 +2941,424 @@ def phase_serving_arms(cfg, params, full, new_tokens: int = 16,
     return out
 
 
+# ------------------------------------------------------------------ phase F --
+
+# phase F0's workload on the smoke models: the reference fuzz test's prompt
+# palette, budgets 4..11, the first half of the arrivals low priority and
+# the second half high, Poisson at 300 req/s on a FakeClock (1 ms a tick),
+# a pool of 11 blocks of 16 (two or three requests): the schedule, and with
+# it a preemption, is the same on every device
+F0_PALETTE = (4, 9, 20, 32, 33, 48, 57, 64)
+F0_POOL = dict(num_blocks=11, block_size=16, max_blocks_per_seq=5,
+               decode_width=3, buckets=(32, 64))
+F0_MAX_LEN = 80
+# phase F1's pool: 12 blocks of 32, 11 usable. The longest requests (256
+# + 16 tokens, 9 blocks) run alone, a low-priority request of 7 blocks
+# (193 or 177 tokens) runs beside one small lane at most, and a
+# high-priority arrival of 3 blocks is blocked beside it and preempts it.
+# On an H100 at 700 W a pool of 10 blocks, and one of 14 with an admission
+# watermark of 4, admitted both high-priority arrivals beside the small
+# low-priority lanes running when they came, and preempted nothing; a
+# schedule model (FakeClock, a prefill chunk 0.08-0.16 s plus 0-0.4 ms a
+# token, a window 0.05-0.1 s) preempted in 14 of 18 cost settings at 12
+# blocks, against 11 of 18 at 13 and 8 of 18 at 11.
+F1_BLOCKS = 12
+
+
+def _check_trace():
+    """scripts/check_trace.py (which imports no JAX) from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "scripts" / "check_trace.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _f0_workload(vocab: int, n: int = 6):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.choice(F0_PALETTE, size=n)
+    prompts = [rng.integers(0, vocab, s).astype(np.int32) for s in lens]
+    budgets = [int(b) for b in rng.integers(4, 12, size=n)]
+    return prompts, budgets, [0] * (n // 2) + [1] * (n - n // 2)
+
+
+def _dense_sequential(cfg, params, prompt, n: int, device) -> list:
+    """The port's sequential reference for the dense batcher: one request
+    alone in a one-slot dense cache (the model's default dtype), prefilled
+    by bucket chunks, then greedy steps."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving.scheduler import bucket_chunks
+    model = build_model(cfg)
+    cache = model.init_cache(batch=1, max_len=F0_MAX_LEN, device=device)
+    cache["index"] = torch.zeros((1,), dtype=torch.int32, device=device)
+    idx = 0
+    for c in bucket_chunks(len(prompt), F0_POOL["buckets"]):
+        piece = torch.as_tensor(prompt[idx: idx + c], device=device).long()
+        logits, cache = model.prefill_slot(params, cache, piece, 0, idx)
+        idx += c
+    cache["index"][0] = len(prompt)
+    out = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(n - 1):
+        logits, cache = model.decode_step(
+            params, torch.tensor([[out[-1]]], device=device), cache)
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out
+
+
+def _f0_serve(cfg, params, batcher, device, traced: bool = False) -> dict:
+    """Phase F0's workload through AsyncServer (open loop, FakeClock) over
+    one batcher: "dense", or paged "host" / "device" (hetero-tensor; host
+    with the prefix cache). Returns the streams and the server's counts."""
+    import torch
+    from repro_torch.serving.ingress import (AsyncServer, arrival_times,
+                                             open_loop_workload)
+    from repro_torch.serving.scheduler import ContinuousBatcher, PagedBatcher
+    from repro_torch.serving.telemetry import FakeClock
+    from repro_torch.serving.trace import Tracer, counter_reconciliation
+    clock = FakeClock()
+    tracer = Tracer(clock) if traced else None
+    if batcher == "dense":
+        cb = ContinuousBatcher(cfg, params, max_batch=3, max_len=F0_MAX_LEN,
+                               buckets=F0_POOL["buckets"], tracer=tracer,
+                               device=device)
+    else:
+        sync = (dict(sync="host", prefix_cache=True) if batcher == "host"
+                else dict(sync="device", window=3))
+        cb = PagedBatcher(cfg, params, engine_mode="hetero-tensor",
+                          cache_dtype=torch.float32, tracer=tracer,
+                          device=device, **F0_POOL, **sync)
+    server = AsyncServer(cb, clock=clock, step_time_s=1e-3)
+    prompts, budgets, prios = _f0_workload(cfg.vocab_size)
+    handles = server.run_sync(open_loop_workload(
+        prompts, budgets, arrival_times("poisson", 300.0, len(prompts), 0),
+        prios))
+    if batcher != "dense":
+        cb.kv.assert_drained()
+    for h, m in zip(handles, budgets):
+        if not h.done or h.terminal_events != 1 or len(h.tokens) != m:
+            raise AssertionError(f"[front-end] smoke {batcher} on {device}:"
+                                 f" request {h.rid} streamed {h.tokens}")
+    out = {"tokens": [h.tokens for h in handles],
+           "preemptions": server.preemptions, "stats": server.stats()}
+    if traced:
+        mism = counter_reconciliation(tracer, server.stats())
+        if mism:
+            raise AssertionError(f"[front-end] smoke {batcher} on {device}:"
+                                 f" counters do not reconcile: {mism}")
+        out["events"] = tracer.n_events
+    return out
+
+
+def _front_end_smoke(devices=("cuda", "cpu")) -> dict:
+    """Phase F0 on the fp32 llama3 smoke model, on each device: the dense
+    batcher, and AsyncServer over the paged batcher with host and with
+    device sync, each through a preemption and its resume, give the port's
+    sequential reference's tokens (the dense one-slot run, and the paged
+    batcher with one lane); a traced run gives the untraced run's tokens;
+    the card's tokens equal the CPU's."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.scheduler import PagedBatcher, Request
+
+    cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
+                                              compute_dtype="float32")
+    params = {devices[0]: build_model(cfg).init(
+        torch.Generator(device=devices[0]).manual_seed(7),
+        device=devices[0])}
+    for d in devices[1:]:
+        params[d] = _to_device(params[devices[0]], d)
+    prompts, budgets, _ = _f0_workload(cfg.vocab_size)
+    got = {}
+    for device in devices:
+        p = params[device]
+        dense_ref = [_dense_sequential(cfg, p, x, m, device)
+                     for x, m in zip(prompts, budgets)]
+        one = PagedBatcher(cfg, p, **{**F0_POOL, "decode_width": 1},
+                           cache_dtype=torch.float32, device=device)
+        reqs = [Request(rid=i, prompt=x, max_new_tokens=m)
+                for i, (x, m) in enumerate(zip(prompts, budgets))]
+        one.run(reqs)
+        paged_ref = [r.output for r in reqs]
+        for batcher, want in (("dense", dense_ref), ("host", paged_ref),
+                              ("device", paged_ref)):
+            run = _f0_serve(cfg, p, batcher, device)
+            log(f"[front-end] smoke {batcher} on {device}: preemptions "
+                f"{run['preemptions']}, stats {run['stats']}")
+            if run["tokens"] != want:
+                raise AssertionError(
+                    f"[front-end] smoke {batcher} on {device}: tokens "
+                    f"{run['tokens']} differ from the sequential "
+                    f"reference's {want}")
+            if batcher != "dense" and run["preemptions"] < 1:
+                raise AssertionError(f"[front-end] smoke {batcher} on "
+                                     f"{device}: no preemption")
+            got[batcher, device] = run["tokens"]
+        traced = _f0_serve(cfg, p, "device", device, traced=True)
+        if traced["tokens"] != got["device", device]:
+            raise AssertionError(f"[front-end] smoke traced run on {device}:"
+                                 " tokens differ from the untraced run's")
+        log(f"[front-end] smoke traced device-sync run on {device}: "
+            f"{traced['events']} events, counters reconcile, tokens equal "
+            "the untraced run's")
+    for batcher in ("dense", "host", "device"):
+        if len({str(got[batcher, d]) for d in devices}) != 1:
+            raise AssertionError(f"[front-end] smoke {batcher}: card and "
+                                 "CPU tokens differ")
+    log(f"[front-end] smoke: dense, paged host and device (each preempted "
+        f"and resumed) give the sequential reference's tokens on "
+        f"{', '.join(devices)}, card equal to CPU")
+    return got
+
+
+def _fused_windows_nested(trace: dict) -> dict:
+    """How many ``fused_window`` spans (a window's replay, fenced) lie
+    inside a window dispatch span of the same track, and the median
+    duration of each kind (ms)."""
+    import numpy as np
+    open_, spans = {}, {"fused_window": [], "window": []}
+    for e in trace["traceEvents"]:
+        if e["ph"] not in ("B", "E"):
+            continue
+        key = (e["tid"], e["name"])
+        if e["ph"] == "B":
+            open_.setdefault(key, []).append(e["ts"])
+            continue
+        t0 = open_[key].pop()
+        if e["name"] == "fused_window":
+            spans["fused_window"].append((e["tid"], t0, e["ts"]))
+        elif e["name"] in ("decode_window", "mixed_window"):
+            spans["window"].append((e["tid"], t0, e["ts"]))
+    inside = sum(any(t == w[0] and w[1] <= b and e <= w[2]
+                     for w in spans["window"])
+                 for t, b, e in spans["fused_window"])
+
+    def median_ms(xs):
+        return float(np.median([e - b for _, b, e in xs])) / 1e3 \
+            if xs else 0.0
+
+    return {"windows": len(spans["fused_window"]), "inside": inside,
+            "replay_ms": median_ms(spans["fused_window"]),
+            "dispatch_ms": median_ms(spans["window"])}
+
+
+def _f1_open_loop(cfg, params, check, device="cuda") -> dict:
+    """Phase F1: AsyncServer over PagedBatcher(hetero-tensor, sync device,
+    window 8, width 8, prefix cache) at full width, on a MonotonicClock
+    with a live Tracer, 8 requests drawn as serve.py draws them (seed 0,
+    lengths 8..300, priority mix 0.5), 16 new tokens each, Poisson at 4
+    req/s (arrival seed 0), on a pool of F1_BLOCKS blocks of 32."""
+    import numpy as np
+    from repro_torch.core.sync import fence
+    from repro_torch.launch.serve import draw_workload
+    from repro_torch.serving.ingress import (AsyncServer, arrival_times,
+                                             open_loop_workload)
+    from repro_torch.serving.scheduler import PagedBatcher, Request
+    from repro_torch.serving.telemetry import MonotonicClock
+    from repro_torch.serving.trace import Tracer, counter_reconciliation
+
+    n, new = 8, 16
+    prompts, prios = draw_workload(np.random.default_rng(0), cfg.vocab_size,
+                                   n, 300, 0, 0.5)
+    clock = MonotonicClock()
+    tracer = Tracer(clock)
+    cb = PagedBatcher(cfg, params, num_blocks=F1_BLOCKS, block_size=32,
+                      max_blocks_per_seq=-(-(300 + new + 8) // 32),
+                      decode_width=8, sync="device", window=8,
+                      engine_mode="hetero-tensor", prefix_cache=True,
+                      tracer=tracer, device=device)
+    anchor = cb.kv.pool["k"]
+    t0 = time.perf_counter()
+    cb.run([Request(rid=100, prompt=prompts[1], max_new_tokens=new)])
+    cb.kv._reclaim(cb.kv.allocator.n_cached)        # start cold
+    fence(anchor)
+    warm_s = time.perf_counter() - t0
+    times = arrival_times("poisson", 4.0, n, 0)
+    log(f"[front-end] F1 workload: lengths {[len(p) for p in prompts]}, "
+        f"priorities {prios}, arrivals (s) {[round(float(t), 3) for t in times]}"
+        f", pool {F1_BLOCKS} blocks of 32; warm-up request (captures the "
+        f"window) {warm_s:.2f}s")
+    server = AsyncServer(cb, clock=clock)
+    _zero_counts()
+    fence(anchor)
+    t0 = clock.now()
+    handles = server.run_sync(open_loop_workload(
+        prompts, [new] * n, t0 + times, prios))
+    fence(anchor)
+    wall = clock.now() - t0
+    launches = _read_counts()
+    for h in handles:
+        tr = server.telemetry.traces[h.rid]
+        if not h.done or h.terminal_events != 1 or len(h.tokens) != new \
+                or tr.n_tokens != new:
+            raise AssertionError(f"[front-end] F1 request {h.rid}: "
+                                 f"{len(h.tokens)} tokens streamed, "
+                                 f"{tr.n_tokens} stamped, done {h.done}")
+    cb.kv.assert_drained()
+    stats = server.stats()
+    mism = counter_reconciliation(tracer, stats)
+    trace_path = ROOT / "build" / "front_end_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    tracer.save_chrome(trace_path)
+    tracer.save_prometheus(ROOT / "build" / "front_end_metrics.prom")
+    trace = json.loads(trace_path.read_text())
+    errors = check.validate(trace)
+    nested = _fused_windows_nested(trace)
+    rows = tracer.drift.report()["rows"]
+    sites = {s for (s, _) in cb._plan.decisions}
+    rep = server.report()
+    log(f"[front-end] F1 open loop: {n * new} tokens in {wall:.3f}s "
+        f"({n * new / wall:.2f} tok/s); preemptions {server.preemptions}, "
+        f"deferrals {server.deferrals}, ticks {server.ticks}; events "
+        f"{tracer.n_events} ({tracer.dropped} dropped), trace "
+        f"{trace_path.stat().st_size} bytes; launches {launches}; stats "
+        f"{stats}")
+    for m in ("ttft_ms", "tpot_ms", "queue_delay_ms"):
+        x = rep[m]
+        log(f"[front-end] F1 {m}: p50 {x['p50']:.2f}, p95 {x['p95']:.2f}, "
+            f"p99 {x['p99']:.2f}, mean {x['mean']:.2f}, max {x['max']:.2f} "
+            f"(n={x['n']})")
+    log(f"[front-end] F1 goodput {rep['goodput_req_s']:.3f} req/s, "
+        f"makespan {rep['makespan_s']:.3f}s, throughput "
+        f"{rep['throughput_tok_s']:.2f} tok/s; per request (rid: ttft ms, "
+        f"preemptions) " + ", ".join(
+            f"{r}: {t.ttft * 1e3:.1f}, {t.preemptions}"
+            for r, t in sorted(server.telemetry.traces.items())))
+    log(f"[front-end] F1 fused_window spans inside their dispatch spans: "
+        f"{nested['inside']} of {nested['windows']}; replay / dispatch span "
+        f"median {nested['replay_ms']:.2f} / {nested['dispatch_ms']:.2f} ms")
+    log("[front-end] F1 drift table (predicted: the V5E plan's us; "
+        "observed: the fenced dispatch time shared by predicted weight)\n"
+        + tracer.drift.format_table())
+    # the preemption and the launches are the card's gates: a CPU
+    # rehearsal runs another schedule on the wall clock, and no kernel
+    if mism or errors or {r["site"] for r in rows} != sites or \
+            nested["windows"] == 0 or \
+            nested["inside"] != nested["windows"] or \
+            (device == "cuda" and (server.preemptions < 1
+                                   or launches["hetero_matmul"] <= 0)):
+        raise AssertionError(
+            f"[front-end] F1: reconciliation {mism}, trace errors "
+            f"{errors[:5]}, nesting {nested}, preemptions "
+            f"{server.preemptions}, drift sites "
+            f"{sorted({r['site'] for r in rows})} of {sorted(sites)}, GEMM "
+            f"launches {launches['hetero_matmul']}")
+    # the same requests closed loop, none preempted, on the same batcher
+    cb.kv._reclaim(cb.kv.allocator.n_cached)
+    closed = AsyncServer(cb, clock=clock).run_sync(open_loop_workload(
+        prompts, [new] * n, [clock.now()] * n))
+    cb.kv.assert_drained()
+    same = [sum(a == b for a, b in zip(h.tokens, c.tokens))
+            for h, c in zip(handles, closed)]
+    log(f"[front-end] F1 tokens equal to a closed-loop unpreempted run, per "
+        f"request: {same} of {new} (preempted: "
+        f"{[server.telemetry.traces[r].preemptions for r in range(n)]})")
+    return {"launches": launches, "wall_s": wall, "report": rep,
+            "preemptions": server.preemptions, "drift": rows,
+            "agreement": same, "events": tracer.n_events}
+
+
+def _f2_dense(cfg, params, full, device="cuda") -> dict:
+    """Phase F2: ContinuousBatcher(max_batch=4) at full width on phase 4's
+    prompts, 16 new tokens each, closed loop through AsyncServer on a
+    MonotonicClock; its first-token logits held to the paged engine-less
+    fp arm's (cosine >= 0.999)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.sync import fence
+    from repro_torch.serving.ingress import AsyncServer, open_loop_workload
+    from repro_torch.serving.scheduler import ContinuousBatcher
+    from repro_torch.serving.telemetry import MonotonicClock
+
+    prompts, new = full["fp"]["prompts"], 16
+    cb = ContinuousBatcher(cfg, params, max_batch=4, max_len=300 + new + 8,
+                           device=device)
+    anchor = cb.cache["k"]
+    rec = {"prefill": 0.0, "decode": 0.0, "first": []}
+    model = cb.model
+
+    def timed(fn, key):
+        def run(*a, **k):
+            fence(anchor)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            fence(anchor)
+            rec[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    prefill = timed(model.prefill_slot, "prefill")
+
+    def prefill_slot(params, cache, tokens, slot, start):
+        logits, cache = prefill(params, cache, tokens, slot, start)
+        if start == 0:                    # admissions go in rid order here
+            rec["first"].append(None)
+        rec["first"][-1] = logits[0, -1].float()
+        return logits, cache
+
+    cb.model = dataclasses.replace(
+        model, prefill_slot=prefill_slot,
+        decode_step=timed(model.decode_step, "decode"))
+    clock = MonotonicClock()
+    server = AsyncServer(cb, clock=clock)
+    _zero_counts()
+    fence(anchor)
+    t0 = clock.now()
+    handles = server.run_sync(open_loop_workload(
+        prompts, [new] * len(prompts), [t0] * len(prompts)))
+    fence(anchor)
+    wall = clock.now() - t0
+    launches = _read_counts()
+    tok = sum(len(h.tokens) for h in handles)
+    if any(len(h.tokens) != new for h in handles):
+        raise AssertionError(f"[front-end] F2: streams "
+                             f"{[len(h.tokens) for h in handles]}")
+    plain = full["fp"]["plain_first_logits"]
+    cos = []
+    for rid, a in enumerate(rec["first"]):
+        b = plain[rid]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"[front-end] F2 request {rid}: non-finite")
+        cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
+    same = sum(x == y for h, o in zip(handles, full["fp"]["plain_outputs"])
+               for x, y in zip(h.tokens, o))
+    log(f"[front-end] F2 dense: {tok} tokens in {wall:.3f}s "
+        f"({tok / wall:.2f} tok/s); prefill {rec['prefill']:.3f}s, decode "
+        f"{rec['decode']:.3f}s; stats {server.stats()}; launches {launches};"
+        f" first-token cos vs the paged engine-less arm "
+        f"{[round(c, 6) for c in cos]}; tokens equal to its {same}/{tok}")
+    if len(cos) != len(prompts) or min(cos) < 0.999 or \
+            (device == "cuda" and (launches["flash_attention"] <= 0
+                                   or launches["decode_attention"] <= 0)):
+        raise AssertionError(f"[front-end] F2: cosines {cos}, launches "
+                             f"{launches}")
+    return {"launches": launches, "tok_per_s": tok / wall, "wall_s": wall,
+            "prefill_s": rec["prefill"], "decode_s": rec["decode"],
+            "cos": cos}
+
+
+def phase_front_end(cfg, params, full, device="cuda") -> dict:
+    """Phase F: the serving front end (the dense batcher, the open-loop
+    ingress, telemetry and the tracer). F0 on the fp32 smoke models (card
+    and CPU), then F1 and F2 on the llama3-8b weights at full width.
+    Returns {"F1": ..., "F2": ...}, each with its launches per kernel."""
+    t0 = time.perf_counter()
+    _front_end_smoke(("cuda", "cpu") if device == "cuda" else ("cpu",))
+    log(f"[time] front end F0: {time.perf_counter() - t0:.1f}s")
+    out = {}
+    for name, run in (("F1", lambda: _f1_open_loop(cfg, params,
+                                                   _check_trace(), device)),
+                      ("F2", lambda: _f2_dense(cfg, params, full, device))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        gc.collect()
+        log(f"[time] front end {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2956,6 +3400,7 @@ def main() -> int:
     graphs = timed(phase_graph_decode, cfg, params, full, engine)
     streams = timed(phase_two_streams, cfg, params)
     arms = timed(phase_serving_arms, cfg, params, full)
+    front = timed(phase_front_end, cfg, params, full)
     del cfg, params                  # the llama3 weights leave the card
     gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
@@ -2966,11 +3411,15 @@ def main() -> int:
 
     def arms_launches(name):
         """The kernel's launches on each serving arm's timed pass (phase
-        E), where it launched there."""
+        E) and on phase F's open-loop and dense runs, where it launched
+        there."""
         got = {arm: arms[arm]["launches"][name]
                for arm in ("mixed", "spec", "prefix")
                if arms[arm]["launches"][name]}
-        return {"serving_arms_launches": got} if got else {}
+        out = {"serving_arms_launches": got} if got else {}
+        got = {ph: front[ph]["launches"][name] for ph in ("F1", "F2")
+               if front[ph]["launches"][name]}
+        return {**out, "front_end_launches": got} if got else out
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -3059,6 +3508,10 @@ def main() -> int:
         + f"{arms['spec']['stats']['acceptance_rate']:.3f}), prefix wave "
         + "1 / 2 " + " / ".join(f"{w['tok_per_s']:.2f}"
                                for w in arms['prefix']['waves'])
+        + f"; front end: open loop {front['F1']['wall_s']:.3f}s, "
+        + f"{front['F1']['preemptions']} preemptions, TTFT p50 "
+        + f"{front['F1']['report']['ttft_ms']['p50']:.1f} ms; dense "
+        + f"{front['F2']['tok_per_s']:.2f} tok/s"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -76,6 +76,41 @@ def build_hetero_ctx(cfg, mode: str, *, sync_mode: str = "fast",
     return HeteroCtx(mode=mode, plan=plan)
 
 
+def dispatch_prediction(plan, cfg, *, m=None, steps: int = 1,
+                        mixed=None, verify=None):
+    """Decision tags and predicted duration of ONE scheduler dispatch:
+    ``(tags, total_us)``, tags a tuple of ``(site, M, strategy, t_us,
+    count)``, one per planned site, where ``count`` is how often the site's
+    matmul runs in the dispatch: ``steps`` forward passes, each hitting
+    every site but ``head`` ``cfg.n_layers`` times and ``head`` once. One
+    shape selector applies: ``m`` (an M-token dispatch, nearest solved M),
+    ``mixed=(m_prefill, m_decode)`` (a fused mixed step) or ``verify=(k,
+    lanes)`` (spec verification). The serving tracer tags each dispatch
+    span with these and the drift report scores them against the measured
+    durations. ``plan=None`` (no engine mode) gives ``((), 0.0)``."""
+    if plan is None:
+        return (), 0.0
+    sites = sorted({s for (s, _) in plan.decisions})
+    tags, total = [], 0.0
+    for site in sites:
+        if verify is not None:
+            k, lanes = verify
+            dec = plan.verify_decision(site, k, lanes) \
+                or plan.lookup(site, lanes * (k + 1))
+        elif mixed is not None:
+            mp, md = mixed
+            dec = plan.mixed_decision(site, mp, md) \
+                or plan.lookup(site, mp + md)
+        else:
+            dec = plan.lookup(site, 1 if m is None else m)
+        if dec is None:
+            continue
+        count = steps * (1 if site == "head" else cfg.n_layers)
+        tags.append((site, dec.M, dec.strategy, dec.t_us, count))
+        total += dec.t_us * count
+    return tuple(tags), total
+
+
 @dataclass
 class EngineStats:
     prefill_s: float = 0.0

@@ -34,6 +34,11 @@ runs every launch of the loop, with no Python between them.
     ``paged_decode_window_eager`` — the plain versions, issued step by step:
     the graphs' bodies, what the CPU runs, and the yardstick the card's
     captured loops are held to.
+  * ``traced_dispatch`` / ``window_replay`` — the tracer's dispatch span
+    and a window's ``fused_window`` span (the tracer duck-typed: core never
+    imports serving). With a live tracer each closes after ``fence``, so on
+    the card it times the work, not only its issue; with the tracer off
+    neither adds an event or a fence.
   * ``measure_dispatch_overhead`` — the median cost of one trivial launch
     plus a sync on this device, the solver's T_sync in host mode.
 """
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import gc
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -56,6 +62,39 @@ def fence(*values):
     if any(isinstance(v, torch.Tensor) and v.is_cuda for v in values):
         torch.cuda.synchronize()
     return values[0] if len(values) == 1 else values
+
+
+@contextmanager
+def _fenced(span, *anchors):
+    with span:
+        yield
+        fence(*anchors)
+
+
+def traced_dispatch(tracer, kind: str, anchor, **kw):
+    """``tracer.dispatch(kind, **kw)`` around work queued on ``anchor``'s
+    device, closed after ``fence(anchor)``: the span's duration is the
+    dispatch's issue and its device time. With the tracer off, its no-op
+    context (no event, no fence)."""
+    if not tracer.enabled:
+        return tracer.dispatch(kind)
+    return _fenced(tracer.dispatch(kind, **kw), anchor)
+
+
+def window_replay(loop, inputs, *, n_steps: int, mixed: bool = False,
+                  tracer=None):
+    """One call of a batcher's window ``loop`` on ``inputs`` (a replay of
+    its graph on the card). With ``tracer`` (None when tracing is off) the
+    call runs inside a ``fused_window`` span that closes after its outputs
+    are fenced, so the trace shows the replay, the one host round-trip of
+    the window, inside the scheduler's dispatch span."""
+    if tracer is None:
+        return loop(*inputs)
+    with tracer.span("fused_window", track="decode", cat="sync",
+                     args={"n_steps": int(n_steps), "mixed": mixed}):
+        out = loop(*inputs)
+        fence(*(out if isinstance(out, tuple) else (out,)))
+    return out
 
 
 # ------------------------------------------------------------ graph runner --

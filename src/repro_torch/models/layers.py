@@ -210,11 +210,17 @@ def attention(p: dict, x, cfg, *, positions, cache: dict, cache_index,
     else:
         ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+    # a cache narrower than the activations (the dense batcher's bf16 cache
+    # under an fp32 model, the reference's default) is widened for the
+    # kernels, which take one dtype (the reference's plain attention also
+    # rounds its probabilities to the cache's dtype); else ``to`` is a no-op
     if S == 1:
-        o = decode_attention(q[:, 0], ck, cv, cache_index + 1)[:, None]
+        o = decode_attention(q[:, 0], ck.to(q.dtype), cv.to(q.dtype),
+                             cache_index + 1)[:, None]
     else:
         end = cache_index + S
-        o = flash_attention(q, ck[:, :end], cv[:, :end], causal=True)
+        o = flash_attention(q, ck[:, :end].to(q.dtype),
+                            cv[:, :end].to(q.dtype), causal=True)
     out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
     return out, cache
 

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..models import transformer
+from .trace import NULL_TRACER
 
 
 class OutOfBlocks(RuntimeError):
@@ -204,7 +205,8 @@ class PagedKVCache:
     def __init__(self, cfg, *, num_blocks: int, block_size: int = 32,
                  max_blocks_per_seq: int | None = None,
                  dtype=torch.bfloat16, kv_quant: str | None = None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, device="cuda", tracer=None):
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg = cfg
         self.kv_quant = kv_quant
         self.block_size = block_size
@@ -276,6 +278,7 @@ class PagedKVCache:
             self.allocator.free(plain)
         for b in self.allocator.retire(registered):
             self._lru[b] = None                  # most recently retired last
+        self.tracer.gauge("cached_blocks", self.allocator.n_cached)
 
     def _reclaim(self, n: int) -> None:
         """Evict up to ``n`` refcount-0 cached blocks, least recently used
@@ -285,7 +288,11 @@ class PagedKVCache:
             del self._block_of_hash[self._hash_of_block.pop(b)]
             self.allocator.evict([b])
             self.evictions += 1
+            self.tracer.count("evictions")
+            self.tracer.instant("prefix_evict", track="cache", cat="cache",
+                                args={"block": b})
             n -= 1
+        self.tracer.gauge("cached_blocks", self.allocator.n_cached)
 
     def _alloc(self, n: int) -> list[int]:
         """``n`` fresh blocks, evicting cached ones under pressure."""
@@ -322,11 +329,20 @@ class PagedKVCache:
             self._release([src])                 # drop the pin
             seq.append_block(dst)
             self.cow_copies += 1
+            self.tracer.count("cow_copies")
+            self.tracer.instant("prefix_cow", track="cache", cat="cache",
+                                args={"src": src, "dst": dst})
             seq.cached_tokens = prompt_tokens - 1
         else:
             seq.cached_tokens = len(hits) * bs
         self.prefix_hits += 1
         self.prefix_tokens_reused += seq.cached_tokens
+        self.tracer.count("prefix_hits")
+        self.tracer.count("prefix_tokens_reused", seq.cached_tokens)
+        self.tracer.instant("prefix_hit", track="cache", cat="cache",
+                            args={"blocks": len(hits),
+                                  "tokens": seq.cached_tokens})
+        self.tracer.gauge("cached_blocks", self.allocator.n_cached)
 
     # ---------------------------------------------------------- lifecycle --
     def open_sequence(self, prompt_tokens: int, total_tokens: int,
@@ -434,10 +450,22 @@ class PagedKVCache:
                 f"{self._reserved_unheld} reserved-unheld blocks leaked")
 
     # ------------------------------------------------------------- stats --
+    def memory_tokens(self) -> int:
+        """Total token capacity of the pool (for equal-memory comparisons);
+        the null block is real memory, so it counts."""
+        return self.num_blocks * self.block_size
+
     def pool_bytes(self) -> int:
         """Device bytes held by the pool tensors, an int8 pool's scale
         planes included."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())
+
+    def utilization(self) -> float:
+        """Share of the usable blocks (all but the null block) that live
+        sequences hold; free and cached blocks are not held."""
+        held = (self.num_blocks - 1 - self.allocator.n_free
+                - self.allocator.n_cached)
+        return held / max(self.num_blocks - 1, 1)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (merged into ``PagedBatcher.stats``)."""

@@ -1,7 +1,17 @@
-"""Continuous batching over the paged KV pool (``PagedBatcher``).
+"""Continuous-batching serving schedulers: dense slots
+(``ContinuousBatcher``) and paged blocks (``PagedBatcher``).
 
-Admission is gated by FREE BLOCKS: a request is admitted when
-``ceil((len(prompt) + max_new_tokens) / block_size)`` blocks can be
+``ContinuousBatcher`` (the dense baseline) runs slot-based continuous
+batching over a preallocated ``[max_batch, max_len]`` KV cache: requests
+join free slots, prefill runs per request as bucket-chunked pieces
+(``transformer.prefill_slot``, the flash-attention kernel), and decode
+steps run batched across all slots with PER-SLOT cache indices (a ``[B]``
+``cache["index"]``, ``layers.slot_attention``). Finished slots free at once
+and the queue backfills. Decode is eager, as the reference's is a plain
+jitted step.
+
+``PagedBatcher`` gates admission by FREE BLOCKS: a request is admitted
+when ``ceil((len(prompt) + max_new_tokens) / block_size)`` blocks can be
 reserved, up to ``decode_width`` decode lanes. Prompts prefill as bucket
 chunks (``bucket_chunks``), finished requests return their blocks and the
 queue backfills. The HeteroInfer engine rides the serving path:
@@ -35,8 +45,13 @@ queue backfills. The HeteroInfer engine rides the serving path:
 compose with the three arms.
 
 Greedy outputs are the same across engine modes, sync arms and the three
-arms (the reference's invariant). Preemption (with the async ingress),
-tensor parallelism and tracing are not ported yet.
+arms (the reference's invariant). ``PagedBatcher.preempt`` evicts a lane
+for the async ingress (serving/ingress.py). Both batchers take a
+``tracer`` (serving/trace.py): with a live one every dispatch becomes a
+span tagged with the plan's decisions, closed after a fence, and the
+tracer's counters move with ``stats()``; with the default ``NULL_TRACER``
+nothing is recorded and nothing waits. Tensor parallelism is not ported
+yet (``stats()`` has no ``tp``).
 """
 from __future__ import annotations
 
@@ -50,16 +65,18 @@ import torch
 from ..configs import dtype_of
 from ..core.sync import (loop_stats, paged_mixed_step_loop,
                          paged_mixed_window_loop, paged_step_loop,
-                         paged_window_loop, stage)
+                         paged_window_loop, stage, traced_dispatch,
+                         window_replay)
 from ..device import resolve_device
 from ..models import build_model
 from ..models.quant import WEIGHT_FORMATS, quantize_params
 from .paged_cache import PagedKVCache, SequenceBlocks
 from .sampler import SamplerConfig, greedy_verify, sample
 from .spec import DraftLanes, SpecConfig
+from .trace import NULL_TRACER
 
 
-PREFILL_BUCKETS = (64, 128, 256)      # the reference batcher's default
+PREFILL_BUCKETS = (64, 128, 256)      # the reference batchers' default
 
 
 def bucket_chunks(S: int, buckets: tuple = PREFILL_BUCKETS) -> list[int]:
@@ -82,6 +99,164 @@ class Request:
     max_new_tokens: int = 16
     output: list = field(default_factory=list)
     done: bool = False
+
+
+def _validate_submit(req: Request, live_rids) -> None:
+    """Shared submit guard: an empty prompt has no first token to sample,
+    and a request id already queued or in flight would make two streams
+    indistinguishable. Finished ids may be reused (replay waves and
+    preemption resumes depend on it)."""
+    if len(req.prompt) == 0:
+        raise ValueError(f"request {req.rid}: empty prompt — a request "
+                         "must carry at least one prompt token")
+    if req.rid in live_rids:
+        raise ValueError(f"request {req.rid}: duplicate id — a request "
+                         "with this id is already queued or in flight")
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a dense KV cache on ``device``
+    (the card unless ``"cpu"`` is asked for): up to ``max_batch`` requests
+    hold a slot of a ``[max_batch, max_len]`` cache (the model's
+    ``init_cache``, its default dtype, as in the reference), each prompt
+    prefilled into its slot as ``bucket_chunks`` pieces, then one batched
+    decode step a tick over the ``[B]`` cache index. ``weight_quant`` in
+    {'int8', 'w4a16'} serves quantized weights (dequantized before each
+    product); ``tracer`` records each dispatch."""
+
+    def __init__(self, cfg, params=None, *, max_batch: int = 4,
+                 max_len: int = 512, buckets=PREFILL_BUCKETS,
+                 sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
+                 weight_quant: str | None = None, tracer=None,
+                 device="cuda"):
+        if weight_quant is not None and weight_quant not in WEIGHT_FORMATS:
+            raise ValueError(f"weight_quant must be one of {WEIGHT_FORMATS} "
+                             f"(or None), got {weight_quant!r}")
+        self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        if self.model.prefill_slot is None:
+            raise ValueError(f"{cfg.name}: the dense batcher's slot prefill "
+                             "requires an attention-family model")
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = params if params is not None else self.model.init(
+            self.generator, device=self.device)
+        self.weight_quant = weight_quant
+        if weight_quant is not None:
+            self.params = quantize_params(self.params, cfg, weight_quant)
+        self.B, self.S = max_batch, max_len
+        self.buckets = tuple(sorted(buckets))
+        self.sampler = sampler
+        self.cache = self.model.init_cache(batch=max_batch, max_len=max_len,
+                                           device=self.device)
+        self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
+                                          device=self.device)
+        self.slots: list[Optional[Request]] = [None] * max_batch
+        self.queue: list[Request] = []
+        self.budget: list[int] = [0] * max_batch
+        self.lengths: list[int] = [0] * max_batch   # host-side slot lengths
+        self.peak_active = 0           # max concurrent requests observed
+        self.decode_dispatches = 0     # batched decode steps issued
+        self.decode_steps = 0          # per-slot tokens decoded
+        self.prefill_dispatches = 0    # prefill chunk dispatches issued
+
+    @property
+    def busy(self) -> bool:
+        """Work outstanding: queued requests or occupied slots."""
+        return bool(self.queue or any(s is not None for s in self.slots))
+
+    def _span(self, kind: str, track: str, **args):
+        return traced_dispatch(self.tracer, kind, self.cache["k"],
+                               track=track, args=args)
+
+    def submit(self, req: Request):
+        _validate_submit(req, {r.rid for r in self.queue}
+                         | {s.rid for s in self.slots if s is not None})
+        self.queue.append(req)
+
+    def _admit(self):
+        for b in range(self.B):
+            if self.slots[b] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            self.slots[b] = req
+            S = len(req.prompt)
+            logits, idx = None, 0
+            for c in bucket_chunks(S, self.buckets):
+                piece = torch.as_tensor(np.asarray(req.prompt[idx: idx + c],
+                                                   np.int64),
+                                        device=self.device)
+                with self._span("prefill_chunk", "prefill", rid=req.rid,
+                                chunk=c, start=idx):
+                    logits, self.cache = self.model.prefill_slot(
+                        self.params, self.cache, piece, b, idx)
+                self.prefill_dispatches += 1
+                self.tracer.count("prefill_dispatches")
+                idx += c
+            self.cache["index"][b] = S
+            self.lengths[b] = S
+            req.output.append(int(sample(logits[:, -1, :], self.generator,
+                                         self.sampler)[0]))
+            self.budget[b] = req.max_new_tokens - 1
+            if self.budget[b] <= 0:      # satisfied at prefill: no decode
+                req.done = True          # token is overproduced
+                self.slots[b] = None
+                self.lengths[b] = 0
+
+    def step(self) -> bool:
+        """One scheduler tick: admit waiting requests, one batched decode
+        step (which advances every slot's index by one)."""
+        self._admit()
+        active = [b for b in range(self.B) if self.slots[b] is not None]
+        self.peak_active = max(self.peak_active, len(active))
+        self.tracer.gauge("peak_active", self.peak_active)
+        if not active:
+            return False
+        last = np.zeros((self.B, 1), np.int64)
+        for b in active:
+            last[b, 0] = self.slots[b].output[-1]
+        with self._span("decode_step", "decode", active=len(active)):
+            logits, self.cache = self.model.decode_step(
+                self.params, torch.as_tensor(last, device=self.device),
+                self.cache)
+        self.decode_dispatches += 1
+        self.tracer.count("decode_dispatches")
+        toks = sample(logits[:, -1, :], self.generator, self.sampler).cpu()
+        for b in active:
+            req = self.slots[b]
+            req.output.append(int(toks[b]))
+            self.budget[b] -= 1
+            self.lengths[b] += 1
+            self.decode_steps += 1
+            self.tracer.count("decode_steps")
+            if self.budget[b] <= 0 or self.lengths[b] + 1 >= self.S:
+                req.done = True
+                self.slots[b] = None           # free slot; queue backfills
+                self.lengths[b] = 0
+        return True
+
+    def stats(self) -> dict:
+        """Counter snapshot, the reference's keys: dispatches issued vs
+        tokens produced."""
+        return {
+            "peak_active": self.peak_active,
+            "decode_dispatches": self.decode_dispatches,
+            "decode_steps": self.decode_steps,
+            "prefill_dispatches": self.prefill_dispatches,
+            "fused_steps": 0,
+            "total_dispatches": (self.decode_dispatches +
+                                 self.prefill_dispatches),
+        }
+
+    def run(self, requests: list[Request], max_ticks: int = 10_000):
+        for r in requests:
+            self.submit(r)
+        ticks = 0
+        while self.busy and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return requests
 
 
 @dataclass
@@ -145,20 +320,27 @@ class PagedBatcher:
     ``table`` (a ``LatencyTable``, e.g. ``profile_measured`` on the card
     for this ``weight_quant``) is what the engine mode's plan is solved
     from; by default the analytic table of the reference's cost model.
+
+    ``buckets`` are the prefill chunk lengths (``bucket_chunks``);
+    ``cache_dtype`` is the dtype of the pool (unless ``kv_quant``) and of
+    the draft lanes' caches, by default the compute dtype.
+    ``tracer`` (serving/trace.py) records every dispatch, the pool's prefix
+    events and the draft lanes' dispatches.
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
                  block_size: int = 32, max_blocks_per_seq: int | None = None,
-                 decode_width: int = 8,
+                 decode_width: int = 8, buckets=PREFILL_BUCKETS,
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
-                 sync: str = "host", window: int = 8,
+                 cache_dtype=None, sync: str = "host", window: int = 8,
                  engine_mode: str | None = None, eos_id: int | None = None,
                  mixed_batch: bool = False,
                  max_prefill_chunk_per_step: int | None = None,
                  spec: SpecConfig | int | None = None,
                  spec_draft_params=None, prefix_cache: bool = False,
                  weight_quant: str | None = None,
-                 kv_quant: str | None = None, device="cuda", table=None):
+                 kv_quant: str | None = None, device="cuda", table=None,
+                 tracer=None):
         if sync not in ("host", "device"):
             raise ValueError(f"sync must be 'host' or 'device', got {sync!r}")
         if window < 1:
@@ -197,15 +379,21 @@ class PagedBatcher:
         self.kv_quant = kv_quant
         if weight_quant is not None:
             self.params = quantize_params(self.params, cfg, weight_quant)
+        # the fp activation dtype: the pool's when KV is unquantized, and
+        # always the draft lanes' caches'
+        fp_dtype = (cache_dtype if cache_dtype is not None
+                    else dtype_of(cfg.compute_dtype))
         self.block_size = block_size
         self.prefix_cache = prefix_cache
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.kv = PagedKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
             max_blocks_per_seq=max_blocks_per_seq,
-            dtype=dtype_of(cfg.compute_dtype), kv_quant=kv_quant,
-            prefix_cache=prefix_cache, device=self.device)
+            dtype=fp_dtype, kv_quant=kv_quant,
+            prefix_cache=prefix_cache, device=self.device,
+            tracer=self.tracer)
         self.W = decode_width
-        self.buckets = PREFILL_BUCKETS
+        self.buckets = tuple(sorted(buckets))
         self.sampler = sampler
         self.lanes: list[Optional[_PagedLane]] = [None] * decode_width
         self.queue: list[Request] = []
@@ -244,6 +432,8 @@ class PagedBatcher:
                 weight_quant=weight_quant)
         else:
             self.ctx = None
+        # the solved plan backs the tracer's decision tags and drift report
+        self._plan = self.ctx.plan if self.ctx is not None else None
         # host dispatches issued vs tokens produced: the fused-window win is
         # decode dispatches << decode steps; mixed batching's is prefill
         # chunks riding decode dispatches (fused_steps up, prefill down)
@@ -251,6 +441,7 @@ class PagedBatcher:
         self.decode_steps = 0
         self.prefill_dispatches = 0      # standalone prefill-chunk dispatches
         self.fused_steps = 0             # prefill chunks fused into decode
+        self.preemptions = 0             # lanes evicted mid-flight (ingress)
         self.spec_rounds = 0             # per-lane speculation rounds
         self.drafted_tokens = 0          # drafts offered (budget-covered)
         self.accepted_tokens = 0         # drafts the target accepted
@@ -273,11 +464,31 @@ class PagedBatcher:
             self.drafts = DraftLanes(
                 draft_cfg, spec_draft_params, lanes=decode_width,
                 max_len=self.kv.max_blocks_per_seq * block_size + spec.k + 1,
-                sync=sync,
-                dtype=dtype_of(cfg.compute_dtype), device=self.device)
+                buckets=self.buckets, sync=sync, dtype=fp_dtype,
+                device=self.device, tracer=self.tracer)
             vctx = (self.ctx.for_verify(spec.k, decode_width)
                     if self.ctx is not None else None)
             self._verify = partial(self.model.paged_verify, hetero_ctx=vctx)
+
+    def _dispatch_span(self, kind: str, track: str, specs=(), **args):
+        """The span of one traced dispatch (``traced_dispatch``): ``specs``
+        are ``dispatch_prediction`` keyword dicts (a mixed window is its
+        mixed first step plus plain decode steps, hence a sequence) whose
+        decision tags and predicted cost annotate the span and feed the
+        drift report. With the tracer off nothing here runs: no prediction
+        lookup, no event, no fence."""
+        tr = self.tracer
+        if not tr.enabled:
+            return tr.dispatch(kind)
+        from ..core.engine import dispatch_prediction
+        tags, total = [], 0.0
+        for sp in specs:
+            t, p = dispatch_prediction(self._plan, self.cfg, **sp)
+            tags.extend(t)
+            total += p
+        return traced_dispatch(tr, kind, self.kv.pool["k"], track=track,
+                               tags=tuple(tags), predicted_us=total,
+                               args=args)
 
     @property
     def total_dispatches(self) -> int:
@@ -289,13 +500,15 @@ class PagedBatcher:
     def stats(self) -> dict:
         """Counter snapshot: dispatches issued vs tokens produced, the
         prefix cache's counters and, in spec mode, speculation's; the
-        reference's keys."""
+        reference's keys but ``tp``, which comes with tensor-parallel
+        serving (not ported)."""
         s = {
             "peak_active": self.peak_active,
             "decode_dispatches": self.decode_dispatches,
             "decode_steps": self.decode_steps,
             "prefill_dispatches": self.prefill_dispatches,
             "fused_steps": self.fused_steps,
+            "preemptions": self.preemptions,
             "total_dispatches": self.total_dispatches,
         }
         s.update(self.kv.prefix_stats())
@@ -372,12 +585,7 @@ class PagedBatcher:
         live.update(lane.req.rid for lane in self.lanes if lane is not None)
         if self._admitting is not None:
             live.add(self._admitting.req.rid)
-        if len(req.prompt) == 0:
-            raise ValueError(f"request {req.rid}: empty prompt — a request "
-                             "must carry at least one prompt token")
-        if req.rid in live:
-            raise ValueError(f"request {req.rid}: duplicate id — a request "
-                             "with this id is already queued or in flight")
+        _validate_submit(req, live)
         self.queue.append(req)
 
     def _try_open(self, req: Request) -> Optional[SequenceBlocks]:
@@ -428,10 +636,14 @@ class PagedBatcher:
             for c in bucket_chunks(len(req.prompt) - seq.cached_tokens,
                                    self.buckets):
                 piece = self._tensor(req.prompt[idx: idx + c])[None]
-                logits, self.kv.pool = self._prefill(
-                    self.params, piece, self.kv.pool, block_table=bt,
-                    start_index=idx)
+                with self._dispatch_span("prefill_chunk", "prefill",
+                                         ({"m": c},), rid=req.rid,
+                                         chunk=c, start=idx):
+                    logits, self.kv.pool = self._prefill(
+                        self.params, piece, self.kv.pool, block_table=bt,
+                        start_index=idx)
                 self.prefill_dispatches += 1
+                self.tracer.count("prefill_dispatches")
                 idx += c
             first = int(sample(logits[:, -1, :], self.generator,
                                self.sampler)[0])
@@ -490,6 +702,30 @@ class PagedBatcher:
     def _finish(self, lane: int):
         self._close_lane(lane).req.done = True
 
+    def preempt(self, lane: int) -> Request:
+        """Evict lane ``lane`` mid-flight, freeing its pool blocks for
+        higher-priority work, and return its unfinished request. With the
+        prefix cache the evicted KV RETIRES instead of freeing, so a resume
+        that submits ``prompt + output`` with the remaining budget matches
+        the retired blocks and prefills only the uncached suffix. Under
+        greedy decoding the resumed stream continues the preempted one.
+        The draft lane's cursor goes home; the lane is no longer active, so
+        the next window or tick stages it as an inactive lane. The caller
+        (serving/ingress.py) re-queues the request."""
+        st = self.lanes[lane]
+        if st is None:
+            raise ValueError(f"preempt of idle lane {lane}")
+        if st.budget <= 0:
+            raise ValueError(f"preempt of finishing lane {lane}: it frees "
+                             "itself on the next step")
+        self.preemptions += 1
+        self.tracer.count("preemptions")
+        self.tracer.instant("lane_preempt", track="scheduler",
+                            args={"lane": lane, "rid": st.req.rid})
+        if self.drafts is not None:
+            self.drafts.rollback(lane, 0)   # stale draft cache: cursor home
+        return self._close_lane(lane).req
+
     # ----------------------------------------------------------------- run --
     def step(self) -> bool:
         """One tick: admit by free blocks, then one batched decode dispatch —
@@ -505,6 +741,7 @@ class PagedBatcher:
         active = [i for i in range(self.W) if self.lanes[i] is not None]
         self.peak_active = max(self.peak_active,
                                len(active) + (self._admitting is not None))
+        self.tracer.gauge("peak_active", self.peak_active)
         # zero-budget admissions finish without a decode step
         for i in list(active):
             if self.lanes[i].budget <= 0:
@@ -523,10 +760,16 @@ class PagedBatcher:
             if not active:
                 # nothing decoding: the chunk pays its own dispatch
                 piece, table, start = adm_chunk
-                pre_logits, self.kv.pool = self._prefill(
-                    self.params, self._tensor(piece), self.kv.pool,
-                    block_table=self._tensor(table), start_index=start)
+                c = piece.shape[1]
+                with self._dispatch_span("prefill_chunk", "prefill",
+                                         ({"m": c},),
+                                         rid=self._admitting.req.rid,
+                                         chunk=c, start=start):
+                    pre_logits, self.kv.pool = self._prefill(
+                        self.params, self._tensor(piece), self.kv.pool,
+                        block_table=self._tensor(table), start_index=start)
                 self.prefill_dispatches += 1
+                self.tracer.count("prefill_dispatches")
             elif self.sync == "device":
                 pre_logits = self._decode_window(active, adm_chunk)
             else:
@@ -566,6 +809,7 @@ class PagedBatcher:
         st.seq.length += len(emitted)
         st.budget -= len(emitted)
         self.decode_steps += len(emitted)
+        self.tracer.count("decode_steps", len(emitted))
         if st.budget <= 0 or (self.eos_id is not None
                               and self.eos_id in emitted):
             self._finish(i)
@@ -593,12 +837,17 @@ class PagedBatcher:
             last[i, 0] = st.req.output[-1]
         drafts = self.drafts.draft(last, k)                    # [W, k]
         tokens = np.concatenate([last, drafts], axis=1)        # [W, k+1]
-        logits, self.kv.pool = self._verify(
-            self.params, self._tensor(tokens), self.kv.pool,
-            block_table=self._tensor(tables),
-            start_index=self._tensor(starts))
+        with self._dispatch_span("paged_verify", "verify",
+                                 ({"verify": (k, self.W)},),
+                                 k=k, lanes=len(active)):
+            logits, self.kv.pool = self._verify(
+                self.params, self._tensor(tokens), self.kv.pool,
+                block_table=self._tensor(tables),
+                start_index=self._tensor(starts))
         self.verify_dispatches += 1
         self.decode_dispatches += 1      # the round's one TARGET dispatch
+        self.tracer.count("verify_dispatches")
+        self.tracer.count("decode_dispatches")
         emitted, n_emit = greedy_verify(self._tensor(drafts), logits)
         emitted, n_emit = emitted.cpu().numpy(), n_emit.cpu().numpy()
         for i in active:
@@ -613,9 +862,13 @@ class PagedBatcher:
             # acceptances that emitted
             self.drafted_tokens += min(k, st.budget)
             self.accepted_tokens += min(n - 1, len(toks))
+            self.tracer.count("spec_rounds")
+            self.tracer.count("drafted_tokens", min(k, st.budget))
+            self.tracer.count("accepted_tokens", min(n - 1, len(toks)))
             st.req.output.extend(toks)
             st.budget -= len(toks)
             self.decode_steps += len(toks)
+            self.tracer.count("decode_steps", len(toks))
             new_len = st.seq.length + len(toks)
             self.kv.truncate_to(st.seq, new_len)    # paged rollback
             st.seq.length = new_len
@@ -631,15 +884,25 @@ class PagedBatcher:
         last, tables, lengths, _ = self._lane_arrays(active, lambda st: 1)
         pre_logits = None
         if adm_chunk is None:
-            logits = self._loop("tick")(last, tables, lengths)
+            loop = self._loop("tick")
+            with self._dispatch_span("decode_step", "decode",
+                                     ({"m": self.W},), active=len(active)):
+                logits = loop(last, tables, lengths)
         else:
             piece, table, start = adm_chunk
-            logits, pre_logits = self._loop("mixed-tick", piece.shape[1])(
-                last, tables, lengths,
-                *stage(piece, table, start, device=self.device))
+            c = piece.shape[1]
+            loop = self._loop("mixed-tick", c)
+            with self._dispatch_span("mixed_step", "decode",
+                                     ({"mixed": (c, self.W)},),
+                                     active=len(active), chunk=c):
+                logits, pre_logits = loop(
+                    last, tables, lengths,
+                    *stage(piece, table, start, device=self.device))
             pre_logits = pre_logits.clone()
             self.fused_steps += 1
+            self.tracer.count("fused_steps")
         self.decode_dispatches += 1
+        self.tracer.count("decode_dispatches")
         toks = sample(logits[:, -1, :], self.generator, self.sampler).cpu()
         for i in active:
             self._emit(i, [int(toks[i])])
@@ -652,18 +915,40 @@ class PagedBatcher:
         ``adm_chunk`` the window's first step carries the prefill chunk and
         the chunk's last-token logits are returned."""
         w = self.window
+        # core never imports serving: a live tracer only, or None
+        win_tracer = self.tracer if self.tracer.enabled else None
         staged = self._lane_arrays(active, lambda st: min(w, st.budget))
         pre_logits = None
         if adm_chunk is None:
-            toks = self._loop("window")(*staged)
+            loop = self._loop("window")
+            # the window always runs w full-width steps (finished lanes are
+            # masked, not skipped): predict what executes
+            with self._dispatch_span("decode_window", "decode",
+                                     ({"m": self.W, "steps": w},),
+                                     window=w, active=len(active)):
+                toks = window_replay(loop, staged, n_steps=w,
+                                     tracer=win_tracer)
         else:
             piece, table, start = adm_chunk
-            toks, pre_logits = self._loop("mixed-window", piece.shape[1])(
-                *staged, *stage(piece, table, start, device=self.device))
+            c = piece.shape[1]
+            loop = self._loop("mixed-window", c)
+            # step 0 carries the chunk (the MIXED decision), the w - 1 others
+            # are plain full-width decode
+            specs = [{"mixed": (c, self.W)}]
+            if w > 1:
+                specs.append({"m": self.W, "steps": w - 1})
+            with self._dispatch_span("mixed_window", "decode", specs,
+                                     window=w, active=len(active), chunk=c):
+                toks, pre_logits = window_replay(
+                    loop, (*staged,
+                           *stage(piece, table, start, device=self.device)),
+                    n_steps=w, mixed=True, tracer=win_tracer)
             pre_logits = pre_logits.clone()
             self.fused_steps += 1
+            self.tracer.count("fused_steps")
         toks = toks.cpu().tolist()
         self.decode_dispatches += 1
+        self.tracer.count("decode_dispatches")
         for i in active:
             self._emit(i, [t for t in toks[i] if t >= 0])
         return pre_logits

@@ -31,11 +31,12 @@ import numpy as np
 import torch
 
 from ..configs import dtype_of
-from ..core.sync import slot_decode_loop, stage
+from ..core.sync import slot_decode_loop, stage, traced_dispatch
 from ..device import resolve_device
 from ..models import build_model
 from .paged_cache import PagedKVCache
 from .sampler import greedy_verify
+from .trace import NULL_TRACER
 
 
 @dataclass(frozen=True)
@@ -79,16 +80,20 @@ class DraftLanes:
     including the k-th, so a fully accepted round leaves no hole); rollback
     is a cursor reset (stale slots past it are masked and rewritten before
     a later query reads them). ``dispatches`` counts every draft-model
-    dispatch, prefill chunks included."""
+    dispatch, prefill chunks included; a live ``tracer`` records each
+    (``draft_prefill_chunk``, ``spec_draft``)."""
 
     def __init__(self, cfg, params, *, lanes: int, max_len: int,
-                 sync: str = "host", dtype=None, device="cuda"):
+                 buckets=(64, 128, 256), sync: str = "host", dtype=None,
+                 device="cuda", tracer=None):
         self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg = cfg
         self.model = build_model(cfg)
         self.params = params
         self.W = lanes
         self.max_len = max_len
+        self.buckets = tuple(sorted(buckets))
         self.sync = sync
         dtype = dtype if dtype is not None else dtype_of(cfg.compute_dtype)
         self.cache = self.model.init_cache(batch=lanes, max_len=max_len,
@@ -103,11 +108,17 @@ class DraftLanes:
         """Bucket-chunked prompt prefill into ``lane``'s slot."""
         from .scheduler import bucket_chunks   # deferred: avoids a cycle
         idx = 0
-        for c in bucket_chunks(len(prompt)):
+        for c in bucket_chunks(len(prompt), self.buckets):
             piece = torch.as_tensor(np.asarray(prompt[idx: idx + c],
                                                np.int64), device=self.device)
-            self.model.prefill_slot(self.params, self.cache, piece, lane, idx)
+            with traced_dispatch(self.tracer, "draft_prefill_chunk",
+                                 self.cache["k"], track="draft",
+                                 args={"lane": lane, "chunk": c,
+                                       "start": idx}):
+                self.model.prefill_slot(self.params, self.cache, piece, lane,
+                                        idx)
             self.dispatches += 1
+            self.tracer.count("draft_dispatches")
             idx += c
         self.idx[lane] = len(prompt)
 
@@ -117,22 +128,27 @@ class DraftLanes:
         prediction is dropped: that step writes the k-th draft's KV).
         Inactive lanes draft garbage that the caller ignores."""
         tok, index = stage(last, self.idx, device=self.device)
-        if self.sync == "device":
-            if k + 1 not in self.loops:
-                self.loops[k + 1] = slot_decode_loop(
-                    self.model, self.params, self.cache, k + 1)
-            toks, _ = self.loops[k + 1](tok, index)
-            self.dispatches += 1
-        else:
-            cache = {**self.cache, "index": index.to(self.device)}
-            tok, outs = tok.to(self.device), []
-            for _ in range(k + 1):
-                logits, cache = self.model.decode_step(self.params, tok,
-                                                       cache)
-                tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-                outs.append(tok[:, 0])
+        if self.sync == "device" and k + 1 not in self.loops:
+            self.loops[k + 1] = slot_decode_loop(self.model, self.params,
+                                                 self.cache, k + 1)
+        with traced_dispatch(self.tracer, "spec_draft", self.cache["k"],
+                             track="draft", args={"k": k, "sync": self.sync,
+                                                  "lanes": self.W}):
+            if self.sync == "device":
+                toks, _ = self.loops[k + 1](tok, index)
                 self.dispatches += 1
-            toks = torch.stack(outs, dim=1)
+                self.tracer.count("draft_dispatches")
+            else:
+                cache = {**self.cache, "index": index.to(self.device)}
+                tok, outs = tok.to(self.device), []
+                for _ in range(k + 1):
+                    logits, cache = self.model.decode_step(self.params, tok,
+                                                           cache)
+                    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                    outs.append(tok[:, 0])
+                    self.dispatches += 1
+                    self.tracer.count("draft_dispatches")
+                toks = torch.stack(outs, dim=1)
         self.idx = self.idx + np.int32(k + 1)
         return toks[:, :k].cpu().numpy()
 
@@ -152,9 +168,9 @@ class SpecDecoder:
 
     def __init__(self, cfg, params=None, *, spec: SpecConfig = SpecConfig(),
                  draft_params=None, max_len: int = 512,
-                 engine_mode: Optional[str] = None, sync: str = "host",
-                 eos_id: Optional[int] = None, seed: int = 0,
-                 device="cuda"):
+                 buckets=(64, 128, 256), engine_mode: Optional[str] = None,
+                 sync: str = "host", eos_id: Optional[int] = None,
+                 cache_dtype=None, seed: int = 0, device="cuda"):
         if sync not in ("host", "device"):
             raise ValueError(f"sync must be 'host' or 'device', got {sync!r}")
         self.device = resolve_device(device)
@@ -168,13 +184,15 @@ class SpecDecoder:
             device=self.device)
         self.spec = spec
         self.eos_id = eos_id
+        self.buckets = tuple(sorted(buckets))
         self.max_len = max_len
         block_size = 32
+        dtype = (cache_dtype if cache_dtype is not None
+                 else dtype_of(cfg.compute_dtype))
         self.kv = PagedKVCache(cfg,
                                num_blocks=1 + -(-(max_len + spec.k)
                                                 // block_size),
-                               block_size=block_size,
-                               dtype=dtype_of(cfg.compute_dtype),
+                               block_size=block_size, dtype=dtype,
                                device=self.device)
         self.draft_cfg = draft_cfg = spec.resolve_draft(cfg)
         if draft_params is None:
@@ -184,7 +202,10 @@ class SpecDecoder:
                                                 ).manual_seed(seed + 1),
                                 device=self.device))
         self.drafts = DraftLanes(draft_cfg, draft_params, lanes=1,
-                                 max_len=max_len + spec.k + 1, sync=sync,
+                                 max_len=max_len + spec.k + 1,
+                                 buckets=self.buckets, sync=sync,
+                                 dtype=(torch.float32
+                                        if dtype == torch.float32 else None),
                                  device=self.device)
         if engine_mode is not None:
             from ..core.engine import build_hetero_ctx
@@ -238,7 +259,7 @@ class SpecDecoder:
                                     total_tokens=S + max_new_tokens)
         bt = self._tensor(seq.table)[None]
         idx, logits = 0, None
-        for c in bucket_chunks(S):
+        for c in bucket_chunks(S, self.buckets):
             logits, self.kv.pool = self._prefill(
                 self.params, self._tensor(prompt[idx: idx + c])[None],
                 self.kv.pool, block_table=bt, start_index=idx)

@@ -43,6 +43,17 @@ jax_attention_refs = jax.jit(lambda q, k, v: {
 jax_decode_attention_ref = jax.jit(jax_decode_attention_ref)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(case, dtype) -> tuple[int, int]:
     """(seed offset, query heads per kv head) of a case in a dtype."""
     i = CASE_IDS.index(case.name)

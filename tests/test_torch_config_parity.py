@@ -31,6 +31,17 @@ PROMPT_LEN, NEW_TOKENS = 77, 4
 BUCKETS = (32, 64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @lru_cache(maxsize=None)
 def _pair(arch):
     """(reference cfg, model, params; port cfg, model, params), made once

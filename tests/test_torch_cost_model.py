@@ -43,6 +43,17 @@ MS = (1, 7, 64, 100, 128, 192, 300, 511, 512, 1000, 2048)
 FP32_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch, smoke):
     if smoke:
         return configs.get_smoke_config(arch), \

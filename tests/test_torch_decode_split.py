@@ -43,6 +43,17 @@ BLOCK_K = 64
 SPLITS = (1, 2, 3, 7)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @jax.jit
 def _references(q, k, v, length):
     """(Pallas kernel in interpret mode, oracle) at a traced length; the

@@ -34,6 +34,17 @@ BUCKETS = (32, 64)
 PROMPT_LEN, NEW_TOKENS = 77, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair(smoke_model):
     ref_cfg, ref_model, ref_params = smoke_model
@@ -232,6 +243,6 @@ def test_cli_engine_path_on_cpu(capsys):
                 "--no-fast-sync", "--prompt-len", "20", "--new-tokens", "2"])
     assert "fast_sync=False out=(1, 2)" in capsys.readouterr().out
     for argv in (["--engine-mode", "xla"], ["--sync", "device"],
-                 ["--batched"]):
+                 ["--open-loop"], ["--batched", "--priority-mix", "0.5"]):
         with pytest.raises(SystemExit):
             serve.main(["--smoke", "--device", "cpu", *argv])

@@ -42,6 +42,17 @@ PATH_SHAPES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blocks(M, N, bn, split):
     return (M // ops.TILE_M) * (N // bn) * split
 

@@ -23,6 +23,17 @@ from repro_torch.kernels.hetero_matmul.ref import matmul_ref
 ALIGN = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(M, K, N, dtype, seed=0):
     """The same seeded inputs for both packages (cast from fp32 in each)."""
     rng = np.random.default_rng(seed)

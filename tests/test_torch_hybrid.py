@@ -37,6 +37,17 @@ BUCKETS = (32, 64)
 PROMPT_LEN, NEW_TOKENS = 77, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fp32(cfg):
     return cfg.with_(param_dtype="float32", compute_dtype="float32")
 

@@ -14,6 +14,17 @@ PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _modules():
     for path in sorted(PKG.rglob("*.py")):
         rel = path.relative_to(PKG.parent).with_suffix("")

@@ -23,6 +23,17 @@ LOGITS_TOL = 1e-4
 NUM_BLOCKS, BLOCK = 8, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair(smoke_model):
     ref_cfg, ref_model, ref_params = smoke_model

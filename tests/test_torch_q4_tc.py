@@ -39,6 +39,17 @@ ALIGN = 128
 CASES = CONFORMANCE_CASES + (KernelCase("deep_k", 128, 1024, 256),)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(case, dtype, seed):
     """x and the packed codes of the padded weight, for both frameworks."""
     rng = np.random.default_rng(seed)

@@ -32,6 +32,17 @@ FORMATS = {"int8": (ops.quantize_weight, ref_ops.quantize_weight),
            "w4a16": (ops.quantize_weight_int4, ref_ops.quantize_weight_int4)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weight(K, N, seed=0):
     """Seeded weights with the quantizers' edge columns: all zero, a
     negative extreme (int4 takes amax/8), a negative extreme whose positive

@@ -29,6 +29,17 @@ POOL = dict(num_blocks=1 + 3 * 5, block_size=32, max_blocks_per_seq=5,
 ARMS = {"host": dict(sync="host"), "device-w4": dict(sync="device", window=4)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prompts():
     rng = np.random.default_rng(11)
     return [rng.integers(0, 256, n).astype(np.int32) for n in PROMPT_LENS]

@@ -3,6 +3,7 @@ same configuration fields, and the same plan, decision for decision."""
 import dataclasses
 
 import pytest
+import torch
 
 from repro import configs as ref_configs
 from repro.core.engine import build_plan as ref_build_plan
@@ -11,6 +12,17 @@ from repro_torch.core.engine import build_plan
 from repro_torch.core.solver import PartitionPlan
 
 ARCHS = configs.ARCHS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["config", "smoke"])

@@ -30,6 +30,17 @@ SSD_TOL = 1e-4          # the reference's bound, every dtype row
 jax_oracle = jax.jit(jax_ssd_chunk_ref)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chunk_inputs(seed, L, nh=2, hd=64, N=64, dtype="float32", state=True,
                   conv_dim=None):
     """fp32 numpy operands of one chunk step, rounded through ``dtype``;

@@ -42,6 +42,17 @@ PROMPT_LEN, NEW_TOKENS = 77, 5
 
 # ------------------------------------------- the protocol, on stand-ins --
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Stream:
     def __init__(self, name, log):
         self.name, self.log = name, log

@@ -34,6 +34,17 @@ jax_attention_refs = jax.jit(lambda q, k, v: {
     c: jax_attention_ref(q, k, v, causal=c) for c in (True, False)})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's smoke-size steps gain nothing from intra-op threads, and
+    the suite's workers share the machine's cores: one thread each, the
+    process's setting put back after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, dtype, *shapes):
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
