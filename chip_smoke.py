@@ -140,21 +140,47 @@ Among them run the phases of the solver's cost model and its two streams:
      device, window 8, width 8, prefix cache) on a MonotonicClock with a
      live Tracer: 8 requests drawn as serve.py draws them (lengths 8..300,
      priority mix 0.5, 16 new tokens) arriving Poisson at 4 req/s on a
-     pool of 12 blocks of 32 (gates: every stream complete, a preemption,
-     no leaked block, counters reconciled with stats(), the saved Chrome
+     pool of 12 blocks of 32 (gates: every stream complete, no leaked
+     block, counters reconciled with stats(), the saved Chrome
      trace valid under scripts/check_trace.py with every fused_window span
      (the fenced replay) inside its window's span, a drift row for every plan
      site, GEMM 2.1 launched; TTFT / TPOT / queue delay, goodput, the
-     drift table and the tokens against a closed-loop run are logged).
+     drift table and the tokens against a closed-loop run are logged);
+     then the same requests on a FakeClock (0.1 s a tick, low priorities
+     arriving at 0 s, high at 0.05 s), whose schedule preempts on every
+     device (gates: a preemption, every stream complete, no leaked block).
      F2: the dense ContinuousBatcher (4 slots) on phase 4's prompts, closed
      loop through AsyncServer: first-token cosine >= 0.999 against phase
      4's engine-less fp arm, kernels 2.4 and 2.5 launched. (``[front-end]``
      lines.)
 
+  G. (after the zamba2 phases, those weights freed) ``phase_families``:
+     the MoE, RWKV6 and encoder-only families. G0, on the fp32 smoke
+     models, card against CPU: qwen2-moe, dbrx and chameleon through
+     PagedBatcher (hetero-tensor, sync device and host); qwen2-moe, dbrx
+     and rwkv6 through InferenceEngine (4 strategies x fast / host,
+     captured and eager, as phase 3); hubert's encode of seeded frames
+     within fp32 DTYPE_TOL. G1: qwen2-moe-a2.7b at full width (24 layers,
+     d_model 2048, 60 experts top-4 and 4 shared; bf16, 28.6 GB): paged
+     hetero-tensor against engine_mode=None on phase 4's prompts
+     (first-token cosine >= 0.99, GEMM 2.1 launched), the engine
+     (prompt 300; hetero-tensor and xla fast; 2.4 and 2.5 launched as
+     predicted), ``attention_gate`` and captured against eager decode.
+     G2: rwkv6-3b at full width (32 layers, d_model 2560), engine only,
+     prompt 600: a second generate on the reused cache gives the first's
+     tokens, captured equal to eager. G3: hubert-xlarge at full width (48
+     layers, 16 heads of 80): encode of 1 x 1500 seeded frames through
+     the bidirectional flash kernel against the same run with its plain
+     version (cosine >= 0.999). Phase 2 carries the flash row at hubert's
+     shape (1500 x 1500, not causal). (``[families]`` lines.) dbrx-132b
+     and chameleon-34b do not fit one card at full width: their smoke
+     runs in G0 stand for them.
+
 The line before the last is the kernels JSON line (each kernel launched
-on a phase E arm also carries ``serving_arms_launches``, and on phase F's
-F1 / F2 ``front_end_launches``); the last line is
-``{"ok": true, "device": {...}}``.
+on a phase E arm also carries ``serving_arms_launches``, on phase F's
+F1 / F2 ``front_end_launches``, and on phase G's G1 / G3
+``families_launches``; the flash entry carries hubert's row as
+``encoder_row``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -164,7 +190,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -591,10 +617,11 @@ def phase_quant_kernels() -> dict:
     return {"timings": timings, "worst": worst}
 
 
-def _attention_timing(kind: str, q, k, v, length=None) -> dict:
+def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
     """Kernel, plain and library (SDPA) times of one attention call at a
-    path shape, with its bound. ``kind`` is "flash" (causal, bottom-right)
-    or "decode" (the first ``length`` rows of the cache)."""
+    path shape, with its bound. ``kind`` is "flash" (causal, bottom-right,
+    or bidirectional with ``causal=False``) or "decode" (the first
+    ``length`` rows of the cache)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
@@ -608,12 +635,14 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
     Hkv = k.shape[2]
     if kind == "flash":
         Sq, Sk = q.shape[1], k.shape[1]
-        run = lambda: flash_attention(q, k, v)                   # noqa: E731
-        plain = lambda: attention_ref(q, k, v)                   # noqa: E731
-        pairs = sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq))
+        run = lambda: flash_attention(q, k, v, causal=causal)    # noqa: E731
+        plain = lambda: attention_ref(q, k, v, causal=causal)    # noqa: E731
+        pairs = (sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq)) if causal
+                 else Sq * Sk)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = (torch.arange(Sk, device=q.device)[None, :]
-                <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq))
+                <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+                ) if causal else None
         n_keys, shape = Sk, [B, Sq, Sk, Hq, Hkv, D]
     else:
         Smax = k.shape[1]
@@ -628,6 +657,7 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
     out, ref = run(), plain()
     torch.cuda.synchronize()
     row = {"kind": kind, "shape": shape, "dtype": str(q.dtype).split(".")[-1],
+           "causal": causal if kind == "flash" else None,
            "max_abs_err": float((out.float() - ref.float()).abs().max()),
            "rel_err": rel_err(out, ref),
            "ms": cuda_time_ms(run), "plain_ms": cuda_time_ms(plain)}
@@ -638,6 +668,7 @@ def _attention_timing(kind: str, q, k, v, length=None) -> dict:
         row["library_note"] = ("scaled_dot_product_attention(enable_gqa="
                                "True" + (", explicit bottom-right mask)"
                                          if mask is not None else ")"))
+        # (no mask: bidirectional flash, or decode over its valid rows)
     except TypeError:       # a PyTorch without enable_gqa: kv heads repeated
         kt, vt = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kt, vt))
         lib = lambda: F.scaled_dot_product_attention(            # noqa: E731
@@ -675,7 +706,8 @@ def phase_attention_kernels() -> dict:
     causal and not, at Sq == Sk and over a longer prefix (Sq < Sk); decode
     over a block-multiple and a ragged cache, valid up to 1 row, a ragged
     count and every row; then the engine's own shapes at llama3-8b and at
-    zamba2-2.7b's shared block, timed against the plain version and SDPA."""
+    zamba2-2.7b's shared block and, bidirectional, at hubert-xlarge's
+    encoder (the last row), timed against the plain version and SDPA."""
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
@@ -774,6 +806,10 @@ def phase_attention_kernels() -> dict:
     k, v = randn(1, 616, Hkv, D, dt=bf16), randn(1, 616, Hkv, D, dt=bf16)
     for length in (601, 615):
         timings.append(_attention_timing("decode", q, k, v, length))
+    # hubert-xlarge's encoder (phase G3): 16 / 16 heads, D = 80,
+    # bidirectional over 1500 frames (30 s of audio at 50 Hz)
+    q, k, v = (randn(1, 1500, 16, 80, dt=bf16) for _ in range(3))
+    timings.append(_attention_timing("flash", q, k, v, causal=False))
     for row in timings:
         errs = [row[k] for k in ("rel_err", "split_1_rel_err",
                                  "split_max_rel_err") if k in row]
@@ -1171,8 +1207,11 @@ ENGINE_MODES = ("xla", "mxu", "hetero-layer", "hetero-tensor")
 
 
 def n_attention_layers(cfg) -> int:
-    """Attention layers of a model: every layer of a dense one, one pass of
-    the shared block per ``attn_every`` mamba layers of a hybrid."""
+    """Attention layers of a model: every layer of a transformer, one pass
+    of the shared block per ``attn_every`` mamba layers of a hybrid, none
+    in RWKV."""
+    if cfg.rwkv is not None:
+        return 0
     return cfg.n_layers // cfg.ssm.attn_every if cfg.ssm else cfg.n_layers
 
 
@@ -1210,13 +1249,17 @@ def gemm_launches(ctx, cfg, chunks) -> int:
     """Launches of the aligned-path GEMM in one ``generate``'s prefill:
     HeteroCtx sends a site to the kernel once unless its decision for the
     chunk's M is xla_only. A dense model runs the seven layer sites in
-    every layer and the head once (M = 1: the last token); a hybrid runs
+    every layer and the head once (M = 1: the last token); an MoE model
+    runs its shared expert, where it has one, under the three FFN names,
+    and its routed experts as plain batched products; a hybrid runs
     in_proj and out_proj in every mamba layer and the seven sites in every
     pass of the shared block, and takes its head as a plain matmul, as the
-    reference does."""
-    if ctx is None or ctx.mode == "xla":
+    reference does; RWKV ignores the HeteroCtx, as the reference does."""
+    if ctx is None or ctx.mode == "xla" or cfg.rwkv is not None:
         return 0
     block = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    if cfg.moe is not None and not cfg.moe.d_ff_shared:
+        block = block[:4]
     if cfg.ssm is not None:
         sites = [(s, cfg.n_layers) for s in ("in_proj", "out_proj")] + \
             [(s, n_attention_layers(cfg)) for s in block]
@@ -1238,7 +1281,8 @@ def gemm_launches(ctx, cfg, chunks) -> int:
 
 
 def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
-                        new_tokens: int = 12, buckets=(32, 64)) -> None:
+                        new_tokens: int = 12, buckets=(32, 64),
+                        modes=ENGINE_MODES) -> None:
     """fp32 smoke model of ``arch`` through InferenceEngine: for each
     prefill strategy, every engine mode x fast/host sync on the card takes
     two prompts of one length in turn (the first captures the decode graph,
@@ -1248,9 +1292,11 @@ def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
     (GEMM, flash, decode and, on the hybrid, SSD) launches exactly as often
     as the strategy's chunks and the plan predict, the eager arm's counts
     equal the captured arm's, and the engine holds one graph, replayed once
-    per prompt (fast) or once per decoded token (host). The strategies
-    agree with one another, but for the hybrid's pipe: its zero-padded tail
-    moves the recurrent state, as in the reference."""
+    per prompt (fast) or once per decoded token (host); ``modes`` are the
+    engine modes of the captured arms. The strategies agree with one
+    another, but for a recurrent model's pipe (its zero-padded tail moves
+    the state, as in the reference) and for MoE (each strategy's chunks are
+    its capacity groups)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1277,7 +1323,7 @@ def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
         cpu = engine("hetero-tensor", True, cpu_params, "cpu")
         want = [cpu.generate(p, new_tokens).tolist() for p in prompts]
         captured_counts = {}
-        arms = [(m, f, False) for m in ENGINE_MODES for f in (True, False)]
+        arms = [(m, f, False) for m in modes for f in (True, False)]
         arms += [("hetero-tensor", f, True) for f in (True, False)]
         for mode, fast, eager in arms:
             sync = "fast" if fast else "host"
@@ -1316,11 +1362,13 @@ def phase_engine_tokens(arch: str = "llama3-8b", prompt_len: int = 77,
                 f"graphs {graphs}, launches {counts}")
             del eng
         outs[strategy] = want
-        log(f"[engine] {arch}/{strategy}: 8 captured and 2 eager card arms "
-            f"equal the CPU's tokens {want[0][0]}, then {want[1][0]}")
+        log(f"[engine] {arch}/{strategy}: {len(arms) - 2} captured and 2 "
+            f"eager card arms equal the CPU's tokens {want[0][0]}, then "
+            f"{want[1][0]}")
+    recurrent = cfg.ssm is not None or cfg.rwkv is not None
     agree = {k: v for k, v in outs.items()
-             if not (cfg.ssm is not None and k == "pipe")}
-    if len({str(o) for o in agree.values()}) != 1:
+             if not (recurrent and k == "pipe")}
+    if cfg.moe is None and len({str(o) for o in agree.values()}) != 1:
         raise AssertionError(f"[engine] {arch}: strategies differ: {outs}")
     log(f"[engine] {arch}: {n_arms} card arms token-identical to the CPU "
         "engine")
@@ -1368,14 +1416,93 @@ def full_prompts(cfg, prompt_len: int = 300, n_requests: int = 4) -> list:
             for _ in range(n_requests)]
 
 
+class RouteTape:
+    """Routing pinned across two runs of an MoE model. ``record()`` keeps
+    the expert ids that every ``models.moe.route`` call chooses, in call
+    order; ``replay()`` gives each call the recorded ids (its gate values
+    are the call's own probabilities at those ids, renormalised) and fails
+    unless the calls' shapes match and the tape is used up; ``flips()``
+    then counts the routed (token, layer) pairs whose own top-k set
+    differed from the tape's: the near-ties the two runs break
+    differently. In bf16 a
+    rounding-level difference flips a near-tie in the router's top-k and
+    the flip spreads through the layers (PERF.md §6, PR 22), so a gate that
+    holds two numerics paths of an MoE model to each other pins the
+    routing: it compares the arithmetic, not the routing's discontinuity.
+    A captured decode loop runs no Python, so only eager calls (prefill,
+    eager decode steps) are taped."""
+
+    def __init__(self):
+        self.ids, self._flips = [], []
+
+    @contextmanager
+    def _patched(self, pick):
+        from repro_torch.models import moe
+        inner = moe.route
+
+        def route(router, xt, top_k):
+            probs, gate_vals, gate_idx = inner(router, xt, top_k)
+            return pick(probs, gate_vals, gate_idx)
+
+        moe.route = route
+        try:
+            yield self
+        finally:
+            moe.route = inner
+
+    @contextmanager
+    def record(self):
+        self.ids = []
+
+        def keep(probs, gate_vals, gate_idx):
+            self.ids.append(gate_idx.clone())
+            return probs, gate_vals, gate_idx
+
+        with self._patched(keep):
+            yield self
+
+    @contextmanager
+    def replay(self):
+        queue, self._flips = list(self.ids), []
+
+        def give(probs, gate_vals, gate_idx):
+            if not queue or queue[0].shape != gate_idx.shape:
+                raise AssertionError(f"[route-tape] call of shape "
+                                     f"{tuple(gate_idx.shape)} against the "
+                                     f"tape's next {queue[:1]}")
+            ids = queue.pop(0)
+            own, taped = gate_idx.sort(-1).values, ids.sort(-1).values
+            self._flips.append(((own != taped).any(-1).sum(),
+                                own[..., 0].numel()))
+            vals = probs.gather(-1, ids)
+            return probs, vals / (vals.sum(-1, keepdim=True) + 1e-9), ids
+
+        with self._patched(give):
+            yield self
+        if queue:
+            raise AssertionError(f"[route-tape] {len(queue)} recorded calls "
+                                 "left over")
+
+    def flips(self) -> str:
+        """The last replay's differing routes: total, of all routed
+        (token, layer) pairs, and the most in one call."""
+        got = [int(n) for n, _ in self._flips]
+        total = sum(t for _, t in self._flips)
+        return (f"{sum(got)} of {total} routed (token, layer) pairs chose "
+                f"other experts than the tape's (at most {max(got, default=0)}"
+                f" in one call of {len(got)})")
+
+
 def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
                weight_quant, kv_quant, profile: bool = False,
-               table=None) -> dict:
+               table=None, pin=None) -> dict:
     """One full-width PagedBatcher (sync device, window 8, width 8; its
     plan solved from ``table`` where given): a first run over the prompts
     (which captures its decode graph), then a timed run and, with
     ``profile``, a profiled run, each over new requests for the same
-    prompts. Returns the timed run's numbers."""
+    prompts. ``pin``, where given, is entered around the timed run (a
+    ``RouteTape``'s record or replay); the first run's first-token logits
+    are kept as ``free_first_logits``. Returns the timed run's numbers."""
     import torch
     from repro_torch.core.sync import fence
 
@@ -1386,17 +1513,20 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
                       kv_quant=kv_quant, table=table)
     fence(params["embed"])
     setup = time.perf_counter() - t0
+    timers, undo = _instrument(cb)
     t0 = time.perf_counter()
     cb.run(reqs)
     fence(params["embed"])
     first_run = time.perf_counter() - t0
+    free_logits = timers["first_logits"]
+    timers.update(prefill=0.0, decode=0.0, first_logits={})
     reqs = _requests(prompts, new_tokens)
-    timers, undo = _instrument(cb)
     torch.cuda.reset_peak_memory_stats()
     fence(params["embed"])
     _zero_counts()
     t0 = time.perf_counter()
-    cb.run(reqs)
+    with pin or nullcontext():
+        cb.run(reqs)
     fence(params["embed"])
     wall = time.perf_counter() - t0
     counts = _read_counts()
@@ -1413,6 +1543,7 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
         "gemm_launches": counts[KERNEL_OF_FORMAT[weight_quant]],
         "outputs": [r.output for r in reqs],
         "first_logits": timers["first_logits"],
+        "free_first_logits": free_logits,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "pool_bytes": cb.kv.pool_bytes(), "graphs": _graph_info(cb),
     }
@@ -1635,7 +1766,8 @@ def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
     and returns (its result, {name: one more tensor to compare}). Returns
     {"first" | "decode" | probe's names: {cos, rel_err, max_abs}} and
     raises, when ``check``, if any pair disagrees beyond the gate or a
-    kernel launched where it should not have."""
+    kernel launched where it should not have. An MoE model's plain run
+    replays the kernel run's routing (``RouteTape``)."""
     import torch
     from repro_torch.core.engine import InferenceEngine
 
@@ -1649,19 +1781,26 @@ def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
         logits, extra = probe(lambda: _step_logits(eng, prompt))
         return {**dict(zip(("first", "decode"), logits)), **extra}
 
+    tape = RouteTape()                  # an MoE model's routing pinned
+    moe = cfg.moe is not None
     _zero_counts()
-    kernel = run()
+    with tape.record() if moe else nullcontext():
+        kernel = run()
     k_counts = _read_counts()
     _zero_counts()                      # before the swap: the counters
     saved = {name: getattr(module, name) for name in plain}   # may be swapped
     for name, fn in plain.items():
         setattr(module, name, fn)
     try:
-        ref = run()
+        with tape.replay() if moe else nullcontext():
+            ref = run()
     finally:
         for name, fn in saved.items():
             setattr(module, name, fn)
     p_counts = _read_counts()
+    if moe:
+        log(f"[{label}] {cfg.name} plain run pinned to the kernel run's "
+            f"routing: {tape.flips()}")
     got = ({k: k_counts[k] for k in launches},
            {k: p_counts[k] for k in launches})
     if check and got != (launches, {k: 0 for k in launches}):
@@ -1749,12 +1888,16 @@ def ssd_gate(cfg, params, prompt, plain=None, *, check: bool = True) -> dict:
 
 def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
                 fast: bool, label: str, strict: bool = False,
-                profile: bool = False, table=None) -> dict:
+                profile: bool = False, table=None, pin=None) -> dict:
     """One full-width InferenceEngine (hetero strategy): a first generate
-    (which meets the chunk lengths and captures the decode graph), then a
-    timed one, every kernel launching as predicted, decoding under CUDA's
+    (which meets the chunk lengths and captures the decode graph; its
+    tokens are kept as ``first_tokens``), then a timed one on the reused
+    cache, every kernel launching as predicted, decoding under CUDA's
     sync debug mode set to error where ``strict``, and, with ``profile``, a
-    profiled one. Returns the timed generate's numbers."""
+    profiled one. ``pin``, where given, is entered around the timed
+    generate (a ``RouteTape``'s record or replay); the first generate's
+    first-token logits are kept as ``free_logits``. Returns the timed
+    generate's numbers."""
     import torch
     from repro_torch.core import engine as engine_mod
     from repro_torch.core.engine import EngineStats, InferenceEngine
@@ -1770,7 +1913,8 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
         return logits, cache
 
     eng._prefill = keep_logits
-    eng.generate(prompt, new_tokens)
+    first_tokens = eng.generate(prompt, new_tokens)[0].tolist()
+    free_logits = first["logits"]
     warm = eng.stats
     eng.stats = EngineStats()
     fence(params["embed"])
@@ -1778,7 +1922,8 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
     _zero_counts()
     undo = _strict_decode(engine_mod) if strict else (lambda: None)
     try:
-        out = eng.generate(prompt, new_tokens)
+        with pin or nullcontext():
+            out = eng.generate(prompt, new_tokens)
     finally:
         undo()
     counts = _read_counts()
@@ -1802,7 +1947,10 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
            "n_compiles": warm.n_compiles, "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "graphs": _graph_info(eng), "prompt": prompt,
-           "tokens": out[0].tolist(), "logits": logits}
+           "tokens": out[0].tolist(), "first_tokens": first_tokens,
+           "logits": logits, "free_logits": free_logits}
+    if pin is not None:            # the first generate's routing was free
+        arm["free_tokens"] = first_tokens
     log(f"[engine-full] {cfg.name} {label}: chunks {chunks}; prefill "
         f"{st.prefill_s:.3f}s, decode {st.decode_s:.3f}s "
         f"({arm['decode_tok_s']:.1f} decode tok/s, {arm['tok_per_s']:.2f}"
@@ -1825,10 +1973,12 @@ def phase_engine_full(cfg, params, table, prompt_len: int = 300,
                       gates=(attention_gate,)) -> dict:
     """The single-request engine at full width: one seeded prompt, hetero
     strategy, each of ``arms`` (mode, fast sync) through ``_engine_arm``
-    (captured decode loops), then phase C's hetero-tensor / fast arm on the
-    plan of ``table``, the model's measured table (phase B); the
+    (captured decode loops), then, where ``table`` is given, phase C's
+    hetero-tensor / fast arm on the plan of that measured table; the
     hetero-tensor fast arm decodes its timed run under the sync debug mode
-    and is profiled. Every arm is held to the xla arm's first-token logits.
+    and is profiled. Every arm is held to the xla arm's first-token logits
+    (an MoE model's arms with the xla arm's routing, ``RouteTape``; their
+    logits with free routing are logged beside).
     Then each of ``gates`` holds the first arm's kernels against their
     plain versions. Returns {arm: result}."""
     import numpy as np
@@ -1837,20 +1987,34 @@ def phase_engine_full(cfg, params, table, prompt_len: int = 300,
 
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                   (1, prompt_len))
-    results = {}
+    results, tape, pins = {}, RouteTape(), {}
+    if cfg.moe is not None:        # every arm routes as the xla arm does
+        arms = sorted(arms, key=lambda a: a != ("xla", True))
+        pins = {a: tape.replay() for a in arms[1:]}
+        pins[arms[0]] = tape.record()
     for mode, fast in arms:
         label = f"{mode}/{'fast' if fast else 'host'}"
         results[label] = _engine_arm(
             cfg, params, prompt, new_tokens, mode=mode, fast=fast,
             label=label, strict=label == "hetero-tensor/fast",
-            profile=label == "hetero-tensor/fast")
-    results["hetero-tensor/fast measured"] = _engine_arm(
-        cfg, params, prompt, new_tokens, mode="hetero-tensor", fast=True,
-        label="hetero-tensor/fast measured", table=table)
+            profile=label == "hetero-tensor/fast", pin=pins.get((mode, fast)))
+    if pins:
+        log(f"[engine-full] {cfg.name} routing of the last arm pinned to "
+            f"xla/fast: {tape.flips()}")
+    if table is not None:
+        results["hetero-tensor/fast measured"] = _engine_arm(
+            cfg, params, prompt, new_tokens, mode="hetero-tensor", fast=True,
+            label="hetero-tensor/fast measured", table=table)
     base = results["xla/fast"]
     log(f"[engine-full] {cfg.name} hetero-tensor/fast decode loop replayed "
         "with sync debug mode 'error': no host sync inside it")
     for label, arm in results.items():
+        if pins:
+            free = float(torch.nn.functional.cosine_similarity(
+                arm["free_logits"], base["free_logits"], dim=0))
+            arm["free_cos_vs_xla"] = free
+            log(f"[engine-full] {cfg.name} {label}: first-token logits cos "
+                f"vs xla/fast with free routing {free:.6f}")
         cos = float(torch.nn.functional.cosine_similarity(
             arm["logits"], base["logits"], dim=0))
         same = sum(a == b for a, b in zip(arm["tokens"], base["tokens"]))
@@ -1877,7 +2041,8 @@ def phase_engine_full(cfg, params, table, prompt_len: int = 300,
 def _pair_line(cell: str, cap: dict, eager: dict) -> dict:
     """One cell's captured arm against its eager arm: logged as one line,
     raising unless both launched every kernel equally often and gave the
-    same tokens."""
+    same tokens (a pinned captured arm's free-routing tokens, from its
+    first generate)."""
     def side(arm):
         prof = arm.get("profile") or {}
         return {"tok_per_s": arm["tok_per_s"], "decode_s": arm["decode_s"],
@@ -1900,8 +2065,8 @@ def _pair_line(cell: str, cap: dict, eager: dict) -> dict:
         raise AssertionError(f"[graph-decode] {cell}: launches captured "
                              f"{cap['launches']}, eager {eager['launches']}"
                              f" (eager graphs {eager['graphs']})")
-    toks = ("outputs", "outputs") if "outputs" in cap else ("tokens",
-                                                            "tokens")
+    toks = ("outputs", "outputs") if "outputs" in cap else (
+        "free_tokens" if "free_tokens" in cap else "tokens", "tokens")
     if cap[toks[0]] != eager[toks[1]]:
         raise AssertionError(f"[graph-decode] {cell}: tokens differ, "
                              f"captured {cap[toks[0]]}, eager "
@@ -1934,24 +2099,29 @@ def phase_graph_decode(cfg, params, paged, engine) -> dict:
     return rows
 
 
-def hybrid_model():
-    """zamba2-2.7b at full width (54 mamba layers, d_model 2560, one shared
-    attention block), bf16, seeded random weights on the card."""
+def full_width_model(arch: str, tag: str):
+    """``arch`` at full width, bf16, seeded random weights on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import fence
     from repro_torch.models import build_model
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0), device="cuda")
     fence(params["embed"])
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers, "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, "
         f"{cfg.n_params / 1e9:.2f} B params, {n_bytes / 1e9:.2f} GB "
         f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f}s")
     return cfg, params
+
+
+def hybrid_model():
+    """zamba2-2.7b at full width (54 mamba layers, d_model 2560, one shared
+    attention block), bf16, seeded random weights on the card."""
+    return full_width_model("zamba2-2.7b", "hybrid")
 
 
 def phase_engine_hybrid(cfg, params, table) -> dict:
@@ -2961,7 +3131,9 @@ F0_MAX_LEN = 80
 # low-priority lanes running when they came, and preempted nothing; a
 # schedule model (FakeClock, a prefill chunk 0.08-0.16 s plus 0-0.4 ms a
 # token, a window 0.05-0.1 s) preempted in 14 of 18 cost settings at 12
-# blocks, against 11 of 18 at 13 and 8 of 18 at 11.
+# blocks, against 11 of 18 at 13 and 8 of 18 at 11. At 12 blocks the card
+# preempted in some runs and not in others, so F1's preemption gate holds on
+# a FakeClock run of the same requests (_f1_forced_preemption).
 F1_BLOCKS = 12
 
 
@@ -3233,13 +3405,14 @@ def _f1_open_loop(cfg, params, check, device="cuda") -> dict:
     log("[front-end] F1 drift table (predicted: the V5E plan's us; "
         "observed: the fenced dispatch time shared by predicted weight)\n"
         + tracer.drift.format_table())
-    # the preemption and the launches are the card's gates: a CPU
-    # rehearsal runs another schedule on the wall clock, and no kernel
+    # the launches are the card's gate: a CPU rehearsal launches no kernel.
+    # Whether this wall-clock schedule preempts depends on the card's speed
+    # (none in one run of three at 700 W), so the preemption is gated on the
+    # virtual-clock run below, whose schedule is the same on every device
     if mism or errors or {r["site"] for r in rows} != sites or \
             nested["windows"] == 0 or \
             nested["inside"] != nested["windows"] or \
-            (device == "cuda" and (server.preemptions < 1
-                                   or launches["hetero_matmul"] <= 0)):
+            (device == "cuda" and launches["hetero_matmul"] <= 0):
         raise AssertionError(
             f"[front-end] F1: reconciliation {mism}, trace errors "
             f"{errors[:5]}, nesting {nested}, preemptions "
@@ -3256,9 +3429,47 @@ def _f1_open_loop(cfg, params, check, device="cuda") -> dict:
     log(f"[front-end] F1 tokens equal to a closed-loop unpreempted run, per "
         f"request: {same} of {new} (preempted: "
         f"{[server.telemetry.traces[r].preemptions for r in range(n)]})")
+    forced = _f1_forced_preemption(cb, prompts, prios, new, closed)
     return {"launches": launches, "wall_s": wall, "report": rep,
             "preemptions": server.preemptions, "drift": rows,
-            "agreement": same, "events": tracer.n_events}
+            "agreement": same, "events": tracer.n_events,
+            "forced_preemptions": forced}
+
+
+def _f1_forced_preemption(cb, prompts, prios, new, closed) -> int:
+    """F1's preemption gate: the same requests on the same batcher, on a
+    FakeClock charging 0.1 s a tick, the low-priority ones arriving at 0
+    and the high-priority ones at 0.05 s. The first tick admits the low
+    requests that fit the pool (lengths 44, 37 and 193: 11 of its 11 usable
+    blocks), so the 256-token high-priority arrival is blocked at the
+    second tick and evicts the youngest low lane, whatever the card's
+    speed. Gates: a preemption, every stream complete, no leaked block.
+    Returns the preemption count."""
+    from repro_torch.serving.ingress import AsyncServer, open_loop_workload
+    from repro_torch.serving.telemetry import FakeClock
+
+    cb.kv._reclaim(cb.kv.allocator.n_cached)
+    times = [0.05 * p for p in prios]
+    server = AsyncServer(cb, clock=FakeClock(), step_time_s=0.1)
+    handles = server.run_sync(open_loop_workload(
+        prompts, [new] * len(prompts), times, prios))
+    cb.kv.assert_drained()
+    # handles come in arrival order (a stable sort by time)
+    order = sorted(range(len(prompts)), key=lambda i: times[i])
+    same = [sum(a == b for a, b in zip(h.tokens, closed[i].tokens))
+            for h, i in zip(handles, order)]
+    log(f"[front-end] F1 forced preemption (FakeClock, 0.1 s a tick, low "
+        f"priorities at 0 s, high at 0.05 s): preemptions "
+        f"{server.preemptions}, deferrals {server.deferrals}, ticks "
+        f"{server.ticks}; tokens equal to the closed-loop run, per request: "
+        f"{same} of {new} in arrival order {order} (preempted: "
+        f"{[server.telemetry.traces[h.rid].preemptions for h in handles]})")
+    if server.preemptions < 1 or any(
+            not h.done or len(h.tokens) != new for h in handles):
+        raise AssertionError(
+            f"[front-end] F1 forced: preemptions {server.preemptions}, "
+            f"streams {[len(h.tokens) for h in handles]}")
+    return server.preemptions
 
 
 def _f2_dense(cfg, params, full, device="cuda") -> dict:
@@ -3359,6 +3570,278 @@ def phase_front_end(cfg, params, full, device="cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase G --
+
+FP32 = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def _family_paged_smoke(arch: str) -> None:
+    """The fp32 smoke model of ``arch`` through PagedBatcher (hetero-tensor)
+    on the card with sync device (window 4) and host, and on the CPU: the
+    same greedy tokens in every arm, each card arm holding one captured
+    graph replayed once per decode dispatch, every block back."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch).with_(**FP32)
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    cpu_params = _to_device(params, "cpu")
+    prompts = _smoke_prompts(cfg.vocab_size)
+    outputs = {}
+    for device, sync in (("cuda", "device"), ("cuda", "host"),
+                         ("cpu", "device")):
+        cb, reqs = _serve(cfg, params if device == "cuda" else cpu_params,
+                          prompts, device=device, engine_mode="hetero-tensor",
+                          sync=sync, window=4, decode_width=4, new_tokens=12)
+        _zero_counts()
+        cb.run(reqs)
+        counts = _read_counts()
+        cb.kv.assert_drained()
+        graphs = cb.graph_stats()
+        arm = f"{arch}/{device}/{sync}"
+        outputs[arm] = [r.output for r in reqs]
+        log(f"[families] G0 paged {arm}: {cb.stats()} graphs {graphs} "
+            f"launches {counts}")
+        want = ((1, cb.decode_dispatches) if device == "cuda" else (0, 0))
+        if (graphs["graphs"], graphs["replays"]) != want:
+            raise AssertionError(f"[families] G0 paged {arm}: graphs "
+                                 f"{graphs}, expected {want}")
+        del cb
+    first = next(iter(outputs.values()))
+    for arm, out in outputs.items():
+        if out != first or any(len(o) != 12 for o in out):
+            raise AssertionError(f"[families] G0 paged {arm} differs: {out}"
+                                 f" vs {first}")
+    log(f"[families] G0 paged {arch}: {len(outputs)} arms token-identical; "
+        f"request 0: {first[0]}")
+
+
+def _encoder_smoke() -> None:
+    """The fp32 hubert smoke model's ``encode`` of seeded frame embeddings
+    on the card (bidirectional flash 2.4, one launch a layer) within fp32
+    DTYPE_TOL of the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("hubert-xlarge").with_(**FP32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(7),
+                        device="cuda")
+    frames = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    _zero_counts()
+    got = model.encode(params, frames.cuda())
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = model.encode(_to_device(params, "cpu"), frames)
+    e = rel_err(got.cpu(), want)
+    log(f"[families] G0 encode hubert smoke: rel_err {e:.3g} vs the CPU "
+        f"(<= {DTYPE_TOL['float32']}); launches {counts}")
+    if not e <= DTYPE_TOL["float32"] or \
+            counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"[families] G0 encode: rel_err {e:.3g}, "
+                             f"launches {counts}")
+
+
+def _families_line(cell: str, arm: dict) -> None:
+    """One full-width arm's numbers on a ``[families]`` line; a decode
+    step's time over ``decode_steps`` (a batcher's window steps) or, for
+    an engine, its tokens less the first."""
+    steps = arm.get("decode_steps") or (len(arm["tokens"]) - 1
+                                        if "tokens" in arm else None)
+    per_step = (arm["decode_s"] / steps * 1e3) if steps else None
+    arm["decode_ms_per_step"] = per_step
+    graphs = arm.get("graphs") or {}
+    prof = arm.get("profile") or {}
+    log(f"[families] {cell}: {arm['tok_per_s']:.2f} tok/s, prefill "
+        f"{arm['prefill_s']:.3f}s, decode {arm['decode_s']:.3f}s"
+        + (f" ({per_step:.2f} ms a step)" if per_step else "")
+        + f", peak {arm['peak_mem_gb']:.2f} GB, graphs {graphs}"
+        + (f", pool {arm['pool_bytes'] / 1e9:.3f} GB" if "pool_bytes" in arm
+           else "")
+        + (f", busy {prof['share']:.3f}" if prof.get("share") else "")
+        + f", launches {arm['launches']}")
+
+
+def phase_moe_full(cfg, params, prompt_len: int = 300,
+                   new_tokens: int = 16) -> dict:
+    """G1: qwen2-moe-a2.7b at full width. PagedBatcher (hetero-tensor,
+    sync device, window 8, width 8, block 32) on phase 4's seeded prompts
+    against the engine_mode=None arm, whose timed run's routing it replays
+    (``RouteTape``): first-token cosine >= 0.99 (the cosine with free
+    routing, from the first runs, is logged beside), GEMM 2.1 launched;
+    then the engine (prompt 300, hetero-tensor and xla, fast
+    sync; flash 2.4 and decode 2.5 launched as the chunks predict, the
+    hetero arm profiled), ``attention_gate`` on this model, and the
+    captured engine loop against an eager one (tokens equal)."""
+    import torch
+
+    prompts = full_prompts(cfg, prompt_len)
+    log(f"[families] G1 prompt lengths {[len(p) for p in prompts]}, "
+        f"{new_tokens} new tokens each")
+    tape = RouteTape()
+    base, het = (_paged_arm(cfg, params, prompts, new_tokens,
+                            label=f"{cfg.name} fp", mode=mode,
+                            weight_quant=None, kv_quant=None, pin=pin)
+                 for mode, pin in ((None, tape.record()),
+                                   ("hetero-tensor", tape.replay())))
+    log(f"[families] G1 paged routing, hetero-tensor pinned to "
+        f"engine=None: {tape.flips()}")
+    if het["gemm_launches"] <= 0:
+        raise AssertionError("[families] G1: the hetero-tensor arm never "
+                             "launched GEMM 2.1")
+    for rid in range(len(prompts)):
+        a, b = het["first_logits"][rid], base["first_logits"][rid]
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        free = float(torch.nn.functional.cosine_similarity(
+            het["free_first_logits"][rid], base["free_first_logits"][rid],
+            dim=0))
+        het.setdefault("free_cos", []).append(free)
+        het.setdefault("pinned_cos", []).append(cos)
+        log(f"[families] G1 paged request {rid}: first-token logits cos "
+            f"{cos:.6f} vs engine=None with its routing, rel_err "
+            f"{rel_err(a, b):.3g}; with free routing cos {free:.6f}")
+        if not (torch.isfinite(a).all() and cos >= 0.99):
+            raise AssertionError(f"[families] G1 request {rid}: cosine "
+                                 f"{cos:.4f} < 0.99 or non-finite")
+    for label, arm in (("hetero-tensor", het), ("engine=None", base)):
+        # each window replays its 8 steps, whichever lanes are active
+        arm["decode_steps"] = 8 * arm["stats"]["decode_dispatches"]
+        _families_line(f"G1 {cfg.name} paged {label}", arm)
+    engine = phase_engine_full(cfg, params, None, prompt_len=prompt_len,
+                               new_tokens=new_tokens,
+                               arms=(("hetero-tensor", True), ("xla", True)),
+                               seed=4, gates=(attention_gate,))
+    graphs = phase_graph_decode(cfg, params, None, engine)
+    for label, arm in engine.items():
+        _families_line(f"G1 {cfg.name} engine {label}", arm)
+    return {"paged": het, "paged_plain": base, "engine": engine,
+            "graphs": graphs}
+
+
+def phase_rwkv_full(cfg, params, prompt_len: int = 600,
+                    new_tokens: int = 16, seed: int = 6) -> dict:
+    """G2: rwkv6-3b at full width through the engine (prompt 600: chunks
+    512 and 88; hetero-tensor, which RWKV ignores; fast sync): the timed
+    generate on the reused cache gives the first one's tokens (each prefill
+    from position 0 starts from zero states), and the captured decode loop
+    the eager one's. No kernel of the port is on this path."""
+    import numpy as np
+
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (1, prompt_len))
+    cap = _engine_arm(cfg, params, prompt, new_tokens, mode="hetero-tensor",
+                      fast=True, label="hetero-tensor/fast", strict=True,
+                      profile=True)
+    if cap["tokens"] != cap["first_tokens"]:
+        raise AssertionError(f"[families] G2: the reused cache's tokens "
+                             f"{cap['tokens']} differ from the first "
+                             f"generate's {cap['first_tokens']}")
+    with _eager_loops():
+        eager = _engine_arm(cfg, params, prompt, new_tokens,
+                            mode="hetero-tensor", fast=True,
+                            label="hetero-tensor/fast eager", profile=True)
+    row = _pair_line(f"engine {cfg.name}", cap, eager)
+    if any(cap["launches"].values()):
+        raise AssertionError(f"[families] G2: a kernel launched on the RWKV "
+                             f"path: {cap['launches']}")
+    _families_line(f"G2 {cfg.name} engine captured", cap)
+    _families_line(f"G2 {cfg.name} engine eager", eager)
+    log(f"[families] G2 {cfg.name}: a second generate on the reused cache "
+        f"and the eager loop give the first generate's tokens "
+        f"{cap['tokens']}")
+    return {"engine": cap, "eager": eager, "graphs": row}
+
+
+def phase_encoder_full(cfg, params, n_frames: int = 1500,
+                       seed: int = 9) -> dict:
+    """G3: hubert-xlarge at full width: ``encode`` of 1 x 1500 seeded frame
+    embeddings (30 s of audio at 50 Hz), timed, flash 2.4 launched once a
+    layer (bidirectional, D = 80); then the same run with the plain
+    attention in its place: hidden states at cosine >= 0.999."""
+    import torch
+    from repro_torch.core.sync import fence
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model, layers
+
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn((1, n_frames, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+
+    def run():
+        return model.encode(params, frames)
+
+    fence(run())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fence(run())
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    ms = cuda_time_ms(run, iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profiled(f"encode {cfg.name}", run, frames)
+    inner = layers.flash_attention
+    layers.flash_attention = attention_ref
+    try:
+        _zero_counts()
+        plain = fence(run())
+        plain_counts = _read_counts()
+        plain_ms = cuda_time_ms(run, iters=3, warmup=0)
+    finally:
+        layers.flash_attention = inner
+    a, b = out.float().reshape(-1), plain.float().reshape(-1)
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    res = {"shape": list(out.shape), "wall_s": wall, "ms": ms,
+           "plain_ms": plain_ms, "peak_mem_gb": peak, "launches": counts,
+           "busy_share": prof.get("share"), "cos": cos,
+           "rel_err": rel_err(a, b)}
+    log(f"[families] G3 {cfg.name} encode {tuple(out.shape)}: {ms:.2f} ms "
+        f"(events, 5 runs; first timed run {wall * 1e3:.1f} ms wall), "
+        f"with the plain attention {plain_ms:.2f} ms; peak {peak:.2f} GB; "
+        f"busy {res['busy_share']}; launches {counts}; kernels vs plain: "
+        f"cos {cos:.6f}, rel_err {res['rel_err']:.4g}")
+    if out.shape != (1, n_frames, cfg.d_model) or not torch.isfinite(a).all():
+        raise AssertionError(f"[families] G3: output {tuple(out.shape)} or "
+                             "non-finite hidden states")
+    if counts["flash_attention"] != cfg.n_layers or \
+            plain_counts["flash_attention"] or cos < ATTENTION_GATE_COS:
+        raise AssertionError(f"[families] G3: launches {counts} / "
+                             f"{plain_counts}, cosine {cos:.6f} < "
+                             f"{ATTENTION_GATE_COS}")
+    return res
+
+
+def phase_families() -> dict:
+    """Phase G: the MoE, RWKV6 and encoder-only families. G0 on the fp32
+    smoke models (card against CPU), then G1-G3 at full width, each
+    model's weights freed before the next is made."""
+    import torch
+
+    for arch in ("qwen2-moe-a2.7b", "dbrx-132b", "chameleon-34b"):
+        _family_paged_smoke(arch)
+    for arch in ("qwen2-moe-a2.7b", "dbrx-132b", "rwkv6-3b"):
+        phase_engine_tokens(arch, modes=("hetero-tensor",))
+    _encoder_smoke()
+    out = {}
+    for key, arch, phase in (("G1", "qwen2-moe-a2.7b", phase_moe_full),
+                             ("G2", "rwkv6-3b", phase_rwkv_full),
+                             ("G3", "hubert-xlarge", phase_encoder_full)):
+        t0 = time.perf_counter()
+        cfg, params = full_width_model(arch, "families")
+        out[key] = phase(cfg, params)
+        del cfg, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] phase G {key} {arch}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3408,18 +3891,29 @@ def main() -> int:
     hybrid = timed(phase_engine_hybrid, hcfg, hparams,
                    tables[("zamba2-2.7b", None)])
     graphs.update(timed(phase_graph_decode, hcfg, hparams, None, hybrid))
+    del hcfg, hparams                # the zamba2 weights leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = timed(phase_families)
 
     def arms_launches(name):
         """The kernel's launches on each serving arm's timed pass (phase
-        E) and on phase F's open-loop and dense runs, where it launched
-        there."""
+        E), on phase F's open-loop and dense runs, and on phase G's
+        qwen2-moe paged and engine arms and hubert's encode, where it
+        launched there."""
         got = {arm: arms[arm]["launches"][name]
                for arm in ("mixed", "spec", "prefix")
                if arms[arm]["launches"][name]}
         out = {"serving_arms_launches": got} if got else {}
         got = {ph: front[ph]["launches"][name] for ph in ("F1", "F2")
                if front[ph]["launches"][name]}
-        return {**out, "front_end_launches": got} if got else out
+        out = {**out, "front_end_launches": got} if got else out
+        got = {"G1 paged": families["G1"]["paged"]["launches"][name],
+               "G1 engine": families["G1"]["engine"]["hetero-tensor/fast"][
+                   "launches"][name],
+               "G3 encode": families["G3"]["launches"][name]}
+        got = {k: n for k, n in got.items() if n}
+        return {**out, "families_launches": got} if got else out
 
     def entry(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -3454,6 +3948,7 @@ def main() -> int:
                    if k in row}}
 
     flash_row, decode_row = attn["timings"][0], attn["timings"][2]
+    hubert_row = attn["timings"][-1]
 
     kernels = {"kernels": [
         entry("hetero_matmul", "src/repro_torch/csrc/hetero_matmul.cu",
@@ -3479,6 +3974,16 @@ def main() -> int:
                    "src/repro/kernels/ssm_scan/kernel.py:50",
                    ssd["timings"][0], hybrid),
     ]}
+    kernels["kernels"][3]["encoder_row"] = {
+        k: hubert_row[k] for k in ("shape", "causal", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_device_ms",
+                                   "max_abs_err", "rel_err")}
+    for k in kernels["kernels"]:
+        if k["name"] in ("hetero_matmul", "flash_attention",
+                         "decode_attention") \
+                and not k.get("families_launches"):
+            raise AssertionError(f"{k['name']} never launched on phase G")
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{[(k['name'], k['launches']) for k in kernels['kernels']]}")
@@ -3509,9 +4014,16 @@ def main() -> int:
         + "1 / 2 " + " / ".join(f"{w['tok_per_s']:.2f}"
                                for w in arms['prefix']['waves'])
         + f"; front end: open loop {front['F1']['wall_s']:.3f}s, "
-        + f"{front['F1']['preemptions']} preemptions, TTFT p50 "
+        + f"{front['F1']['preemptions']} preemptions (forced run "
+        + f"{front['F1']['forced_preemptions']}), TTFT p50 "
         + f"{front['F1']['report']['ttft_ms']['p50']:.1f} ms; dense "
         + f"{front['F2']['tok_per_s']:.2f} tok/s"
+        + "; families: qwen2-moe paged "
+        + f"{families['G1']['paged']['tok_per_s']:.2f} tok/s, engine "
+        + ", ".join(f"{k} {v['tok_per_s']:.2f}"
+                    for k, v in families["G1"]["engine"].items())
+        + f" tok/s; rwkv6 engine {families['G2']['engine']['tok_per_s']:.2f}"
+        + f" tok/s; hubert encode {families['G3']['ms']:.2f} ms"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

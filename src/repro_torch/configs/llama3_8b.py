@@ -10,5 +10,5 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="llama3-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=2, d_ff=160, vocab_size=256,
-    attn_block_k=32,
+    attn_block_q=32, attn_block_k=32, loss_chunk=32,
 )

@@ -11,5 +11,5 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="qwen3-smoke", family="dense", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=2, d_ff=160, vocab_size=256, qk_norm=True, d_head=16,
-    attn_block_k=32,
+    attn_block_q=32, attn_block_k=32, loss_chunk=32,
 )

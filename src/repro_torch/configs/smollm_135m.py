@@ -10,5 +10,5 @@ CONFIG = ModelConfig(
 SMOKE = ModelConfig(
     name="smollm-smoke", family="dense", n_layers=2, d_model=48, n_heads=3,
     n_kv_heads=1, d_ff=128, vocab_size=256, tie_embeddings=True,
-    attn_block_k=32,
+    attn_block_q=32, attn_block_k=32, loss_chunk=32,
 )

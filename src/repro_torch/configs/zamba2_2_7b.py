@@ -15,5 +15,5 @@ SMOKE = ModelConfig(
     n_kv_heads=4, d_ff=128, vocab_size=256,
     ssm=SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=16, chunk=32,
                   attn_every=2),
-    attn_block_k=32,
+    attn_block_q=32, attn_block_k=32, loss_chunk=32,
 )

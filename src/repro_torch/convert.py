@@ -1,9 +1,11 @@
 """Weight bridge: the reference's parameters as the port's tensors.
 
 ``params_from_numpy`` takes the JAX package's params pytree converted to
-numpy (``jax.tree.map(np.asarray, params)``: a stacked ``layers`` axis, or
-for the hybrid a stacked ``mamba`` axis beside one ``shared`` block;
-``[K, N]`` weights) and returns the same dict of torch tensors. JAX bf16
+numpy (``jax.tree.map(np.asarray, params)``: a stacked ``layers`` axis,
+whose MoE sub-dict holds the router, the ``[L, E, d, f]`` experts, the
+shared expert and its gate, and whose RWKV layers start at ``ln1``; or for
+the hybrid a stacked ``mamba`` axis beside one ``shared`` block; ``[K, N]``
+weights) and returns the same dict of torch tensors. JAX bf16
 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects; every float array goes through float32 (exact for bf16 and fp16)
 and is cast back to its own type on the torch side. Quantized params (the
@@ -44,8 +46,11 @@ def _convert(tree, device):
 def params_from_numpy(np_params: dict, cfg, device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on ``device``
     (the card unless ``"cpu"`` is asked for)."""
-    stacked = (np_params["layers"]["attn_norm"] if "layers" in np_params
-               else np_params["mamba"]["norm"])   # the hybrid's mamba stack
+    if "mamba" in np_params:                    # the hybrid's mamba stack
+        stacked = np_params["mamba"]["norm"]
+    else:                                       # RWKV layers carry ln1
+        layers = np_params["layers"]
+        stacked = layers["ln1"] if "ln1" in layers else layers["attn_norm"]
     L = np.asarray(stacked).shape[0]
     if L != cfg.n_layers:
         raise ValueError(f"params hold {L} layers, {cfg.name} has "

@@ -159,6 +159,10 @@ class InferenceEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
+        if self.model.prefill is None:
+            raise ValueError(f"{cfg.name} is encoder-only: it has no prefill "
+                             "or decode step to generate with (use "
+                             "build_model(cfg).encode)")
         self.params = params if params is not None else self.model.init(
             device=self.device)
         self.mode = mode

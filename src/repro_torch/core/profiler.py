@@ -34,9 +34,11 @@ SPECS = {spec.name: spec for spec in (V5E, H100)}
 
 
 def model_weight_shapes(cfg) -> dict[str, tuple[int, int]]:
-    """Site name -> (K, N) for every partitionable matmul of a dense or a
-    hybrid model (the hybrid adds its mamba blocks' in_proj and out_proj
-    to the shared attention block's sites)."""
+    """Site name -> (K, N) for every partitionable matmul in the model. An
+    MoE model's ``w_*`` sites take the routed expert's shape and its
+    shared expert adds ``shared/w_*`` (the model runs the shared expert
+    under the routed names); a hybrid adds its mamba blocks' in_proj and
+    out_proj; RWKV has its own nine sites."""
     d, hd = cfg.d_model, cfg.head_dim
     sites = {
         "wq": (d, cfg.n_heads * hd),
@@ -44,15 +46,35 @@ def model_weight_shapes(cfg) -> dict[str, tuple[int, int]]:
         "wv": (d, cfg.n_kv_heads * hd),
         "wo": (cfg.n_heads * hd, d),
         "head": (d, cfg.vocab_size),
-        "w_gate": (d, cfg.d_ff),
-        "w_up": (d, cfg.d_ff),
-        "w_down": (cfg.d_ff, d),
     }
+    if cfg.moe:
+        sites.update({
+            "w_gate": (d, cfg.moe.d_ff_expert),
+            "w_up": (d, cfg.moe.d_ff_expert),
+            "w_down": (cfg.moe.d_ff_expert, d),
+        })
+        if cfg.moe.d_ff_shared:
+            sites.update({
+                "shared/w_gate": (d, cfg.moe.d_ff_shared),
+                "shared/w_up": (d, cfg.moe.d_ff_shared),
+                "shared/w_down": (cfg.moe.d_ff_shared, d),
+            })
+    else:
+        sites.update({
+            "w_gate": (d, cfg.d_ff),
+            "w_up": (d, cfg.d_ff),
+            "w_down": (cfg.d_ff, d),
+        })
     if cfg.ssm is not None:
         d_in = cfg.ssm.expand * d
         nh = d_in // cfg.ssm.head_dim
         sites["in_proj"] = (d, 2 * d_in + 2 * cfg.ssm.d_state + nh)
         sites["out_proj"] = (d_in, d)
+    if cfg.rwkv is not None:
+        sites = {"wr": (d, d), "wk": (d, d), "wv": (d, d), "wg": (d, d),
+                 "wo": (d, d), "wk_ffn": (d, cfg.d_ff),
+                 "wv_ffn": (cfg.d_ff, d), "wr_ffn": (d, d),
+                 "head": (d, cfg.vocab_size)}
     return sites
 
 

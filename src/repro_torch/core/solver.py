@@ -297,8 +297,10 @@ class PartitionSolver:
         """KV sharding for decode: heads over the model axis (no collective
         in attention, but replicated KV when n_kv_heads does not divide the
         axis) against sequence-split KV (balanced streams plus a small
-        two-pass softmax combine). The port has no RWKV family, for which
-        the reference answers 'head'."""
+        two-pass softmax combine). RWKV keeps a constant-size state and no
+        KV to split: 'head'."""
+        if cfg.rwkv is not None:
+            return "head"
         hd, hkv = cfg.head_dim, cfg.n_kv_heads
         bytes_el = 2
         kv_bytes_tot = 2 * seq_len * hkv * hd * bytes_el * batch_per_dev

@@ -327,11 +327,12 @@ def decode_loop(model, params, cache, n_steps: int, *,
     index + 1) under host sync. On the card it is captured here on token 0
     at position 0, so make it before anything is prefilled into ``cache``:
     the warm-up writes the cache from position 0, which the prefill then
-    writes over (a Mamba2 prefill from position 0 starts from a zero
-    state)."""
+    writes over (a Mamba2 or RWKV prefill from position 0 starts from zero
+    states)."""
     device = cache["index"].device
-    token = torch.zeros((cache["k"].shape[1], 1), dtype=torch.long,
-                        device=device)
+    # every state of a cache is [layers, batch, ...]
+    batch = next(t for name, t in cache.items() if name != "index").shape[1]
+    token = torch.zeros((batch, 1), dtype=torch.long, device=device)
     index = torch.zeros((), dtype=torch.int32, device=device)
 
     def body(token, index):

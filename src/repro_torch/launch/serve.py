@@ -19,15 +19,20 @@
 
 Without ``--batched`` it runs the single-request HeteroInfer engine
 (``InferenceEngine.generate`` on one seeded prompt of ``--prompt-len``
-tokens) and prints its prefill and decode tok/s, for the dense models and
-the Mamba2 hybrid (``--arch zamba2-2.7b``). With ``--batched`` it serves
-seeded synthetic prompts through the async ingress (serving/ingress.py),
-over the dense ``ContinuousBatcher`` (4 slots) or, with ``--paged``,
-``PagedBatcher`` (dense models only: the hybrid has no paged KV cache, and
-the batcher refuses it), timed on a ``MonotonicClock``, and prints tok/s,
-TTFT / TPOT / queue delay p50/p95/p99, goodput and the dispatch counts.
-Weights are random and seeded. Runs on the card unless ``--device cpu`` is
-given (use ``--smoke`` there).
+tokens) and prints its prefill and decode tok/s, for every generating
+family: dense, MoE (``--arch qwen2-moe-a2.7b``, ``dbrx-132b``), VLM
+(``chameleon-34b``), the Mamba2 hybrid (``zamba2-2.7b``) and RWKV-6
+(``rwkv6-3b``). With ``--batched`` it serves seeded synthetic prompts
+through the async ingress (serving/ingress.py), over the dense
+``ContinuousBatcher`` (4 slots) or, with ``--paged``, ``PagedBatcher``
+(attention-family models only: dense, MoE, VLM; the hybrid and RWKV have no
+paged KV cache, and the batcher refuses them), timed on a
+``MonotonicClock``, and prints tok/s, TTFT / TPOT / queue delay
+p50/p95/p99, goodput and the dispatch counts. The encoder-only
+``hubert-xlarge`` has no prefill or decode step and is refused;
+``--weight-quant`` covers the dense family only. Weights are random and
+seeded. Runs on the card unless ``--device cpu`` is given (use ``--smoke``
+there).
 
 Engine options:
 
@@ -215,6 +220,9 @@ def main(argv=None):
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encoder_only:
+        ap.error(f"{args.arch} is encoder-only: it has no prefill or decode "
+                 "step to generate with")
     rng = np.random.default_rng(0)
     if not args.batched:
         _run_engine(cfg, args, rng)

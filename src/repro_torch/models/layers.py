@@ -182,9 +182,12 @@ def _qkv_rope(p: dict, x, cfg, positions, hetero_ctx, freqs):
     return q, k, v, mm
 
 
-def attention(p: dict, x, cfg, *, positions, cache: dict, cache_index,
-              freqs, hetero_ctx=None):
-    """GQA attention over one layer of the dense KV cache.
+def attention(p: dict, x, cfg, *, positions, cache: dict | None,
+              cache_index, freqs, hetero_ctx=None):
+    """GQA attention over one layer of the dense KV cache, or over the
+    call's own tokens when ``cache`` is None (``forward_hidden``): the
+    flash kernel over the whole sequence, bidirectional for an
+    encoder-only config, else causal.
 
     cache: {"k","v": [B, Smax, Hkv, D]}; new K/V are written at
     ``cache_index`` IN PLACE (the reference's functional
@@ -199,6 +202,9 @@ def attention(p: dict, x, cfg, *, positions, cache: dict, cache_index,
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v, mm = _qkv_rope(p, x, cfg, positions, hetero_ctx, freqs)
+    if cache is None:
+        o = flash_attention(q, k, v, causal=not cfg.encoder_only)
+        return mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo"), None
     ck, cv = cache["k"], cache["v"]
     if isinstance(cache_index, torch.Tensor):
         if S != 1:

@@ -1,14 +1,18 @@
-"""Uniform model interface over the ported families: the dense
-decoder-only transformer and the zamba2-style Mamba2 hybrid.
+"""Uniform model interface over every family of the reference: the dense,
+MoE, VLM and audio transformers, the zamba2-style Mamba2 hybrid and RWKV-6.
 
 ``build_model(cfg)`` returns a ``Model`` whose members are plain functions:
     init(generator=None, device="cuda") -> params
     init_cache(batch, max_len, dtype=, device=) -> dense cache
     prefill(params, tokens, cache, start_index=) -> (last_logits, cache)
     decode_step(params, token, cache) -> (logits, cache)
-Attention-family models (dense) additionally expose the paged-KV trio used
-by the serving scheduler (serving/scheduler.py::PagedBatcher); they are
-None for the hybrid, whose recurrent state is O(1) and needs no paging:
+An encoder-only config (hubert) has none of these but ``init``, and exposes
+``encode(params, inputs) -> hidden states`` instead (token ids or float
+frame embeddings; bidirectional attention, no cache).
+Attention-family models (the transformer: dense, MoE, VLM) additionally
+expose the paged-KV trio used by the serving scheduler
+(serving/scheduler.py::PagedBatcher); they are None for the hybrid and
+RWKV, whose recurrent state is O(1) and needs no paging:
     init_paged_cache(num_blocks=, block_size=, dtype=, kv_quant=, device=)
         -> pool
     paged_prefill(params, tokens, pool, block_table=, start_index=)
@@ -32,24 +36,17 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Optional
 
-from . import mamba2, transformer
-
-# what each family of the reference still needs in the port
-_NOT_PORTED = {
-    "moe": "models/moe.py and the MoE configs",
-    "ssm": "models/rwkv6.py and the RWKV configs",
-    "audio": "the encoder-only path (forward_hidden)",
-    "vlm": "the chameleon config",
-}
+from . import mamba2, rwkv6, transformer
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: Any
     init: Callable
-    init_cache: Callable
-    prefill: Callable
-    decode_step: Callable
+    init_cache: Optional[Callable]
+    prefill: Optional[Callable]
+    decode_step: Optional[Callable]
+    encode: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
@@ -63,14 +60,17 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    if cfg.family == "hybrid" and cfg.ssm is not None:
+    if cfg.rwkv is not None:
+        mod = rwkv6
+    elif cfg.ssm is not None:
         mod = mamba2
-    elif cfg.family == "dense":
-        mod = transformer
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported (it needs "
-            f"{_NOT_PORTED.get(cfg.family, 'its model module')})")
+        mod = transformer
+    init = partial(mod.init_params, cfg)
+    if cfg.encoder_only:
+        return Model(cfg=cfg, init=init, init_cache=None, prefill=None,
+                     decode_step=None,
+                     encode=partial(transformer.forward_hidden, cfg=cfg))
     paged = {}
     if mod is transformer:
         paged = dict(
@@ -82,8 +82,7 @@ def build_model(cfg) -> Model:
             prefill_slot=partial(transformer.prefill_slot, cfg=cfg),
         )
     return Model(
-        cfg=cfg,
-        init=partial(mod.init_params, cfg),
+        cfg=cfg, init=init,
         init_cache=partial(mod.init_cache, cfg),
         prefill=partial(mod.prefill, cfg=cfg),
         decode_step=partial(mod.decode_step, cfg=cfg),

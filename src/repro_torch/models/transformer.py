@@ -1,9 +1,11 @@
-"""Decoder-only dense transformer over a dense KV cache or a paged KV pool.
+"""Decoder-only (and encoder-only) transformer: dense / MoE / VLM / audio,
+over a dense KV cache, a paged KV pool or no cache.
 
 Parameters are a dict shaped like the reference's pytree: stacked per-layer
 tensors under ``layers`` (leading axis L), weights in ``[K, N]`` layout
-(``y = x @ w``). The layer loop is a Python loop over the stacked axis;
-each iteration reads views, never copies.
+(``y = x @ w``); an MoE model has ``layers["moe"]`` (models/moe.py) where a
+dense one has ``layers["ffn"]``. The layer loop is a Python loop over the
+stacked axis; each iteration reads views, never copies.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from ..device import resolve_device
 from .layers import (attention, init_attention, init_swiglu, normal_stack,
                      paged_attention, rms_norm, rope_table, slot_attention,
                      swiglu)
+from .moe import init_moe, moe_ffn
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -43,8 +46,11 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
         "attn_norm": torch.ones((L, d), dtype=dt, device=device),
         "attn": init_attention(cfg, generator, device, L),
         "ffn_norm": torch.ones((L, d), dtype=dt, device=device),
-        "ffn": init_swiglu(cfg, generator, device, L),
     }
+    if cfg.moe:
+        params["layers"]["moe"] = init_moe(cfg, generator, device, L)
+    else:
+        params["layers"]["ffn"] = init_swiglu(cfg, generator, device, L)
     return params
 
 
@@ -57,15 +63,23 @@ def layer_params(layers: dict, i: int) -> dict:
 
 def _layer(lp, x, cfg, attend, hetero_ctx):
     """One pre-norm block; ``attend(attn_params, h) -> (out, kv)`` is the
-    dense-cache or paged attention of this layer."""
+    dense-cache, paged or cache-free attention of this layer. The FFN is
+    the SwiGLU, or the MoE layer (whose capacity groups are the tokens of
+    this call)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + attend(lp["attn"], h)[0]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if cfg.moe:
+        return x + moe_ffn(lp["moe"], h, cfg, hetero_ctx=hetero_ctx)[0]
     return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx)
 
 
-def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+def _embed(params, inputs, cfg):
+    """Token ids through the embedding; float inputs ``[B, S, D]`` (the
+    modality stub's frame or patch embeddings) cast as they are."""
+    if inputs.is_floating_point():
+        return inputs.to(dtype_of(cfg.compute_dtype))
+    return params["embed"][inputs].to(dtype_of(cfg.compute_dtype))
 
 
 def _head_matrix(params, cfg):
@@ -79,6 +93,21 @@ def _head_logits(params, x, cfg, hetero_ctx=None):
     else:
         y = matmul_any(x, _head_matrix(params, cfg))
     return y.float()
+
+
+def forward_hidden(params, inputs, cfg):
+    """Full-sequence hidden states with no cache (the encoder's ``encode``):
+    inputs [B, S] token ids or [B, S, D] float embeddings -> the final
+    norm's output [B, S, D]. Attention is bidirectional for an encoder-only
+    config, else causal (layers.attention's cache-free branch)."""
+    x = _embed(params, inputs, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
+    freqs = rope_table(cfg, x.device)
+    for i in range(cfg.n_layers):
+        x = _layer(layer_params(params["layers"], i), x, cfg,
+                   partial(attention, cfg=cfg, positions=positions,
+                           cache=None, cache_index=None, freqs=freqs), None)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,

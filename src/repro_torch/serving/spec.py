@@ -66,7 +66,7 @@ class SpecConfig:
                 f"draft {d.name} (vocab {d.vocab_size}) and target "
                 f"{target_cfg.name} (vocab {target_cfg.vocab_size}) must "
                 "share one token space for speculative decoding")
-        if d.family != "dense":
+        if d.encoder_only or d.rwkv is not None or d.ssm is not None:
             raise ValueError(f"draft {d.name}: drafting needs a decoder "
                              "attention-family model")
         return d

@@ -227,18 +227,25 @@ def test_pipe_tail_moves_the_recurrent_state(ref_tokens):
 
 # ------------------------------------------------------- around the model --
 
-def test_registry_and_batcher_refuse_what_is_not_ported(pair):
-    cfg, model = pair[3], pair[4]
-    assert model.init_paged_cache is None and model.paged_prefill is None \
-        and model.paged_decode_step is None
-    dense = build_model(get_smoke_config("llama3-8b"))
-    assert dense.paged_decode_step is not None
-    for family in ("moe", "ssm", "audio"):
-        with pytest.raises(NotImplementedError, match=family):
-            build_model(cfg.with_(family=family))
-    with pytest.raises(ValueError, match="paged KV cache requires an "
-                                         "attention-family model"):
-        PagedBatcher(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
+def test_registry_and_batcher_refuse_what_is_not_ported(arch):
+    """For every config the port's registry exposes the members the
+    reference's does (an encoder ``encode`` only, the transformer the
+    paged trio and its friends, the hybrid and RWKV prefill and decode
+    only), and PagedBatcher still refuses the hybrid and RWKV."""
+    cfg = get_smoke_config(arch)
+    model, ref = build_model(cfg), ref_build_model(
+        ref_configs.get_smoke_config(arch))
+    for member in ("init_cache", "prefill", "decode_step", "encode",
+                   "init_paged_cache", "paged_prefill", "paged_decode_step",
+                   "paged_verify", "mixed_step"):
+        assert (getattr(model, member) is None) == \
+            (getattr(ref, member) is None), member
+    assert (model.prefill_slot is None) == (ref.paged_prefill is None)
+    if cfg.ssm is not None or cfg.rwkv is not None:
+        with pytest.raises(ValueError, match="paged KV cache requires an "
+                                             "attention-family model"):
+            PagedBatcher(cfg, device="cpu")
 
 
 def test_weight_bridge_checks_the_mamba_stack(pair):

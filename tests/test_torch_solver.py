@@ -31,24 +31,41 @@ def test_config_fields_equal_reference(arch, smoke):
     get, ref_get = ((configs.get_smoke_config, ref_configs.get_smoke_config)
                     if smoke else (configs.get_config, ref_configs.get_config))
     cfg, ref = get(arch), ref_get(arch)
+    nested = ("moe", "ssm", "rwkv")     # two classes of one shape each
     for f in dataclasses.fields(cfg):
-        if f.name == "ssm" and ref.ssm is not None:
-            continue          # two classes of one shape: compared below
+        if f.name in nested:
+            continue
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
-    # the port covers the dense decoder-only family and the Mamba2 hybrid,
-    # whose SSMConfig equals the reference's field by field
-    if ref.family == "hybrid":
-        assert cfg.ssm is not None
-        for f in dataclasses.fields(ref.ssm):
-            assert getattr(cfg.ssm, f.name) == getattr(ref.ssm, f.name), \
-                f"ssm.{f.name}"
-        assert {f.name for f in dataclasses.fields(cfg.ssm)} == \
-            {f.name for f in dataclasses.fields(ref.ssm)}
-    else:
-        assert ref.family == "dense" and ref.ssm is None
-    assert ref.moe is None and ref.rwkv is None and not ref.encoder_only
+    assert {f.name for f in dataclasses.fields(cfg)} == \
+        {f.name for f in dataclasses.fields(ref)}
+    # the MoE, SSM and RWKV settings equal the reference's field by field
+    for name in nested:
+        mine, theirs = getattr(cfg, name), getattr(ref, name)
+        assert (mine is None) == (theirs is None), name
+        if theirs is not None:
+            assert {f.name for f in dataclasses.fields(mine)} == \
+                {f.name for f in dataclasses.fields(theirs)}, name
+            for f in dataclasses.fields(theirs):
+                assert getattr(mine, f.name) == getattr(theirs, f.name), \
+                    f"{name}.{f.name}"
     assert cfg.head_dim == ref.head_dim
+    assert cfg.attn_free == ref.attn_free
     assert cfg.n_params == ref.n_params
+    assert cfg.n_params_active == ref.n_params_active
+
+
+def test_shape_grid_equals_reference():
+    """SHAPES, ASSIGNED_ARCHS and cell_is_supported over the assigned grid
+    are the reference's."""
+    assert configs.ASSIGNED_ARCHS == ref_configs.ASSIGNED_ARCHS
+    assert {k: dataclasses.astuple(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in ref_configs.SHAPES.items()}
+    for arch in ARCHS:
+        for name, shape in configs.SHAPES.items():
+            assert configs.cell_is_supported(configs.get_config(arch),
+                                             shape) == \
+                ref_configs.cell_is_supported(ref_configs.get_config(arch),
+                                              ref_configs.SHAPES[name])
 
 
 def _plan_key(plan):
