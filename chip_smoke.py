@@ -176,16 +176,38 @@ Among them run the phases of the solver's cost model and its two streams:
      and chameleon-34b do not fit one card at full width: their smoke
      runs in G0 stand for them.
 
+  H. (after G, its weights freed) ``phase_training``: training through
+     the flash kernel's backward (``csrc/flash_attention_bwd.cu``). H0 the
+     backward kernel against ``attention_bwd_ref`` on the card in fp32,
+     bf16 and fp16 over the attention conformance grid, hubert's smoke
+     shape with D = 80 (bidirectional) and qwen3-1.7b's path shape [2,
+     4096, 16 / 8, 128] causal in fp32 and bf16 (fp32 held to the plain
+     version carried in fp64), the forward's log-sum-exp against
+     ``lse_ref``, two launches bitwise equal, the bf16 path shape timed
+     against the plain version and SDPA's backward. H1 the five fp32 smoke
+     transformers' loss and gradients on the card against the CPU (flash
+     forward twice a layer, backward once) and a ``train()`` crashed at
+     step 7 with save_every=5 ending at the uninterrupted losses. H2
+     qwen3-1.7b at full width (bf16, fp32 AdamW moments, per-layer remat,
+     seq 4096 x batch 2): step 1's loss and gradients through the kernels
+     against plain attention under autograd (loss 1e-3 relative, cosine
+     >= 0.999 a leaf), then 1 warm-up and 4 timed steps (step time,
+     tokens/s, model-FLOP share, peak memory, the kernels' launches) and a
+     profiled step (busy share). (``[train]`` lines.)
+
 The line before the last is the kernels JSON line (each kernel launched
 on a phase E arm also carries ``serving_arms_launches``, on phase F's
 F1 / F2 ``front_end_launches``, and on phase G's G1 / G3
 ``families_launches``; the flash entry carries hubert's row as
-``encoder_row``); the last line is ``{"ok": true, "device": {...}}``.
+``encoder_row`` and its launches in H2's timed steps as
+``training_launches``; the seventh row is the backward, not a TPU kernel,
+its launches H2's); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -237,8 +259,16 @@ def log(msg: str) -> None:
 
 
 def rel_err(a, b) -> float:
-    a32, b32 = a.float(), b.float()
+    wide = torch_float(a, b)
+    a32, b32 = a.to(wide), b.to(wide)
     return float((a32 - b32).abs().max() / (b32.abs().max() + 1e-9))
+
+
+def torch_float(*ts):
+    """fp64 where an operand is fp64, else fp32."""
+    import torch
+    return (torch.float64 if any(t.dtype == torch.float64 for t in ts)
+            else torch.float32)
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -280,9 +310,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # kernels whose -Xptxas -v report must show no spill: the tensor-core
 # kernels (gemm_tc, qgemm_tc in int8 and int4, flash_tc, the SSD chunk's
-# ssd_cb_tc and ssd_chunk_tc) and split-KV decode attention
+# ssd_cb_tc and ssd_chunk_tc, the flash backward's two) and split-KV decode
+# attention
 SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine",
-              "ssd_cb_tc", "ssd_chunk_tc")
+              "ssd_cb_tc", "ssd_chunk_tc", "flash_bwd_dkdv_tc",
+              "flash_bwd_dq_tc")
 
 
 def phase_card_and_build() -> str:
@@ -1072,13 +1104,15 @@ def _count_syncs(cb) -> list:
 
 def _counters():
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
     from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.kernels.ssm_scan.ops import ssd_chunk
     return {"hetero_matmul": ops.mxu_matmul,
             "quant_matmul_int8": ops.mxu_quant_matmul,
             "quant_matmul_q4": ops.mxu_q4_matmul,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
             "ssd_chunk": ssd_chunk}
 
@@ -1648,9 +1682,448 @@ def phase_full(cfg, params, tables: dict, prompt_len: int = 300,
 
 # the port's own kernels (csrc/*.cu), which _profiled lists by name even
 # where they fall below the run's largest kernels
+# ------------------------------------------------------------- phase H --
+
+LSE_TOL = 1e-5   # the forward's fp32 row statistics against logsumexp
+
+
+def _flash_bwd_bound(B, Sq, Sk, Hq, Hkv, D, el, causal) -> dict:
+    """Bytes (q, k, v, o, dO, lse read once, dq, dk, dv written once) and
+    the five products of the backward over the visible pairs."""
+    pairs = (sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    nq, nk = B * Sq * Hq * D, B * Sk * Hkv * D
+    nbytes = el * (4 * nq + 4 * nk) + 4 * B * Hq * Sq
+    flops = 10 * B * Hq * D * pairs
+    dname = {4: "float32", 2: "bfloat16"}[el]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def _flash_bwd_case(g, B, Sq, Sk, Hkv, G, D, dt, causal, *, label: str,
+                    worst: dict, timing: bool = False) -> dict:
+    """One backward check: the forward kernel's output and log-sum-exp
+    (against ``lse_ref``), then the backward kernel against
+    ``attention_bwd_ref`` on the same (q, k, v, o, lse, dO), within
+    DTYPE_TOL (fp32 against the plain version carried in fp64); a second
+    launch bitwise equal to the first. With ``timing``,
+    the kernel's, the plain version's and SDPA's backward times and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         lse_ref)
+
+    dname = str(dt).split(".")[-1]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q, k, v = randn(B, Sq, Hkv * G, D), randn(B, Sk, Hkv, D), randn(B, Sk,
+                                                                     Hkv, D)
+    do = randn(B, Sq, Hkv * G, D)
+    lse = torch.empty((B, Hkv * G, Sq), dtype=torch.float32, device="cuda")
+    o = ops._launch(q, k, v, causal, lse)
+    # fp32 is held to the plain version carried in fp64: at the path's
+    # depth (8,192 packed rows a key) two fp32 orders of summation differ by
+    # more than fp32's DTYPE_TOL, the plain version's own order included
+    wide = (lambda t: t.double()) if dt == torch.float32 else (  # noqa: E731
+        lambda t: t)
+    e_lse = rel_err(lse, lse_ref(wide(q), wide(k), causal=causal))
+    if not e_lse <= LSE_TOL:
+        raise AssertionError(f"[train] {label} {dname}: lse rel_err "
+                             f"{e_lse:.3g} > {LSE_TOL}")
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    if ops.flash_attention_bwd.launches != before + 2:
+        raise AssertionError(f"[train] {label}: the backward never launched")
+    want = attention_bwd_ref(*(wide(t) for t in (q, k, v, o, lse, do)),
+                             causal=causal)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    key = ("flash_attention_bwd", dname)
+    worst[key] = max(worst.get(key, 0.0), *errs)
+    if not max(errs) <= DTYPE_TOL[dname]:
+        raise AssertionError(f"[train] {label} {dname}: dq / dk / dv rel_err "
+                             f"{errs} > {DTYPE_TOL[dname]}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"[train] {label} {dname}: two launches differ")
+    row = {"case": label, "shape": [B, Sq, Sk, Hkv * G, Hkv, D],
+           "dtype": dname, "causal": causal, "rel_err": errs,
+           "lse_rel_err": e_lse,
+           "max_abs_err": max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(got, want))}
+    if dt == torch.float32 and Sq >= 1024:
+        # the fp32 plain version's own distance from fp64, for scale
+        plain = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        row["plain_fp32_rel_err"] = [rel_err(a, b)
+                                     for a, b in zip(plain, want)]
+        del plain
+    if not timing:
+        del want
+        return row
+    del want, got, again
+    torch.cuda.empty_cache()
+    run = lambda: ops.flash_attention_bwd(                      # noqa: E731
+        q, k, v, o, lse, do, causal=causal)
+    # CUDA events only: late in the whole script torch.profiler's short
+    # traces here lost device events (0.0 ms for a 4.4 ms kernel); the
+    # kernel's device time comes from H2's profiled training step instead
+    row["ms"] = cuda_time_ms(run, iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # SDPA's backward through autograd: the graph made once, then only its
+    # backward timed (retain_graph)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask_kw = {"is_causal": causal and Sq == Sk}
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **mask_kw)
+        row["library_note"] = ("scaled_dot_product_attention(enable_gqa=True"
+                               f", is_causal={mask_kw['is_causal']}) "
+                               "backward")
+    except TypeError:       # a PyTorch without enable_gqa: kv heads repeated
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+        out = F.scaled_dot_product_attention(qt, kr, vr, **mask_kw)
+        row["library_note"] = "scaled_dot_product_attention backward, kv " \
+                              "repeated"
+    dot = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(                          # noqa: E731
+        out, (qt, kt, vt), dot, retain_graph=True)
+    row["library_ms"] = cuda_time_ms(lib, iters=10)
+    del out
+    row.update(_flash_bwd_bound(B, Sq, Sk, Hkv * G, Hkv, D,
+                                q.element_size(), causal))
+    return row
+
+
+def phase_flash_bwd() -> dict:
+    """H0: the flash-attention backward kernel against its plain version
+    (``attention_bwd_ref``) on the card, fp32, bf16 and fp16: the
+    attention conformance grid (1 / 2 / 4 query heads per kv head, causal
+    and not, Sq == Sk and Sq < Sk, D = 16, 97 -> 97 and 128), hubert's smoke
+    shape with its full head dim 80 (bidirectional), then the training
+    path's shape at qwen3-1.7b ([2, 4096, 16 / 8, 128], causal) in fp32 and
+    bf16, the bf16 one timed against the plain version and SDPA's backward.
+    Every case also holds the forward's log-sum-exp to ``lse_ref`` and two
+    backward launches to each other, bitwise."""
+    import torch
+    from repro_torch.configs import dtype_of
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    worst, n = {}, 0
+    for name, M, K, _ in CONFORMANCE_CASES + (("smoke_d16", 77, 16, 0),):
+        D = min(K, 128)
+        for G in (1, 2, 4):
+            for dname in DTYPE_TOL:
+                for Sk in (M, M + 37):
+                    for causal in (True, False):
+                        _flash_bwd_case(g, 2, M, Sk, 2, G, D,
+                                        dtype_of(dname), causal,
+                                        label=f"{name} G={G} Sk={Sk}",
+                                        worst=worst)
+                        n += 1
+    for dname in DTYPE_TOL:
+        _flash_bwd_case(g, 2, 40, 40, 4, 1, 80, dtype_of(dname), False,
+                        label="hubert smoke D=80", worst=worst)
+        n += 1
+    path = {}
+    for dname in ("float32", "bfloat16"):
+        path[dname] = _flash_bwd_case(
+            g, 2, 4096, 4096, 8, 2, 128, dtype_of(dname), True,
+            label="path qwen3-1.7b", worst=worst, timing=dname == "bfloat16")
+        torch.cuda.empty_cache()
+        n += 1
+    for (kname, dname), e in sorted(worst.items()):
+        log(f"[train] H0 {kname} {dname:8s}: worst rel_err {e:.3g} <= "
+            f"{DTYPE_TOL[dname]}")
+    log(f"[train] H0 {n} backward checks passed (lse within {LSE_TOL}, two "
+        "launches bitwise equal)")
+    for row in path.values():
+        log(f"[train] H0 path {json.dumps(row)}")
+    return {"path": path["bfloat16"], "path_fp32": path["float32"],
+            "worst": worst}
+
+
+TRAIN_SMOKE = ("smollm-135m", "qwen3-1.7b", "qwen2-moe-a2.7b",
+               "chameleon-34b", "hubert-xlarge")
+TRAIN_LOSS_TOL = 1e-5   # relative: the same fp32 loss, card against CPU
+TRAIN_GRAD_TOL = 1e-4   # rel_err per leaf: fp32 sums in other orders
+
+
+def _train_batch(cfg, B: int, S: int, seed: int = 0) -> tuple:
+    """Seeded (inputs, targets): token ids, or float frames for an
+    encoder-only config (the audio stub)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    inputs = (rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+              if cfg.encoder_only else toks[:, :-1])
+    return inputs, toks[:, 1:]
+
+
+def _flash_counts() -> dict:
+    counts = _read_counts()
+    return {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def phase_train_smoke(device: str = "cuda") -> dict:
+    """H1: the fp32 smoke models of the five transformer configs on the
+    card against the port on the CPU: loss (1e-5 relative) and every
+    leaf's gradient (rel_err 1e-4), the card's attention through the flash
+    kernel's forward (twice a layer: the pass and remat's recompute) and
+    its backward (once a layer). Then ``train()`` of the smollm smoke model
+    on the card, 9 steps with save_every=5, crashed before step 8 (at step
+    index 7): the run restores step 5 and ends at the uninterrupted run's
+    losses. On the card the embedding's backward (an index_put with
+    accumulate) adds with atomics, so two runs need not agree bitwise: the
+    losses are held within TRAIN_LOSS_TOL."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.sync import fence
+    from repro_torch.models import build_model
+    from repro_torch.serving.telemetry import FakeClock
+    from repro_torch.training.train_loop import (TrainConfig, loss_and_grads,
+                                                 train)
+
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch).with_(**fp32)
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(3), device="cpu")
+        card = _to_device(cpu, device)
+        inputs, targets = _train_batch(cfg, 2, 40)
+        want = loss_and_grads(model, cpu, torch.from_numpy(inputs),
+                              torch.from_numpy(targets))
+        _zero_counts()
+        got = loss_and_grads(model, card,
+                             torch.from_numpy(inputs).to(device),
+                             torch.from_numpy(targets).to(device))
+        fence(got[0])
+        counts = _flash_counts()
+        expect = {"flash_attention": 2 * cfg.n_layers,
+                  "flash_attention_bwd": cfg.n_layers}
+        if counts != expect:
+            raise AssertionError(f"[train] H1 {arch}: launches {counts}, "
+                                 f"expected {expect}")
+        e_loss = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        e_aux = abs(float(got[1]["aux"]) - float(want[1]["aux"]))
+        e_grad = max(rel_err(a.cpu(), b) for a, b in
+                     zip(_leaves(got[2]), _leaves(want[2])) if b.any())
+        if not (e_loss <= TRAIN_LOSS_TOL and e_aux <= TRAIN_LOSS_TOL
+                * max(abs(float(want[1]["aux"])), 1.0)
+                and e_grad <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"[train] H1 {arch}: loss {e_loss:.3g}, aux "
+                                 f"{e_aux:.3g}, grads {e_grad:.3g}")
+        out[arch] = {"loss_rel_err": e_loss, "aux_abs_err": e_aux,
+                     "grad_rel_err": e_grad, "launches": counts}
+        log(f"[train] H1 {arch}: loss card {float(got[0]):.6f} cpu "
+            f"{float(want[0]):.6f} (rel {e_loss:.2e}), aux "
+            f"{float(got[1]['aux']):.6f}, worst grad rel_err {e_grad:.2e}, "
+            f"launches {counts}")
+
+    cfg = get_smoke_config("smollm-135m").with_(**fp32)
+    shape = ShapeSpec("h1", 32, 4, "train")
+    ckpt = ROOT / "build" / "train_ckpt"
+    crashed = []
+
+    def injector(step):
+        if step == 7 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("simulated node failure")
+
+    runs = {}
+    for label, inject in (("plain", None), ("crashed", injector)):
+        shutil.rmtree(ckpt / label, ignore_errors=True)
+        params = build_model(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device=device)
+        _, losses, _ = train(
+            cfg, TrainConfig(steps=9, log_every=1, save_every=5,
+                             ckpt_dir=str(ckpt / label)), shape,
+            device=device, params=params, clock=FakeClock(),
+            fail_injector=inject, log=lambda *a: None)
+        runs[label] = dict(losses)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    diffs = [abs(runs["crashed"][k] - v) / abs(v)
+             for k, v in runs["plain"].items()]
+    if crashed != [7] or sorted(runs["crashed"]) != list(range(1, 10)) \
+            or max(diffs) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[train] H1 crash-restart: {runs}")
+    log(f"[train] H1 crash at step 7, restored step 5: losses "
+        f"{[round(v, 6) for v in runs['crashed'].values()]} against "
+        f"{[round(v, 6) for v in runs['plain'].values()]} (worst relative "
+        f"{max(diffs):.2e}, bitwise equal: "
+        f"{runs['crashed'] == runs['plain']})")
+    out["crash"] = {"worst": max(diffs),
+                    "bitwise": runs["crashed"] == runs["plain"]}
+    return out
+
+
+@contextmanager
+def _plain_attention():
+    """``models.layers``' flash attention swapped for its plain version
+    (``attention_ref``), whose gradient is torch's autograd."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+    saved = layers.flash_attention
+    layers.flash_attention = attention_ref
+    try:
+        yield
+    finally:
+        layers.flash_attention = saved
+
+
+def _matmul_params(params) -> int:
+    """Parameters of the products (layer matrices and an untied head; not
+    the embedding gather or the norms)."""
+    n = sum(t.numel() for t in _leaves(params["layers"]) if t.ndim >= 3)
+    return n + (params["head"].numel() if "head" in params else 0)
+
+
+def phase_train_full(seq: int = 4096, batch: int = 2, steps: int = 4,
+                     device: str = "cuda") -> dict:
+    """H2: qwen3-1.7b at full width (28 layers, d_model 2048, 16 / 8 heads
+    of 128, d_ff 6144, vocab 151936, untied, qk-norm; bf16, seeded random
+    weights, fp32 AdamW moments), per-layer remat, seq 4096 x batch 2 of
+    SyntheticLM tokens. Parity first: step 1's loss and every leaf's
+    gradient through the flash kernels against the same with plain
+    attention under autograd on the card (loss within 1e-3 relative, each
+    gradient at cosine >= 0.999). Then 1 warm-up and ``steps`` timed steps
+    of ``make_train_step`` (each fenced), the flash kernels' launches
+    counted from 0 over the timed steps, peak memory over them, and one
+    more step under torch.profiler for the busy share. No checkpoint is
+    written at this width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import fence
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import (TrainConfig, loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import tree_flatten
+
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_mm = _matmul_params(params)
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    first = data.next()
+    inputs = torch.from_numpy(first["inputs"]).to(device)
+    targets = torch.from_numpy(first["targets"]).to(device)
+
+    loss_k, _, grads_k = loss_and_grads(model, params, inputs, targets)
+    with _plain_attention():
+        loss_p, _, grads_p = loss_and_grads(model, params, inputs, targets)
+    e_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    cos = {"/".join(path): float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for (path, a), (_, b) in zip(tree_flatten(grads_k),
+                                     tree_flatten(grads_p))}
+    worst = min(cos, key=cos.get)
+    log(f"[train] H2 parity: step-1 loss kernels {float(loss_k):.6f}, plain "
+        f"attention {float(loss_p):.6f} (rel {e_loss:.2e}); gradient cosine "
+        f"worst {cos[worst]:.6f} ({worst}), mean "
+        f"{sum(cos.values()) / len(cos):.6f} over {len(cos)} leaves")
+    if not (e_loss <= 1e-3 and cos[worst] >= 0.999):
+        raise AssertionError(f"[train] H2 parity: loss {e_loss:.3g}, "
+                             f"cosine {cos[worst]:.6f} ({worst})")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    _, step_fn = make_train_step(cfg, TrainConfig(), device=device)
+    state = opt.init_state(params)
+    state, metrics = step_fn(state, first)          # warm-up step
+    fence(state["step"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        batch_np = data.next()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch_np)
+        fence(state["step"])
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"flash_attention": 2 * cfg.n_layers * steps,
+              "flash_attention_bwd": cfg.n_layers * steps}
+    if counts != expect:
+        raise AssertionError(f"[train] H2 launches {counts}, expected "
+                             f"{expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train] H2 losses {losses}")
+    nxt = data.next()
+    prof = _profiled("train-step", lambda: step_fn(state, nxt),
+                     state["step"])
+    step_s = sum(times) / len(times)
+    tokens = seq * batch
+    pairs = seq * (seq + 1) // 2
+    attn_flops = 12 * cfg.n_layers * batch * cfg.n_heads * cfg.head_dim \
+        * pairs
+    model_flops = 6 * n_mm * tokens + attn_flops
+    def per_call_ms(names, calls):
+        us = sum(r[0] for r in prof["rows"] if any(n in r[2] for n in names))
+        return us / 1e3 / calls
+
+    row = {"arch": cfg.name, "seq": seq, "batch": batch,
+           "params": n_params, "matmul_params": n_mm,
+           "step_s": times, "mean_step_s": step_s,
+           "tokens_per_s": tokens / step_s,
+           "model_flops": model_flops,
+           "model_flop_share": model_flops / step_s / PEAK_FLOPS["bfloat16"],
+           "remat_flops": 8 * n_mm * tokens + 16 * attn_flops // 12,
+           "peak_gb": peak / 1e9, "busy_share": prof["share"],
+           "profiled_wall_s": prof["wall_s"], "losses": losses,
+           "launches": counts, "parity_loss_rel": e_loss,
+           "parity_worst_cos": cos[worst],
+           # device time a call in the profiled step: the backward's three
+           # kernels, and the forward's (twice a layer)
+           "bwd_step_device_ms": per_call_ms(("flash_bwd",), cfg.n_layers),
+           "fwd_step_device_ms": per_call_ms(("flash_tc",),
+                                             2 * cfg.n_layers)}
+    log(f"[train] H2 {cfg.name} seq {seq} x batch {batch}: step "
+        f"{step_s:.4f}s ({', '.join(f'{t:.4f}' for t in times)}), "
+        f"{row['tokens_per_s']:.0f} tok/s, model-FLOP share "
+        f"{row['model_flop_share']:.4f} of 989 TFLOP/s, peak "
+        f"{row['peak_gb']:.2f} GB, busy {prof['share']}, losses {losses}")
+    log(f"[train] H2 {json.dumps(row)}")
+    del state, params, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_training() -> dict:
+    """Phase H: training through the flash kernel's backward. H0 the
+    backward kernel, H1 the fp32 smoke models and a crash-restart on the
+    card, H2 qwen3-1.7b at full width."""
+    out = {}
+    for key, phase in (("H0", phase_flash_bwd), ("H1", phase_train_smoke),
+                       ("H2", phase_train_full)):
+        t0 = time.perf_counter()
+        out[key] = phase()
+        log(f"[time] phase H {key}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 PORT_KERNELS = ("gemm_tc", "splitk_reduce", "mm_output_stationary",
                 "mm_weight_stationary", "quant_mm", "flash_tc", "flash_fwd",
-                "decode_split", "decode_combine", "ssd_cb_tc", "ssd_chunk_tc")
+                "flash_bwd", "decode_split", "decode_combine", "ssd_cb_tc",
+                "ssd_chunk_tc")
 
 
 def _profiled(label: str, run, anchor) -> dict:
@@ -1681,7 +2154,7 @@ def _profiled(label: str, run, anchor) -> dict:
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
         log(f"[profile] {label}: torch.profiler saw no device time")
-        return {"wall_s": wall, "busy_s": None, "share": None}
+        return {"wall_s": wall, "busy_s": None, "share": None, "rows": []}
     log(f"[profile] {label} run: wall {wall:.3f}s (profiled), "
         f"device busy {busy:.3f}s ({busy / wall:.3f} of wall)")
     for us, n, key in rows[:12]:
@@ -1690,7 +2163,8 @@ def _profiled(label: str, run, anchor) -> dict:
         if any(name in key for name in PORT_KERNELS):
             log(f"[profile] {label} {us / 1e3:10.2f} ms {n:7d}x  {key[:90]} "
                 "(a port kernel)")
-    return {"wall_s": wall, "busy_s": busy, "share": busy / wall}
+    return {"wall_s": wall, "busy_s": busy, "share": busy / wall,
+            "rows": rows}
 
 
 ENGINE_ARMS = (("hetero-tensor", True), ("xla", True), ("hetero-tensor", False))
@@ -3895,6 +4369,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families = timed(phase_families)
+    training = timed(phase_training)
 
     def arms_launches(name):
         """The kernel's launches on each serving arm's timed pass (phase
@@ -3974,6 +4449,22 @@ def main() -> int:
                    "src/repro/kernels/ssm_scan/kernel.py:50",
                    ssd["timings"][0], hybrid),
     ]}
+    bwd = training["H0"]["path"]
+    kernels["kernels"][3]["training_launches"] = training["H2"][
+        "launches"]["flash_attention"]
+    kernels["kernels"].append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "none: not a TPU kernel (the reference's training "
+                    "differentiates src/repro/models/layers.py:75 "
+                    "blockwise_attention with JAX autodiff)",
+        "tpu_kernel": False,
+        "launches": training["H2"]["launches"]["flash_attention_bwd"],
+        **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "shape", "dtype",
+                               "library_note")},
+        "kernel_ms": bwd["ms"],
+        "device_ms": training["H2"]["bwd_step_device_ms"]})
     kernels["kernels"][3]["encoder_row"] = {
         k: hubert_row[k] for k in ("shape", "causal", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -4024,6 +4515,11 @@ def main() -> int:
                     for k, v in families["G1"]["engine"].items())
         + f" tok/s; rwkv6 engine {families['G2']['engine']['tok_per_s']:.2f}"
         + f" tok/s; hubert encode {families['G3']['ms']:.2f} ms"
+        + f"; training qwen3-1.7b step {training['H2']['mean_step_s']:.4f}s"
+        + f" ({training['H2']['tokens_per_s']:.0f} tok/s, model-FLOP share "
+        + f"{training['H2']['model_flop_share']:.4f}, peak "
+        + f"{training['H2']['peak_gb']:.2f} GB), backward kernel "
+        + f"{training['H2']['bwd_step_device_ms']:.3f} ms device a call"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

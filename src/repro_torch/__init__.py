@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of the HeteroInfer reproduction in ``repro``.
 
-Same layout as ``repro`` (configs, core, kernels, models, serving, launch);
+Same layout as ``repro`` (configs, core, kernels, models, serving,
+training, distributed, launch);
 the aligned-path GEMM is a hand-written Hopper kernel
 (``csrc/hetero_matmul.cu``). Entry points run on the card unless the caller
 passes ``device="cpu"``.

@@ -77,8 +77,9 @@ constexpr size_t smem_bytes() {
 template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-          int Hkv, int G, int D, Strides st, int causal, float scale) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int Sq, int Sk, int Hkv, int G, int D,
+          Strides st, int causal, float scale) {
   extern __shared__ float smem[];
   float* Qt = smem;
   float* Kt = Qt + DMAX * R;
@@ -206,6 +207,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= n_rows) continue;
     const int pos = row / G, g = row % G;
     const float den = l[i] == 0.f ? 1.f : l[i];
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * Hkv * G + h * G + g) * Sq + pos] =
+          l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
     float* orow = o + b * st.o_b + pos * st.o_s + (long long)(h * G + g) * D;
 #pragma unroll
     for (int j = 0; j < DMAX / 16; ++j) {
@@ -216,9 +220,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DMAX>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int Hkv, int G, int D, const Strides& st,
-               int causal, cudaStream_t s) {
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
+               const Strides& st, int causal, cudaStream_t s) {
   const size_t smem = smem_bytes<DMAX>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -226,8 +230,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * Hkv, (Sq * G + R - 1) / R);
   flash_fwd<DMAX><<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hkv, G, D,
-      st, causal, 1.0f / sqrtf((float)D));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, Hkv,
+      G, D, st, causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -280,8 +284,9 @@ __device__ __forceinline__ void stage_rows(T* dst, int D, bool vec, Src src) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int Hkv,
-         int G, int D, Strides st, int causal, float scale, int vec) {
+         const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+         int Sq, int Sk, int Hkv, int G, int D, Strides st, int causal,
+         float scale, int vec) {
   constexpr int LDS = DP + 8;
   constexpr int KD = DP / 16;   // k-steps of Q K^T, pairs of P V n-tiles
   constexpr bool HALF = std::is_same<T, __half>::value;
@@ -439,6 +444,10 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= n_rows) continue;
     const int pos = row / G, g = row % G;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    // the row's natural log-sum-exp for the backward: m and l are in base 2
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((long long)b * Hkv * G + h * G + g) * Sq + pos] =
+          l[i] == 0.f ? INFINITY : (m[i] + log2f(l[i])) * 0.6931471805599453f;
     T* orow = o + b * st.o_b + pos * st.o_s + (long long)(h * G + g) * D;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
@@ -451,9 +460,9 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Sk, int Hkv, int G, int D, const Strides& st,
-              int causal, int vec, cudaStream_t s) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
+              const Strides& st, int causal, int vec, cudaStream_t s) {
   const size_t smem = tc_smem_bytes<DP>();
   static bool sized = false;   // the attribute once per instantiation
   cudaError_t e;
@@ -467,18 +476,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * Hkv, (Sq * G + R - 1) / R);
   flash_tc<T, DP><<<grid, TC_THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hkv, G, D, st,
-      causal, 1.0f / sqrtf((float)D), vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, Hkv, G, D,
+      st, causal, 1.0f / sqrtf((float)D), vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_tc(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int Hkv, int G, int D, const Strides& st,
-                int causal, int vec, cudaStream_t s) {
-#define FLASH_TC_DP(dp) \
-  case dp / 16:         \
-    return launch_tc<T, dp>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
+int dispatch_tc(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
+                const Strides& st, int causal, int vec, cudaStream_t s) {
+#define FLASH_TC_DP(dp)                                                     \
+  case dp / 16:                                                             \
+    return launch_tc<T, dp>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st,      \
+                            causal, vec, s);
   switch ((D + 15) / 16) {
     FLASH_TC_DP(16) FLASH_TC_DP(32) FLASH_TC_DP(48) FLASH_TC_DP(64)
     FLASH_TC_DP(80) FLASH_TC_DP(96) FLASH_TC_DP(112) FLASH_TC_DP(128)
@@ -487,12 +497,12 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int B,
 #undef FLASH_TC_DP
 }
 
-int dispatch_fma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int Hkv, int G, int D, const Strides& st,
-                 int causal, cudaStream_t s) {
-  if (D <= 32) return launch_fma<32>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, s);
-  if (D <= 64) return launch_fma<64>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, s);
-  return launch_fma<128>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, s);
+int dispatch_fma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
+                 const Strides& st, int causal, cudaStream_t s) {
+  if (D <= 32) return launch_fma<32>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
+  if (D <= 64) return launch_fma<64>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
+  return launch_fma<128>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
 }
 
 }  // namespace
@@ -501,11 +511,14 @@ int dispatch_fma(const void* q, const void* k, const void* v, void* o, int B,
 // operand has unit stride along D and stride D between heads; *_bs and *_ss
 // are its batch and sequence strides in elements (a cache prefix view keeps
 // its parent's). causal: bottom-right mask (needs Sq <= Sk). dtype: 0 fp32,
-// 1 bf16, 2 fp16. Returns the cudaError_t of the launch (0 on success);
-// never synchronises.
+// 1 bf16, 2 fp16. lse: null, or fp32 [B, Hkv*G, Sq] that receives each
+// row's natural log-sum-exp of the scaled scores (+inf for a row that sees
+// no key), which the backward (flash_attention_bwd.cu) recomputes P from.
+// Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int Hkv,
-                                   int G, int D, long long q_bs, long long q_ss,
+                                   void* o, void* lse, int B, int Sq, int Sk,
+                                   int Hkv, int G, int D, long long q_bs,
+                                   long long q_ss,
                                    long long k_bs, long long k_ss,
                                    long long v_bs, long long v_ss,
                                    long long o_bs, long long o_ss, int causal,
@@ -515,6 +528,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Strides st{q_bs, q_ss, k_bs, k_ss, v_bs, v_ss, o_bs, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   // 16-byte copies where every row of q, k and v starts 16-byte aligned
   const bool vec = D % 8 == 0 && q_bs % 8 == 0 && q_ss % 8 == 0 &&
                    k_bs % 8 == 0 && k_ss % 8 == 0 && v_bs % 8 == 0 &&
@@ -522,9 +536,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   switch (dtype) {
-    case 0: return dispatch_fma(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, s);
-    case 1: return dispatch_tc<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
-    case 2: return dispatch_tc<__half>(q, k, v, o, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
+    case 0: return dispatch_fma(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, s);
+    case 1: return dispatch_tc<__nv_bfloat16>(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
+    case 2: return dispatch_tc<__half>(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

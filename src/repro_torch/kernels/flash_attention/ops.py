@@ -8,8 +8,17 @@ kernel takes any D <= 128 as it is, so nothing is padded here. bf16 / fp16
 run on the tensor cores and round the probabilities to the input type
 before the P V product (``ref.attention_rounded_p_ref``); fp32 stays true
 fp32. A CUDA tensor launches the kernel or raises; only tensors that lie on
-the CPU take the plain version (``ref.py``). ``flash_attention.launches``
-counts launches.
+the CPU take the plain version (``ref.py``), whose gradient is torch's
+autograd. ``flash_attention.launches`` counts launches.
+
+The gradient (``csrc/flash_attention_bwd.cu``): where grad is enabled and
+an input requires it, a CUDA call goes through ``_FlashAttention``, whose
+forward launch also writes each row's log-sum-exp (fp32 ``[B, Hq, Sq]``)
+and whose backward launches the backward kernel through
+``flash_attention_bwd`` (``flash_attention_bwd.launches`` counts its
+launches). Every other call launches the forward alone, with no
+log-sum-exp, as before. ``torch.utils.checkpoint`` recomputing a layer in
+backward reruns that forward, log-sum-exp included.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import ctypes
 import torch
 
 from ..build import counted, entry
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 MAX_D = 128                    # both attention kernels' largest head dim
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -55,9 +64,10 @@ def head_strides(t: torch.Tensor) -> tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, lse: torch.Tensor | None = None
+            ) -> torch.Tensor:
     launch = entry("flash_attention", "flash_attention_fwd",
-                   *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 6,
+                   *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 6,
                    *[ctypes.c_longlong] * 8, *[ctypes.c_int] * 2)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -66,10 +76,30 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, o) for s in head_strides(t)]
     launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           B, Sq, Sk, Hkv, Hq // Hkv, D, *strides, int(causal),
-           DTYPE_CODE[q.dtype])
+           None if lse is None else lse.data_ptr(), B, Sq, Sk, Hkv,
+           Hq // Hkv, D, *strides, int(causal), DTYPE_CODE[q.dtype])
     flash_attention.launches += 1
     return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with its log-sum-exp, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        o = _launch(q, k, v, causal, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,8 +109,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal)
         return _launch(q, k, v, causal)
     raise ValueError(f"unsupported device {q.device}")
 
 
 counted(flash_attention)
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool):
+    launch = entry("flash_attention_bwd", "flash_attention_bwd",
+                   *[ctypes.c_void_p] * 10, *[ctypes.c_int] * 8)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if D > MAX_D:
+        raise ValueError(f"head dim {D} > {MAX_D}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch(q.device, *(t.data_ptr() for t in (q, k, v, o, do, lse, delta,
+                                               dq, dk, dv)),
+           B, Sq, Sk, Hkv, Hq // Hkv, D, int(causal), DTYPE_CODE[q.dtype])
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=)`` given its
+    output ``o``, its rows' log-sum-exp ``lse`` (fp32 ``[B, Hq, Sq]``) and
+    the output's gradient ``do``; each in its input's type, accumulated in
+    fp32 (bf16 / fp16 round P and dS to the input type before their
+    products, ``ref.attention_bwd_ref``)."""
+    _check(q, k, v, causal)
+    B, Sq, Hq, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (B, Hq, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} for q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"o {o.dtype}, do {do.dtype}, lse {lse.dtype}: o "
+                        "and do in q's type, lse float32")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, o, lse, do, causal)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+counted(flash_attention_bwd)

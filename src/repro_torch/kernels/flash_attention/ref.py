@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the flash-attention kernel (its oracles): dense
 GQA attention in fp32, the reference's ``attention_ref``, and the same with
-the tensor-core kernel's rounding of the probabilities."""
+the tensor-core kernel's rounding of the probabilities; the rows'
+log-sum-exp that the forward writes for the backward, and the backward
+itself step by step (``attention_bwd_ref``)."""
 from __future__ import annotations
 
 import math
@@ -10,13 +12,20 @@ import torch
 NEG_INF = -1e30
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The accumulation type: fp32, or fp64 for fp64 operands (an fp32
+    kernel's result held to the same arithmetic carried in fp64)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def _scores(q, k, causal: bool) -> torch.Tensor:
-    """fp32 scores ``[B, Sq, Hkv, G, Sk]`` scaled by 1/sqrt(D), the causal
-    future (aligned bottom-right) at NEG_INF."""
+    """fp32 (fp64 for fp64 operands) scores ``[B, Sq, Hkv, G, Sk]`` scaled
+    by 1/sqrt(D), the causal future (aligned bottom-right) at NEG_INF."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) / math.sqrt(D)
+    acc = _acc(q)
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).to(acc)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(acc)) / math.sqrt(D)
     if causal:
         kpos = torch.arange(Sk, device=q.device)
         qpos = torch.arange(Sq, device=q.device)
@@ -47,3 +56,42 @@ def attention_rounded_p_ref(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(q.dtype).float(), v.float())
     return (o / l).reshape(q.shape).to(q.dtype)
+
+
+def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True
+            ) -> torch.Tensor:
+    """Each row's natural log-sum-exp of the scaled, masked scores, fp32
+    ``[B, Hq, Sq]``: what the forward writes for the backward."""
+    B, Sq, Hq, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)    # [B,Sq,Hkv,G]
+    return lse.reshape(B, Sq, Hq).permute(0, 2, 1).contiguous()
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of ``attention_ref`` step by step in fp32, as the
+    backward kernel computes them: P = exp(S - lse) from the forward's
+    log-sum-exp (``[B, Hq, Sq]``), delta = rowsum(dO * O) from its output,
+    dV = P^T dO, dP = dO V^T, dS = P * (dP - delta), dQ = dS K / sqrt(D),
+    dK = dS^T Q / sqrt(D); the GQA sum over a kv head's G query heads is
+    taken inside the products. For bf16 / fp16 inputs P and dS are rounded
+    to the input type before their products (the tensor-core kernel's
+    operands); in fp32 the rounding is the identity. fp64 operands carry
+    the same arithmetic in fp64. Each gradient in its input's type."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    acc = _acc(q)
+    rnd = lambda t: t.to(q.dtype).to(acc)                    # noqa: E731
+    s = _scores(q, k, causal)                                # [B,Sq,Hkv,G,Sk]
+    lse_g = lse.to(acc).permute(0, 2, 1).reshape(B, Sq, Hkv, G)[..., None]
+    p = torch.exp(s - lse_g)
+    qg = q.reshape(B, Sq, Hkv, G, D).to(acc)
+    dog = do.reshape(B, Sq, Hkv, G, D).to(acc)
+    delta = (dog * o.reshape(B, Sq, Hkv, G, D).to(acc)).sum(-1, keepdim=True)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", rnd(p), dog)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, v.to(acc))
+    ds = rnd(p * (dp - delta))
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -355,3 +355,57 @@ def swiglu(p: dict, x, hetero_ctx=None) -> torch.Tensor:
     g = mm(x, p["w_gate"], name="w_gate")
     u = mm(x, p["w_up"], name="w_up")
     return mm(F.silu(g) * u, p["w_down"], name="w_down")
+
+
+# ----------------------------------------------------------------- training --
+
+_SAVED_DOTS = ("mm", "bmm", "addmm")
+
+
+def remat_policy_of(cfg):
+    """``torch.utils.checkpoint``'s ``context_fn`` of the config's
+    rematerialisation policy: ``"dots"`` keeps the matmul outputs
+    (``aten.mm`` / ``bmm`` / ``addmm``) and recomputes the rest, as the
+    reference's ``checkpoint_dots_with_no_batch_dims`` does; ``"nothing"``
+    (None: the default context) keeps nothing, the whole layer is
+    recomputed in backward."""
+    if cfg.remat_policy != "dots":
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, name).default for name in _SAVED_DOTS}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def _ce_chunk(h, targets, emb_out):
+    logits = matmul_any(h, emb_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_ce_loss(emb_out, h: torch.Tensor, targets: torch.Tensor, *,
+                    chunk: int) -> torch.Tensor:
+    """Mean cross-entropy (fp32) without materialising ``[B, S, V]``: a loop
+    over sequence chunks, the largest divisor of S at most ``chunk``. Each
+    chunk is recomputed in backward (``torch.utils.checkpoint``, as the
+    reference's ``@jax.checkpoint``), so only one chunk's fp32 logits are
+    alive at a time. emb_out: the head ``[D, V]`` (an untied head, possibly
+    a QuantWeight, or the embedding's transpose); h: [B, S, D]; targets:
+    [B, S] ids."""
+    from torch.utils.checkpoint import checkpoint
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        total = total + checkpoint(_ce_chunk, h[:, i:i + chunk],
+                                   targets[:, i:i + chunk], emb_out,
+                                   use_reentrant=False)
+    return total / (B * S)

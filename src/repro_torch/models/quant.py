@@ -9,8 +9,7 @@ QuantWeight per layer as it slices a tensor. Under a HeteroCtx the aligned
 path launches the dequantizing GEMMs; everywhere else the weight is
 dequantized before the product, so every schedule sees the same weight
 values. A tied LM head stays fp: it is the embedding's transpose.
-
-``score_nll`` of the reference waits for the port of ``model.loss``.
+``score_nll`` scores a token set through ``model.loss``.
 """
 from __future__ import annotations
 
@@ -76,3 +75,14 @@ def dequantize_params(params: dict) -> dict:
     if isinstance(params, QuantWeight):
         return params.dequant(torch.float32)
     return params
+
+
+@torch.no_grad()
+def score_nll(model, params: dict, tokens: torch.Tensor) -> float:
+    """Mean next-token NLL (nats/token) of a fixed token set, teacher-forced
+    through ``model.loss`` (fp or quantized params: a QuantWeight site
+    dequantizes on the plan-free path, as in the reference) — the
+    mini-eval behind the perplexity-drift checks. tokens: [B, S+1] ids on
+    the params' device."""
+    _, metrics = model.loss(params, tokens[:, :-1], tokens[:, 1:])
+    return float(metrics["ce"])

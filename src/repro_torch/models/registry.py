@@ -3,6 +3,9 @@ MoE, VLM and audio transformers, the zamba2-style Mamba2 hybrid and RWKV-6.
 
 ``build_model(cfg)`` returns a ``Model`` whose members are plain functions:
     init(generator=None, device="cuda") -> params
+    loss(params, inputs, targets) -> (loss, {"ce", "aux"})  [train objective;
+        the transformer family (dense, MoE, VLM, audio), None for the
+        hybrid and RWKV, whose losses wait for their backward kernels]
     init_cache(batch, max_len, dtype=, device=) -> dense cache
     prefill(params, tokens, cache, start_index=) -> (last_logits, cache)
     decode_step(params, token, cache) -> (logits, cache)
@@ -47,6 +50,7 @@ class Model:
     prefill: Optional[Callable]
     decode_step: Optional[Callable]
     encode: Optional[Callable] = None
+    loss: Optional[Callable] = None
     init_paged_cache: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None
     paged_decode_step: Optional[Callable] = None
@@ -67,9 +71,11 @@ def build_model(cfg) -> Model:
     else:
         mod = transformer
     init = partial(mod.init_params, cfg)
+    loss = (partial(transformer.loss_fn, cfg=cfg) if mod is transformer
+            else None)
     if cfg.encoder_only:
         return Model(cfg=cfg, init=init, init_cache=None, prefill=None,
-                     decode_step=None,
+                     decode_step=None, loss=loss,
                      encode=partial(transformer.forward_hidden, cfg=cfg))
     paged = {}
     if mod is transformer:
@@ -82,7 +88,7 @@ def build_model(cfg) -> Model:
             prefill_slot=partial(transformer.prefill_slot, cfg=cfg),
         )
     return Model(
-        cfg=cfg, init=init,
+        cfg=cfg, init=init, loss=loss,
         init_cache=partial(mod.init_cache, cfg),
         prefill=partial(mod.prefill, cfg=cfg),
         decode_step=partial(mod.decode_step, cfg=cfg),

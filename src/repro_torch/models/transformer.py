@@ -17,9 +17,9 @@ import torch
 from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
-from .layers import (attention, init_attention, init_swiglu, normal_stack,
-                     paged_attention, rms_norm, rope_table, slot_attention,
-                     swiglu)
+from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
+                     normal_stack, paged_attention, remat_policy_of, rms_norm,
+                     rope_table, slot_attention, swiglu)
 from .moe import init_moe, moe_ffn
 
 
@@ -65,13 +65,16 @@ def _layer(lp, x, cfg, attend, hetero_ctx):
     """One pre-norm block; ``attend(attn_params, h) -> (out, kv)`` is the
     dense-cache, paged or cache-free attention of this layer. The FFN is
     the SwiGLU, or the MoE layer (whose capacity groups are the tokens of
-    this call)."""
+    this call). Returns (x, aux): the MoE layer's load-balancing loss, a
+    0-dim fp32 tensor, or None for a dense FFN (the reference's zero),
+    which the serving entry points ignore and ``loss_fn`` sums."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + attend(lp["attn"], h)[0]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
-        return x + moe_ffn(lp["moe"], h, cfg, hetero_ctx=hetero_ctx)[0]
-    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx)
+        out, aux = moe_ffn(lp["moe"], h, cfg, hetero_ctx=hetero_ctx)
+        return x + out, aux
+    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx), None
 
 
 def _embed(params, inputs, cfg):
@@ -95,6 +98,62 @@ def _head_logits(params, x, cfg, hetero_ctx=None):
     return y.float()
 
 
+def unstack_layers(layers: dict, n: int) -> list[dict]:
+    """The ``n`` layers' parameters as views of the stacked ``[L, ...]``
+    tensors, each tensor split by one ``unbind`` (whose backward stacks the
+    layers' gradients once, where indexing layer by layer would scatter
+    each into a zero tensor of the whole stack); a QuantWeight indexes."""
+    out = [{} for _ in range(n)]
+    for name, v in layers.items():
+        if isinstance(v, dict):
+            parts = unstack_layers(v, n)
+        elif isinstance(v, torch.Tensor):
+            parts = v.unbind(0)
+        else:
+            parts = [v[i] for i in range(n)]
+        for i in range(n):
+            out[i][name] = parts[i]
+    return out
+
+
+def _train_layer(x, lp, cfg, positions, freqs):
+    x, aux = _layer(lp, x, cfg,
+                    partial(attention, cfg=cfg, positions=positions,
+                            cache=None, cache_index=None, freqs=freqs), None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def loss_fn(params, inputs, targets, cfg):
+    """Training objective: next-token CE + 0.01 x the MoE aux loss summed
+    over layers / n_layers. inputs: [B, S] token ids or [B, S, D] float
+    embeddings (the modality stub); targets: [B, S] ids. Attention is the
+    cache-free branch (the flash kernel, bidirectional for an encoder-only
+    config). With ``cfg.remat`` each layer is recomputed in backward
+    (``torch.utils.checkpoint``, ``layers.remat_policy_of``), as the
+    reference's ``jax.checkpoint`` per scanned layer. Returns (loss,
+    {"ce", "aux"}), each a 0-dim fp32 tensor."""
+    from torch.utils.checkpoint import checkpoint
+    x = _embed(params, inputs, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
+    freqs = rope_table(cfg, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    context = remat_policy_of(cfg)
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            kw = {} if context is None else {"context_fn": context}
+            x, a = checkpoint(_train_layer, x, lp, cfg, positions, freqs,
+                              use_reentrant=False, **kw)
+        else:
+            x, a = _train_layer(x, lp, cfg, positions, freqs)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_ce_loss(_head_matrix(params, cfg), x, targets,
+                         chunk=cfg.loss_chunk)
+    return ce + 0.01 * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
+
+
 def forward_hidden(params, inputs, cfg):
     """Full-sequence hidden states with no cache (the encoder's ``encode``):
     inputs [B, S] token ids or [B, S, D] float embeddings -> the final
@@ -106,7 +165,8 @@ def forward_hidden(params, inputs, cfg):
     for i in range(cfg.n_layers):
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    partial(attention, cfg=cfg, positions=positions,
-                           cache=None, cache_index=None, freqs=freqs), None)
+                           cache=None, cache_index=None, freqs=freqs),
+                   None)[0]
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -133,7 +193,8 @@ def _run_layers_dense(params, x, cfg, *, cache, hetero_ctx=None,
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    partial(attend, cfg=cfg, cache=layer_cache, freqs=freqs,
-                           hetero_ctx=hetero_ctx, **attend_kw), hetero_ctx)
+                           hetero_ctx=hetero_ctx, **attend_kw),
+                   hetero_ctx)[0]
     return x
 
 
@@ -231,7 +292,7 @@ def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    partial(paged_attention, cfg=cfg, positions=positions,
                            pool=layer_pool, block_table=block_table,
-                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
+                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)[0]
     return x, pool
 
 
@@ -306,11 +367,12 @@ def mixed_step(params, decode_tokens, prefill_tokens, pool, cfg, *,
         xd = _layer(lp, xd, cfg,
                     partial(paged_attention, cfg=cfg, positions=dec_pos,
                             pool=layer_pool, block_table=decode_tables,
-                            freqs=freqs), None)
+                            freqs=freqs), None)[0]
         xp = _layer(lp, xp, cfg,
                     partial(paged_attention, cfg=cfg, positions=pre_pos,
                             pool=layer_pool, block_table=prefill_table,
-                            freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)
+                            freqs=freqs, hetero_ctx=hetero_ctx),
+                    hetero_ctx)[0]
     xd = rms_norm(xd, params["final_norm"], cfg.norm_eps)
     xp = rms_norm(xp, params["final_norm"], cfg.norm_eps)
     return (_head_logits(params, xd, cfg),
