@@ -177,31 +177,46 @@ Among them run the phases of the solver's cost model and its two streams:
      runs in G0 stand for them.
 
   H. (after G, its weights freed) ``phase_training``: training through
-     the flash kernel's backward (``csrc/flash_attention_bwd.cu``). H0 the
-     backward kernel against ``attention_bwd_ref`` on the card in fp32,
-     bf16 and fp16 over the attention conformance grid, hubert's smoke
-     shape with D = 80 (bidirectional) and qwen3-1.7b's path shape [2,
-     4096, 16 / 8, 128] causal in fp32 and bf16 (fp32 held to the plain
-     version carried in fp64), the forward's log-sum-exp against
-     ``lse_ref``, two launches bitwise equal, the bf16 path shape timed
-     against the plain version and SDPA's backward. H1 the five fp32 smoke
-     transformers' loss and gradients on the card against the CPU (flash
-     forward twice a layer, backward once) and a ``train()`` crashed at
-     step 7 with save_every=5 ending at the uninterrupted losses. H2
-     qwen3-1.7b at full width (bf16, fp32 AdamW moments, per-layer remat,
-     seq 4096 x batch 2): step 1's loss and gradients through the kernels
-     against plain attention under autograd (loss 1e-3 relative, cosine
-     >= 0.999 a leaf), then 1 warm-up and 4 timed steps (step time,
-     tokens/s, model-FLOP share, peak memory, the kernels' launches) and a
-     profiled step (busy share). (``[train]`` lines.)
+     the flash kernel's backward (``csrc/flash_attention_bwd.cu``) and the
+     SSD chunk kernel's (the ``ssd_chunk_bwd`` entry of
+     ``csrc/ssd_chunk.cu``). H0 the flash backward against
+     ``attention_bwd_ref`` on the card in fp32, bf16 and fp16 over the
+     attention conformance grid, hubert's smoke shape with D = 80
+     (bidirectional), qwen3-1.7b's path shape [2, 4096, 16 / 8, 128]
+     causal in fp32 and bf16 (fp32 held to the plain version carried in
+     fp64) and zamba2-2.7b's [2, 4096, 32 / 32, 80] causal in bf16, the
+     forward's log-sum-exp against ``lse_ref``, two launches bitwise
+     equal, both bf16 path shapes timed against the plain version and
+     SDPA's backward; then the SSD backward against ``ssd_chunk_bwd_ref``
+     carried in fp64 (``phase_ssd_bwd``: L 1 / 17 / 88 / 256, nh 1 / 3 /
+     80, hd = N 16 / 64, zero and random S_prev, strided operands, decays
+     whose upper exponents overflow; 1e-4 on every output, two launches
+     bitwise equal; the path shape [2, 256, 80, 64, 64] timed beside its
+     bounds and the plain version). H1 the seven fp32 smoke models' loss
+     and gradients on the card against the CPU (the five transformers,
+     zamba2 and rwkv6; launches as ``train_launches`` counts them) and
+     ``train()``s of the smollm and zamba2 smoke models crashed at step 7
+     with save_every=5 ending at the uninterrupted losses. H2 qwen3-1.7b,
+     H3 zamba2-2.7b and H4 rwkv6-3b at full width (bf16, fp32 AdamW
+     moments, remat per layer or period, seq 4096 x batch 2): for H2 and
+     H3 step 1's loss and gradients through the kernels against their
+     plain versions under autograd (H2 in bf16: loss 1e-3 relative, cosine
+     >= 0.999 a leaf; H3 on the same model in fp32, loss 1e-5, cosine >=
+     0.99999: in bf16 its gradient's floor under any perturbation is near
+     0.9985), then 1 warm-up and 4 timed steps (H4: 2) (step time,
+     tokens/s, model-FLOP share, peak memory, the kernels' launches equal
+     to ``train_launches``) and a profiled step (busy share, device time a
+     call of each backward). (``[train]`` lines.)
 
 The line before the last is the kernels JSON line (each kernel launched
 on a phase E arm also carries ``serving_arms_launches``, on phase F's
 F1 / F2 ``front_end_launches``, and on phase G's G1 / G3
 ``families_launches``; the flash entry carries hubert's row as
-``encoder_row`` and its launches in H2's timed steps as
-``training_launches``; the seventh row is the backward, not a TPU kernel,
-its launches H2's); the last line is ``{"ok": true, "device": {...}}``.
+``encoder_row``; the flash and SSD entries carry their launches in H2's
+and H3's timed steps as ``training_launches``; the seventh row is the
+flash backward, the eighth the SSD backward, neither a TPU kernel, their
+launches H2's and H3's); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -310,11 +325,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # kernels whose -Xptxas -v report must show no spill: the tensor-core
 # kernels (gemm_tc, qgemm_tc in int8 and int4, flash_tc, the SSD chunk's
-# ssd_cb_tc and ssd_chunk_tc, the flash backward's two) and split-KV decode
-# attention
+# ssd_cb_tc and ssd_chunk_tc, the flash backward's two), split-KV decode
+# attention and the SSD backward's main kernel
 SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine",
               "ssd_cb_tc", "ssd_chunk_tc", "flash_bwd_dkdv_tc",
-              "flash_bwd_dq_tc")
+              "flash_bwd_dq_tc", "ssd_bwd_fma")
 
 
 def phase_card_and_build() -> str:
@@ -1107,14 +1122,14 @@ def _counters():
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_bwd)
     from repro_torch.kernels.hetero_matmul import ops
-    from repro_torch.kernels.ssm_scan.ops import ssd_chunk
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunk, ssd_chunk_bwd
     return {"hetero_matmul": ops.mxu_matmul,
             "quant_matmul_int8": ops.mxu_quant_matmul,
             "quant_matmul_q4": ops.mxu_q4_matmul,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention,
-            "ssd_chunk": ssd_chunk}
+            "ssd_chunk": ssd_chunk, "ssd_chunk_bwd": ssd_chunk_bwd}
 
 
 KERNEL_OF_FORMAT = {None: "hetero_matmul", "int8": "quant_matmul_int8",
@@ -1811,9 +1826,11 @@ def phase_flash_bwd() -> dict:
     and not, Sq == Sk and Sq < Sk, D = 16, 97 -> 97 and 128), hubert's smoke
     shape with its full head dim 80 (bidirectional), then the training
     path's shape at qwen3-1.7b ([2, 4096, 16 / 8, 128], causal) in fp32 and
-    bf16, the bf16 one timed against the plain version and SDPA's backward.
-    Every case also holds the forward's log-sum-exp to ``lse_ref`` and two
-    backward launches to each other, bitwise."""
+    bf16, the bf16 one timed against the plain version and SDPA's backward,
+    and zamba2-2.7b's shared block ([2, 4096, 32 / 32, 80], causal, bf16:
+    the kernel's DP = 96 instantiation), timed the same way. Every case
+    also holds the forward's log-sum-exp to ``lse_ref`` and two backward
+    launches to each other, bitwise."""
     import torch
     from repro_torch.configs import dtype_of
 
@@ -1841,6 +1858,11 @@ def phase_flash_bwd() -> dict:
             label="path qwen3-1.7b", worst=worst, timing=dname == "bfloat16")
         torch.cuda.empty_cache()
         n += 1
+    path["zamba2"] = _flash_bwd_case(
+        g, 2, 4096, 4096, 32, 1, 80, torch.bfloat16, True,
+        label="path zamba2-2.7b", worst=worst, timing=True)
+    torch.cuda.empty_cache()
+    n += 1
     for (kname, dname), e in sorted(worst.items()):
         log(f"[train] H0 {kname} {dname:8s}: worst rel_err {e:.3g} <= "
             f"{DTYPE_TOL[dname]}")
@@ -1849,13 +1871,137 @@ def phase_flash_bwd() -> dict:
     for row in path.values():
         log(f"[train] H0 path {json.dumps(row)}")
     return {"path": path["bfloat16"], "path_fp32": path["float32"],
-            "worst": worst}
+            "path_zamba2": path["zamba2"], "worst": worst}
+
+
+def _ssd_bwd_bound(Bb, L, nh, hd, N) -> dict:
+    """The least time of one SSD chunk backward on the card: its bytes (xb,
+    B_, C_, seg, S_prev, dy and dS_new read once; dxb, dB_, dC_, dseg and
+    dS_prev written once) over the memory rate against its operations over
+    the causal pairs (C.B^T once per batch; dM, M^T dy, dA B and dA^T C a
+    head; five per pair for the decay and its products) and the five
+    state products a head, over the CUDA-core fp32 rate (``bound_ms``);
+    and the same operations as three TF32 products each on the tensor
+    cores (``bound_split_tf32_ms``)."""
+    pairs = L * (L + 1) // 2
+    n_x, n_bc, n_s = Bb * L * nh * hd, Bb * L * N, Bb * nh * hd * N
+    nbytes = 4 * (3 * n_x + 4 * n_bc + 2 * Bb * L * nh + 3 * n_s)
+    flops = 2 * Bb * N * pairs + Bb * nh * (
+        4 * (hd + N) * pairs + 5 * pairs + 10 * L * hd * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_split = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_split_tf32_ms": max(t_bytes, t_split),
+            "bound_split_tf32_by": "bytes" if t_bytes >= t_split
+            else "operations", "flops": flops, "bytes": nbytes}
+
+
+def _ssd_bwd_inputs(g, Bb, L, nh, hd, N, *, state: bool, steep: bool):
+    """Seeded operands of one chunk's backward laid out as ``scan_chunks``
+    hands them to the kernel: xb, seg and dy a run of L rows out of a
+    longer sequence, B_ and C_ column slices of the conv output; S_prev
+    zero or not. ``steep``: seg falls 20 a step, so exp(seg_i - seg_j)
+    above the diagonal overflows fp32 (exponents up to 20 (L - 1))."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    S, at, conv = L + 9, 5, hd * nh + 2 * N
+    sl = slice(at, at + L)
+    xb = r(Bb, S, nh, hd, scale=0.5)[:, sl]
+    wide = r(Bb, S, conv, scale=0.5)
+    B_, C_ = wide[:, sl, conv - 2 * N:conv - N], wide[:, sl, conv - N:]
+    step = (torch.full((Bb, S, nh), 20.0, device="cuda") if steep
+            else r(Bb, S, nh).abs() * 0.1)
+    seg = -torch.cumsum(step[:, sl], dim=1).contiguous()
+    seg = torch.cat([seg, seg], dim=1)[:, :L]          # rows strided 2 L nh
+    S_prev = (r(Bb, nh, hd, N, scale=0.3) if state else
+              torch.zeros((Bb, nh, hd, N), device="cuda"))
+    dy = r(Bb, S, nh, hd)[:, sl]
+    dS = r(Bb, nh, hd, N)
+    return (xb, B_, C_, seg, S_prev), dy, dS
+
+
+def phase_ssd_bwd() -> dict:
+    """H0, the SSD chunk backward (``ssd_chunk_bwd``, not a TPU kernel)
+    against its plain version (``ssd_chunk_bwd_ref``) carried in fp64: L in
+    1 / 17 / 88 / 256, nh in 1 / 3 / 80, hd = N in 16 / 64, S_prev zero
+    and not, strided operands as ``scan_chunks`` passes them, and decays
+    whose upper exponents overflow fp32; rel_err <= SSD_TOL on every output,
+    every output finite, a second launch bitwise equal. Then the training
+    path's shape (B 2, L 256, nh 80, hd = N = 64): CUDA events, the plain
+    version's time and both bounds; no PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_bwd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    names = ("dxb", "dB", "dC", "dseg", "dS_prev")
+    worst, n = 0.0, 0
+    cases = [(L, nh, d, state, False) for L in (1, 17, 88, 256)
+             for nh in (1, 3, 80) for d in (16, 64) for state in (False, True)]
+    cases += [(L, 3, 16, True, True) for L in (17, 88, 256)]
+    for L, nh, d, state, steep in cases:
+        ins, dy, dS = _ssd_bwd_inputs(g, 2, L, nh, d, d, state=state,
+                                      steep=steep)
+        before = ops.ssd_chunk_bwd.launches
+        got = ops.ssd_chunk_bwd(*ins, dy, dS)
+        again = ops.ssd_chunk_bwd(*ins, dy, dS)
+        torch.cuda.synchronize()
+        if ops.ssd_chunk_bwd.launches != before + 2:
+            raise AssertionError("[train] H0 ssd_chunk_bwd never launched")
+        want = ssd_chunk_bwd_ref(*(t.double() for t in (*ins, dy, dS)))
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        label = (f"L {L} nh {nh} hd = N = {d} S_prev "
+                 f"{'random' if state else 'zero'}{' steep' if steep else ''}")
+        if not (all(torch.isfinite(t).all() for t in got)
+                and max(errs) <= SSD_TOL):
+            raise AssertionError(f"[train] H0 ssd_chunk_bwd {label}: rel_err "
+                                 f"{dict(zip(names, errs))} > {SSD_TOL}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"[train] H0 ssd_chunk_bwd {label}: two "
+                                 "launches differ")
+        worst = max(worst, *errs)
+        n += 1
+    log(f"[train] H0 ssd_chunk_bwd: {n} cases, worst rel_err {worst:.3g} <= "
+        f"{SSD_TOL} (fp64 plain version), two launches bitwise equal")
+
+    Bb, L, nh, d = 2, 256, 80, 64
+    ins, dy, dS = _ssd_bwd_inputs(g, Bb, L, nh, d, d, state=True,
+                                  steep=False)
+    got = ops.ssd_chunk_bwd(*ins, dy, dS)
+    want = ssd_chunk_bwd_ref(*(t.double() for t in (*ins, dy, dS)))
+    plain = ssd_chunk_bwd_ref(*ins, dy, dS)
+    torch.cuda.synchronize()
+    row = {"case": "path zamba2-2.7b", "shape": [Bb, L, nh, d, d],
+           "dtype": "float32",
+           "rel_err": dict(zip(names, (rel_err(a, b)
+                                       for a, b in zip(got, want)))),
+           "plain_fp32_rel_err": max(rel_err(a, b)
+                                     for a, b in zip(plain, want)),
+           "max_abs_err": max(float((a.double() - b).abs().max())
+                              for a, b in zip(got, want))}
+    del want, plain
+    row["ms"] = cuda_time_ms(lambda: ops.ssd_chunk_bwd(*ins, dy, dS))
+    row["plain_ms"] = cuda_time_ms(lambda: ssd_chunk_bwd_ref(*ins, dy, dS),
+                                   iters=5, warmup=1)
+    row.update(_ssd_bwd_bound(Bb, L, nh, d, d))
+    row.update(library_ms=None, library_note="none: no single PyTorch call "
+               "computes an SSD chunk step's gradient")
+    log(f"[train] H0 ssd path {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    return {"path": row, "worst": worst, "cases": n}
 
 
 TRAIN_SMOKE = ("smollm-135m", "qwen3-1.7b", "qwen2-moe-a2.7b",
-               "chameleon-34b", "hubert-xlarge")
+               "chameleon-34b", "hubert-xlarge", "zamba2-2.7b", "rwkv6-3b")
 TRAIN_LOSS_TOL = 1e-5   # relative: the same fp32 loss, card against CPU
 TRAIN_GRAD_TOL = 1e-4   # rel_err per leaf: fp32 sums in other orders
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                 "ssd_chunk_bwd")
 
 
 def _train_batch(cfg, B: int, S: int, seed: int = 0) -> tuple:
@@ -1869,22 +2015,43 @@ def _train_batch(cfg, B: int, S: int, seed: int = 0) -> tuple:
     return inputs, toks[:, 1:]
 
 
-def _flash_counts() -> dict:
+def _train_counts() -> dict:
     counts = _read_counts()
-    return {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")}
+    return {k: counts[k] for k in TRAIN_KERNELS}
+
+
+def train_launches(cfg, seq: int) -> dict:
+    """The training kernels' launches in one ``loss_and_grads`` of a
+    ``seq``-token batch, from the code: every attention layer's flash
+    forward once, and again under remat's recompute, its backward once; for
+    the hybrid, per mamba layer one SSD chunk forward a chunk (twice under
+    remat) and one backward a chunk, and the shared block's attention once
+    a period; RWKV-6 launches none."""
+    twice = 2 if cfg.remat else 1
+    if cfg.rwkv is not None:
+        fa = ssd = 0
+    elif cfg.ssm is not None:
+        fa = cfg.n_layers // cfg.ssm.attn_every
+        ssd = cfg.n_layers * -(-seq // min(cfg.ssm.chunk, seq))
+    else:
+        fa, ssd = cfg.n_layers, 0
+    return {"flash_attention": twice * fa, "flash_attention_bwd": fa,
+            "ssd_chunk": twice * ssd, "ssd_chunk_bwd": ssd}
 
 
 def phase_train_smoke(device: str = "cuda") -> dict:
-    """H1: the fp32 smoke models of the five transformer configs on the
-    card against the port on the CPU: loss (1e-5 relative) and every
-    leaf's gradient (rel_err 1e-4), the card's attention through the flash
-    kernel's forward (twice a layer: the pass and remat's recompute) and
-    its backward (once a layer). Then ``train()`` of the smollm smoke model
-    on the card, 9 steps with save_every=5, crashed before step 8 (at step
-    index 7): the run restores step 5 and ends at the uninterrupted run's
-    losses. On the card the embedding's backward (an index_put with
-    accumulate) adds with atomics, so two runs need not agree bitwise: the
-    losses are held within TRAIN_LOSS_TOL."""
+    """H1: the fp32 smoke models of the five transformer configs, the
+    zamba2 hybrid and RWKV-6 on the card against the port on the CPU: loss
+    (1e-5 relative) and every leaf's gradient (rel_err 1e-4), the card's
+    attention through the flash kernel's forward (twice a layer: the pass
+    and remat's recompute) and its backward (once a layer), the hybrid's
+    SSD scan through the chunk kernel (twice a chunk) and its backward
+    (once), as ``train_launches`` counts them. Then ``train()`` of the
+    smollm and zamba2 smoke models on the card, 9 steps with save_every=5,
+    crashed before step 8 (at step index 7): each run restores step 5 and
+    ends at the uninterrupted run's losses. On the card the embedding's
+    backward (an index_put with accumulate) adds with atomics, so two runs
+    need not agree bitwise: the losses are held within TRAIN_LOSS_TOL."""
     import shutil
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1910,9 +2077,8 @@ def phase_train_smoke(device: str = "cuda") -> dict:
                              torch.from_numpy(inputs).to(device),
                              torch.from_numpy(targets).to(device))
         fence(got[0])
-        counts = _flash_counts()
-        expect = {"flash_attention": 2 * cfg.n_layers,
-                  "flash_attention_bwd": cfg.n_layers}
+        counts = _train_counts()
+        expect = train_launches(cfg, 40)
         if counts != expect:
             raise AssertionError(f"[train] H1 {arch}: launches {counts}, "
                                  f"expected {expect}")
@@ -1920,11 +2086,14 @@ def phase_train_smoke(device: str = "cuda") -> dict:
         e_aux = abs(float(got[1]["aux"]) - float(want[1]["aux"]))
         e_grad = max(rel_err(a.cpu(), b) for a, b in
                      zip(_leaves(got[2]), _leaves(want[2])) if b.any())
-        if not (e_loss <= TRAIN_LOSS_TOL and e_aux <= TRAIN_LOSS_TOL
+        finite = all(torch.isfinite(g).all() for g in _leaves(got[2]))
+        if not (finite and e_loss <= TRAIN_LOSS_TOL
+                and e_aux <= TRAIN_LOSS_TOL
                 * max(abs(float(want[1]["aux"])), 1.0)
                 and e_grad <= TRAIN_GRAD_TOL):
             raise AssertionError(f"[train] H1 {arch}: loss {e_loss:.3g}, aux "
-                                 f"{e_aux:.3g}, grads {e_grad:.3g}")
+                                 f"{e_aux:.3g}, grads {e_grad:.3g}, finite "
+                                 f"{finite}")
         out[arch] = {"loss_rel_err": e_loss, "aux_abs_err": e_aux,
                      "grad_rel_err": e_grad, "launches": counts}
         log(f"[train] H1 {arch}: loss card {float(got[0]):.6f} cpu "
@@ -1932,77 +2101,141 @@ def phase_train_smoke(device: str = "cuda") -> dict:
             f"{float(got[1]['aux']):.6f}, worst grad rel_err {e_grad:.2e}, "
             f"launches {counts}")
 
-    cfg = get_smoke_config("smollm-135m").with_(**fp32)
     shape = ShapeSpec("h1", 32, 4, "train")
     ckpt = ROOT / "build" / "train_ckpt"
-    crashed = []
+    for arch in ("smollm-135m", "zamba2-2.7b"):
+        cfg = get_smoke_config(arch).with_(**fp32)
+        crashed = []
 
-    def injector(step):
-        if step == 7 and not crashed:
-            crashed.append(step)
-            raise RuntimeError("simulated node failure")
+        def injector(step):
+            if step == 7 and not crashed:
+                crashed.append(step)
+                raise RuntimeError("simulated node failure")
 
-    runs = {}
-    for label, inject in (("plain", None), ("crashed", injector)):
-        shutil.rmtree(ckpt / label, ignore_errors=True)
-        params = build_model(cfg).init(
-            torch.Generator(device=device).manual_seed(0), device=device)
-        _, losses, _ = train(
-            cfg, TrainConfig(steps=9, log_every=1, save_every=5,
-                             ckpt_dir=str(ckpt / label)), shape,
-            device=device, params=params, clock=FakeClock(),
-            fail_injector=inject, log=lambda *a: None)
-        runs[label] = dict(losses)
-    shutil.rmtree(ckpt, ignore_errors=True)
-    diffs = [abs(runs["crashed"][k] - v) / abs(v)
-             for k, v in runs["plain"].items()]
-    if crashed != [7] or sorted(runs["crashed"]) != list(range(1, 10)) \
-            or max(diffs) > TRAIN_LOSS_TOL:
-        raise AssertionError(f"[train] H1 crash-restart: {runs}")
-    log(f"[train] H1 crash at step 7, restored step 5: losses "
-        f"{[round(v, 6) for v in runs['crashed'].values()]} against "
-        f"{[round(v, 6) for v in runs['plain'].values()]} (worst relative "
-        f"{max(diffs):.2e}, bitwise equal: "
-        f"{runs['crashed'] == runs['plain']})")
-    out["crash"] = {"worst": max(diffs),
+        runs = {}
+        for label, inject in (("plain", None), ("crashed", injector)):
+            shutil.rmtree(ckpt / label, ignore_errors=True)
+            params = build_model(cfg).init(
+                torch.Generator(device=device).manual_seed(0), device=device)
+            _, losses, _ = train(
+                cfg, TrainConfig(steps=9, log_every=1, save_every=5,
+                                 ckpt_dir=str(ckpt / label)), shape,
+                device=device, params=params, clock=FakeClock(),
+                fail_injector=inject, log=lambda *a: None)
+            runs[label] = dict(losses)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        diffs = [abs(runs["crashed"][k] - v) / abs(v)
+                 for k, v in runs["plain"].items()]
+        if crashed != [7] or sorted(runs["crashed"]) != list(range(1, 10)) \
+                or max(diffs) > TRAIN_LOSS_TOL:
+            raise AssertionError(f"[train] H1 {arch} crash-restart: {runs}")
+        log(f"[train] H1 {arch} crash at step 7, restored step 5: losses "
+            f"{[round(v, 6) for v in runs['crashed'].values()]} against "
+            f"{[round(v, 6) for v in runs['plain'].values()]} (worst "
+            f"relative {max(diffs):.2e}, bitwise equal: "
+            f"{runs['crashed'] == runs['plain']})")
+        key = "crash" if arch == "smollm-135m" else f"crash {arch}"
+        out[key] = {"worst": max(diffs),
                     "bitwise": runs["crashed"] == runs["plain"]}
     return out
 
 
 @contextmanager
-def _plain_attention():
+def _plain_kernels():
     """``models.layers``' flash attention swapped for its plain version
-    (``attention_ref``), whose gradient is torch's autograd."""
+    (``attention_ref``), and the SSD scan's chunk step for its own
+    (``ssd_chunk_ref``); the gradient of each is torch's autograd."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_scan.ref import ssd_chunk_ref
     from repro_torch.models import layers
-    saved = layers.flash_attention
-    layers.flash_attention = attention_ref
+    saved = layers.flash_attention, ssd_ops.ssd_chunk
+    layers.flash_attention, ssd_ops.ssd_chunk = attention_ref, ssd_chunk_ref
     try:
         yield
     finally:
-        layers.flash_attention = saved
+        layers.flash_attention, ssd_ops.ssd_chunk = saved
 
 
-def _matmul_params(params) -> int:
-    """Parameters of the products (layer matrices and an untied head; not
-    the embedding gather or the norms)."""
-    n = sum(t.numel() for t in _leaves(params["layers"]) if t.ndim >= 3)
+def _matmul_params(cfg, params) -> int:
+    """Parameters of the products a token passes through once (layer
+    matrices, the hybrid's shared block once a period, an untied head; not
+    the embedding gather, the norms, the depthwise conv or RWKV's mixing
+    weights)."""
+    if cfg.ssm is not None:
+        mamba = params["mamba"]["in_proj"].numel() + \
+            params["mamba"]["out_proj"].numel()
+        shared = sum(t.numel() for t in _leaves(params["shared"])
+                     if t.ndim >= 2)
+        n = mamba + cfg.n_layers // cfg.ssm.attn_every * shared
+    else:
+        from repro_torch.training.tree import tree_flatten
+        n = sum(t.numel() for path, t in tree_flatten(params["layers"])
+                if t.ndim >= 3 and path[-1] != "mix")
     return n + (params["head"].numel() if "head" in params else 0)
 
 
-def phase_train_full(seq: int = 4096, batch: int = 2, steps: int = 4,
+def _model_flops(cfg, params, seq: int, batch: int) -> dict:
+    """A training step's model FLOPs, without remat's recompute: 6 N T over
+    the products' parameters (``_matmul_params``), plus three times the
+    forward FLOPs of each sequence mixer: causal attention's two products
+    (4 H D over the causal pairs, a layer or a period), the SSD scan's
+    chunks (C.B^T once per batch, att . xb and the state in and out, a
+    head), RWKV-6's chunked WKV (the pairwise decayed r.k and its product
+    with v over the strictly causal pairs, the bonus, the state in and
+    out)."""
+    n_mm = _matmul_params(cfg, params)
+    tokens = seq * batch
+    mixer = 0
+    if cfg.rwkv is not None:
+        L = min(cfg.rwkv.chunk, seq)
+        H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        strict = L * (L - 1) // 2
+        per_chunk = batch * H * (5 * hd * strict + 3 * L * hd
+                                 + 4 * L * hd * hd)
+        mixer = cfg.n_layers * -(-seq // L) * per_chunk
+    else:
+        pairs = seq * (seq + 1) // 2
+        n_attn = (cfg.n_layers // cfg.ssm.attn_every if cfg.ssm is not None
+                  else cfg.n_layers)
+        mixer = 4 * n_attn * batch * cfg.n_heads * cfg.head_dim * pairs
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            L = min(s.chunk, seq)
+            nh = s.expand * cfg.d_model // s.head_dim
+            cp = L * (L + 1) // 2
+            per_chunk = batch * (2 * s.d_state * cp + nh * (
+                2 * s.head_dim * cp + 4 * s.head_dim * s.d_state * L))
+            mixer += cfg.n_layers * -(-seq // L) * per_chunk
+    return {"matmul_params": n_mm, "model_flops": 6 * n_mm * tokens
+            + 3 * mixer, "mixer_fwd_flops": mixer}
+
+
+def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
+                     batch: int = 2, steps: int = 4, *, label: str = "H2",
+                     parity: bool = True, parity_dtype: str | None = None,
                      device: str = "cuda") -> dict:
-    """H2: qwen3-1.7b at full width (28 layers, d_model 2048, 16 / 8 heads
-    of 128, d_ff 6144, vocab 151936, untied, qk-norm; bf16, seeded random
-    weights, fp32 AdamW moments), per-layer remat, seq 4096 x batch 2 of
-    SyntheticLM tokens. Parity first: step 1's loss and every leaf's
-    gradient through the flash kernels against the same with plain
-    attention under autograd on the card (loss within 1e-3 relative, each
-    gradient at cosine >= 0.999). Then 1 warm-up and ``steps`` timed steps
-    of ``make_train_step`` (each fenced), the flash kernels' launches
-    counted from 0 over the timed steps, peak memory over them, and one
-    more step under torch.profiler for the busy share. No checkpoint is
-    written at this width."""
+    """A full-width training cell (bf16, seeded random weights, fp32 AdamW
+    moments, remat per layer or period, seq x batch of SyntheticLM
+    tokens). H2: qwen3-1.7b (28 layers, d_model 2048, 16 / 8 heads of 128,
+    d_ff 6144, vocab 151936, untied, qk-norm); H3: zamba2-2.7b (54 mamba
+    layers, d_model 2560, 80 SSD heads of 64, the shared block every 6
+    layers, 32 heads of 80); H4: rwkv6-3b (32 layers, d_model 2560, no
+    port kernel on its path). With ``parity``, step 1's loss and every
+    leaf's gradient through the kernels against the same with their plain
+    versions under autograd on the card (``_plain_kernels``: loss within
+    1e-3 relative, each gradient at cosine >= 0.999), on the cell's bf16
+    weights or, with ``parity_dtype="float32"``, on the same model with
+    fp32 weights and activations (loss within TRAIN_LOSS_TOL, cosine >=
+    0.99999): zamba2-2.7b's bf16 gradient has a floor near 0.9985 under
+    any perturbation, two plain attentions that round P differently
+    included (PERF.md, the SSD backward's findings), so only fp32
+    separates a faulty kernel from bf16 rounding there. Then 1 warm-up and
+    ``steps`` timed steps of ``make_train_step`` (each fenced), the
+    training kernels' launches counted from 0 over the timed steps (each
+    ``train_launches`` a step), peak memory over them, and one more step
+    under torch.profiler for the busy share. No checkpoint is written at
+    this width."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import fence
@@ -2013,40 +2246,64 @@ def phase_train_full(seq: int = 4096, batch: int = 2, steps: int = 4,
                                                  make_train_step)
     from repro_torch.training.tree import tree_flatten
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0),
-                        device=device)
-    n_params = sum(t.numel() for t in _leaves(params))
-    n_mm = _matmul_params(params)
+    gen = lambda: torch.Generator(device=device).manual_seed(0)  # noqa: E731
     data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
     first = data.next()
     inputs = torch.from_numpy(first["inputs"]).to(device)
     targets = torch.from_numpy(first["targets"]).to(device)
 
-    loss_k, _, grads_k = loss_and_grads(model, params, inputs, targets)
-    with _plain_attention():
-        loss_p, _, grads_p = loss_and_grads(model, params, inputs, targets)
-    e_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    cos = {"/".join(path): float(torch.nn.functional.cosine_similarity(
-        a.float().flatten(), b.float().flatten(), dim=0))
-        for (path, a), (_, b) in zip(tree_flatten(grads_k),
-                                     tree_flatten(grads_p))}
-    worst = min(cos, key=cos.get)
-    log(f"[train] H2 parity: step-1 loss kernels {float(loss_k):.6f}, plain "
-        f"attention {float(loss_p):.6f} (rel {e_loss:.2e}); gradient cosine "
-        f"worst {cos[worst]:.6f} ({worst}), mean "
-        f"{sum(cos.values()) / len(cos):.6f} over {len(cos)} leaves")
-    if not (e_loss <= 1e-3 and cos[worst] >= 0.999):
-        raise AssertionError(f"[train] H2 parity: loss {e_loss:.3g}, "
-                             f"cosine {cos[worst]:.6f} ({worst})")
-    del grads_k, grads_p
-    torch.cuda.empty_cache()
+    marks = [("start", time.perf_counter())]
+    e_loss, worst_cos, params = None, None, None
+    if parity:
+        pcfg = cfg if parity_dtype is None else cfg.with_(
+            param_dtype=parity_dtype, compute_dtype=parity_dtype)
+        loss_tol, cos_min = ((1e-3, 0.999) if parity_dtype is None
+                             else (TRAIN_LOSS_TOL, 0.99999))
+        pmodel = build_model(pcfg)
+        pparams = pmodel.init(gen(), device=device)
+        log(f"[train] {label} parity: {torch.cuda.memory_allocated() / 1e9:.2f}"
+            " GB allocated with the parity weights")
+        loss_k, _, grads_k = loss_and_grads(pmodel, pparams, inputs, targets)
+        # the kernels' gradients wait in host memory while the plain pass
+        # runs (the fp32 plain attention's scores alone take 4.3 GB a copy)
+        grads_k = [(path, t.cpu()) for path, t in tree_flatten(grads_k)]
+        torch.cuda.empty_cache()
+        with _plain_kernels():
+            loss_p, _, grads_p = loss_and_grads(pmodel, pparams, inputs,
+                                                targets)
+        e_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        cos = {"/".join(path): float(torch.nn.functional.cosine_similarity(
+            a.to(device).float().flatten(), b.float().flatten(), dim=0))
+            for (path, a), (_, b) in zip(grads_k, tree_flatten(grads_p))}
+        worst = min(cos, key=cos.get)
+        worst_cos = cos[worst]
+        log(f"[train] {label} parity ({pcfg.param_dtype}): step-1 loss "
+            f"kernels {float(loss_k):.6f}, plain {float(loss_p):.6f} (rel "
+            f"{e_loss:.2e}); gradient cosine worst {cos[worst]:.7f} "
+            f"({worst}), mean {sum(cos.values()) / len(cos):.7f} over "
+            f"{len(cos)} leaves")
+        if not (e_loss <= loss_tol and cos[worst] >= cos_min):
+            raise AssertionError(f"[train] {label} parity: loss {e_loss:.3g}"
+                                 f", cosine {cos[worst]:.7f} ({worst})")
+        if pcfg is cfg:
+            params = pparams
+        del grads_k, grads_p, pparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(("parity", time.perf_counter()))
+    if params is None:
+        params = model.init(gen(), device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    flops = _model_flops(cfg, params, seq, batch)
+    marks.append(("init", time.perf_counter()))
 
     _, step_fn = make_train_step(cfg, TrainConfig(), device=device)
     state = opt.init_state(params)
     state, metrics = step_fn(state, first)          # warm-up step
     fence(state["step"])
+    marks.append(("warm-up", time.perf_counter()))
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     times, losses = [], []
@@ -2057,50 +2314,68 @@ def phase_train_full(seq: int = 4096, batch: int = 2, steps: int = 4,
         fence(state["step"])
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
-    counts = _flash_counts()
+    counts = _train_counts()
     peak = torch.cuda.max_memory_allocated()
-    expect = {"flash_attention": 2 * cfg.n_layers * steps,
-              "flash_attention_bwd": cfg.n_layers * steps}
+    expect = {k: n * steps for k, n in train_launches(cfg, seq).items()}
     if counts != expect:
-        raise AssertionError(f"[train] H2 launches {counts}, expected "
+        raise AssertionError(f"[train] {label} launches {counts}, expected "
                              f"{expect}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[train] H2 losses {losses}")
+        raise AssertionError(f"[train] {label} losses {losses}")
+    marks.append(("timed", time.perf_counter()))
     nxt = data.next()
-    prof = _profiled("train-step", lambda: step_fn(state, nxt),
+    prof = _profiled(f"train-step {arch}", lambda: step_fn(state, nxt),
                      state["step"])
+    marks.append(("profiled", time.perf_counter()))
+    log(f"[time] {label} " + ", ".join(
+        f"{name} {t - t0:.1f}s" for (_, t0), (name, t) in zip(marks,
+                                                              marks[1:])))
     step_s = sum(times) / len(times)
     tokens = seq * batch
-    pairs = seq * (seq + 1) // 2
-    attn_flops = 12 * cfg.n_layers * batch * cfg.n_heads * cfg.head_dim \
-        * pairs
-    model_flops = 6 * n_mm * tokens + attn_flops
-    def per_call_ms(names, calls):
-        us = sum(r[0] for r in prof["rows"] if any(n in r[2] for n in names))
-        return us / 1e3 / calls
 
+    def kernel_ms(names, calls):
+        """Device ms a call of the kernels whose names hold one of
+        ``names``, over ``calls`` calls in the profiled step."""
+        us = sum(r[0] for r in prof["rows"] if any(n in r[2] for n in names))
+        return us / 1e3 / calls if calls else None
+
+    per_step = train_launches(cfg, seq)
+    ssd_calls = per_step["ssd_chunk"] + per_step["ssd_chunk_bwd"]
     row = {"arch": cfg.name, "seq": seq, "batch": batch,
-           "params": n_params, "matmul_params": n_mm,
+           "params": n_params, **flops,
            "step_s": times, "mean_step_s": step_s,
            "tokens_per_s": tokens / step_s,
-           "model_flops": model_flops,
-           "model_flop_share": model_flops / step_s / PEAK_FLOPS["bfloat16"],
-           "remat_flops": 8 * n_mm * tokens + 16 * attn_flops // 12,
+           "model_flop_share": flops["model_flops"] / step_s
+           / PEAK_FLOPS["bfloat16"],
            "peak_gb": peak / 1e9, "busy_share": prof["share"],
            "profiled_wall_s": prof["wall_s"], "losses": losses,
            "launches": counts, "parity_loss_rel": e_loss,
-           "parity_worst_cos": cos[worst],
-           # device time a call in the profiled step: the backward's three
-           # kernels, and the forward's (twice a layer)
-           "bwd_step_device_ms": per_call_ms(("flash_bwd",), cfg.n_layers),
-           "fwd_step_device_ms": per_call_ms(("flash_tc",),
-                                             2 * cfg.n_layers)}
-    log(f"[train] H2 {cfg.name} seq {seq} x batch {batch}: step "
+           "parity_worst_cos": worst_cos,
+           "parity_dtype": (parity_dtype or cfg.param_dtype) if parity
+           else None,
+           # device time a call in the profiled step: the attention
+           # backward's kernels, the forward's; the SSD backward's own two
+           # kernels plus its share of C.B^T (ssd_cb_tc, launched by the
+           # forward's and the backward's calls alike), and the forward's
+           "bwd_step_device_ms": kernel_ms(("flash_bwd",),
+                                           per_step["flash_attention_bwd"]),
+           "fwd_step_device_ms": kernel_ms(("flash_tc",),
+                                           per_step["flash_attention"]),
+           "ssd_bwd_step_device_ms": None if not ssd_calls else
+           kernel_ms(("ssd_bwd",), per_step["ssd_chunk_bwd"])
+           + kernel_ms(("ssd_cb_tc",), ssd_calls),
+           "ssd_fwd_step_device_ms": None if not ssd_calls else
+           kernel_ms(("ssd_chunk_tc",), per_step["ssd_chunk"])
+           + kernel_ms(("ssd_cb_tc",), ssd_calls)}
+    # with remat's recompute: one more forward of the products and mixers
+    row["remat_flops"] = 8 * flops["matmul_params"] * tokens \
+        + 4 * flops["mixer_fwd_flops"]
+    log(f"[train] {label} {cfg.name} seq {seq} x batch {batch}: step "
         f"{step_s:.4f}s ({', '.join(f'{t:.4f}' for t in times)}), "
         f"{row['tokens_per_s']:.0f} tok/s, model-FLOP share "
         f"{row['model_flop_share']:.4f} of 989 TFLOP/s, peak "
         f"{row['peak_gb']:.2f} GB, busy {prof['share']}, losses {losses}")
-    log(f"[train] H2 {json.dumps(row)}")
+    log(f"[train] {label} {json.dumps(row)}")
     del state, params, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -2108,12 +2383,18 @@ def phase_train_full(seq: int = 4096, batch: int = 2, steps: int = 4,
 
 
 def phase_training() -> dict:
-    """Phase H: training through the flash kernel's backward. H0 the
-    backward kernel, H1 the fp32 smoke models and a crash-restart on the
-    card, H2 qwen3-1.7b at full width."""
+    """Phase H: training through the flash kernel's and the SSD chunk
+    kernel's backwards. H0 the two backward kernels, H1 the fp32 smoke
+    models and two crash-restarts on the card, H2 qwen3-1.7b, H3
+    zamba2-2.7b and H4 rwkv6-3b at full width."""
     out = {}
-    for key, phase in (("H0", phase_flash_bwd), ("H1", phase_train_smoke),
-                       ("H2", phase_train_full)):
+    for key, phase in (
+            ("H0", phase_flash_bwd), ("H0 ssd", phase_ssd_bwd),
+            ("H1", phase_train_smoke), ("H2", phase_train_full),
+            ("H3", lambda: phase_train_full("zamba2-2.7b", label="H3",
+                                            parity_dtype="float32")),
+            ("H4", lambda: phase_train_full(
+                "rwkv6-3b", steps=2, label="H4", parity=False))):
         t0 = time.perf_counter()
         out[key] = phase()
         log(f"[time] phase H {key}: {time.perf_counter() - t0:.1f}s")
@@ -2123,7 +2404,7 @@ def phase_training() -> dict:
 PORT_KERNELS = ("gemm_tc", "splitk_reduce", "mm_output_stationary",
                 "mm_weight_stationary", "quant_mm", "flash_tc", "flash_fwd",
                 "flash_bwd", "decode_split", "decode_combine", "ssd_cb_tc",
-                "ssd_chunk_tc")
+                "ssd_chunk_tc", "ssd_bwd")
 
 
 def _profiled(label: str, run, anchor) -> dict:
@@ -4450,8 +4731,17 @@ def main() -> int:
                    ssd["timings"][0], hybrid),
     ]}
     bwd = training["H0"]["path"]
-    kernels["kernels"][3]["training_launches"] = training["H2"][
-        "launches"]["flash_attention"]
+
+    def train_launches_of(name):
+        """The kernel's launches in the timed steps of H2 and H3."""
+        got = {f"{k} {training[k]['arch']}": training[k]["launches"][name]
+               for k in ("H2", "H3")}
+        return {k: n for k, n in got.items() if n}
+
+    kernels["kernels"][3]["training_launches"] = train_launches_of(
+        "flash_attention")
+    kernels["kernels"][5]["training_launches"] = train_launches_of(
+        "ssd_chunk")
     kernels["kernels"].append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -4464,7 +4754,29 @@ def main() -> int:
                                "bound_by", "library_ms", "shape", "dtype",
                                "library_note")},
         "kernel_ms": bwd["ms"],
-        "device_ms": training["H2"]["bwd_step_device_ms"]})
+        "device_ms": training["H2"]["bwd_step_device_ms"],
+        "training_launches": train_launches_of("flash_attention_bwd"),
+        "zamba2_row": {
+            k: training["H0"]["path_zamba2"][k]
+            for k in ("shape", "causal", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms", "max_abs_err", "rel_err")},
+        "zamba2_device_ms": training["H3"]["bwd_step_device_ms"]})
+    ssd_bwd = training["H0 ssd"]["path"]
+    kernels["kernels"].append({
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "none: not a TPU kernel (the reference's training "
+                    "differentiates src/repro/models/mamba2.py:66 "
+                    "ssd_chunked with JAX autodiff)",
+        "tpu_kernel": False,
+        "launches": training["H3"]["launches"]["ssd_chunk_bwd"],
+        **{k: ssd_bwd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_note", "shape", "dtype",
+                                   "bound_split_tf32_ms",
+                                   "bound_split_tf32_by", "rel_err")},
+        "kernel_ms": ssd_bwd["ms"],
+        "device_ms": training["H3"]["ssd_bwd_step_device_ms"]})
     kernels["kernels"][3]["encoder_row"] = {
         k: hubert_row[k] for k in ("shape", "causal", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -4520,6 +4832,16 @@ def main() -> int:
         + f"{training['H2']['model_flop_share']:.4f}, peak "
         + f"{training['H2']['peak_gb']:.2f} GB), backward kernel "
         + f"{training['H2']['bwd_step_device_ms']:.3f} ms device a call"
+        + "; zamba2-2.7b step "
+        + f"{training['H3']['mean_step_s']:.4f}s ("
+        + f"{training['H3']['tokens_per_s']:.0f} tok/s, model-FLOP share "
+        + f"{training['H3']['model_flop_share']:.4f}, peak "
+        + f"{training['H3']['peak_gb']:.2f} GB), SSD backward "
+        + f"{training['H3']['ssd_bwd_step_device_ms']:.3f} ms device a call"
+        + "; rwkv6-3b step "
+        + f"{training['H4']['mean_step_s']:.4f}s ("
+        + f"{training['H4']['tokens_per_s']:.0f} tok/s, peak "
+        + f"{training['H4']['peak_gb']:.2f} GB)"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// One Mamba2 SSD chunk step for Hopper (sm_90a): the hybrid's prefill scan.
+// One Mamba2 SSD chunk step for Hopper (sm_90a): the hybrid's prefill scan,
+// and (at the end of the file) its gradient, training's backward.
 //
 // Replaces src/repro/kernels/ssm_scan/kernel.py::ssd_chunk_pallas (body
 // _chunk_kernel). For each (batch b, head h), with xb [L,hd], B and C [L,N]
@@ -600,4 +601,549 @@ extern "C" int ssd_chunk_fwd(const void* xb, const void* b, const void* c,
   if (d <= 16) return launch<16>(a, B, s);
   if (d <= 32) return launch<32>(a, B, s);
   return launch<64>(a, B, s);
+}
+
+// ------------------------------------------------------------- backward --
+//
+// The gradient of one chunk step (ssd_chunk_bwd). Not a TPU kernel: the
+// reference's training differentiates the plain ssd_chunked
+// (src/repro/models/mamba2.py:66) with JAX autodiff; the port's forward is
+// this file's kernel, which autograd cannot see through. For each (b, h),
+// with M = C.B^T * dec (dec = exp(min(seg_i - seg_j, 0)) on j <= i, else
+// 0), G = dy, dS = dS_new, w_j = exp(seg_{L-1} - seg_j):
+//   dM = G X^T (on j <= i), dA = dM * dec, dMM = dA * C.B^T = dM * M
+//   dX = M^T G + w * (B dS^T)
+//   dC_h = dA B + exp(seg_i) * (G S_prev),  dB_h = dA^T C + w * (X dS)
+//   dS_prev = exp(seg_{L-1}) dS + (exp(seg) * G)^T C
+//   dseg = rowsum(dMM) - colsum(dMM) + exp(seg_i) sum_p G (C S_prev^T)
+//          - w_j dw_j,  dw_j = sum_p X[j,p] (B dS^T)[j,p];  and at L - 1
+//          + sum_j w_j dw_j + exp(seg_{L-1}) sum S_prev * dS
+// (the diagonal's row and column terms cancel, and so do key L - 1's two
+// w dw terms: each pair is left out)
+// dB and dC are sums over the heads (B and C are shared by them). The
+// masked triangle is skipped (dec = 0 there, never exp of a positive
+// exponent), so it contributes exactly zero.
+//
+// What bounds it on the H100. At the zamba2-2.7b training shape (B = 2,
+// L = 256, nh = 80, hd = N = 64) the products over the causal tile pairs
+// are ~5.9 GFLOP a call as this kernel runs them (the diagonal tiles
+// whole, dM formed twice), ~88 us at the 67 TFLOP/s of fp32 outside the
+// tensor cores; the bytes (the inputs read once, the outputs written once)
+// take ~13 us. chip_smoke.py computes the exact bound of the call.
+//
+// Design: fp32 FMA on the CUDA cores, no atomics, every sum in a fixed
+// order (a gradient repeats bitwise). C.B^T comes from ssd_cb_tc into the
+// forward's scratch. ssd_bwd_fma takes grid (nh, 2T + 1, B), T = ceil(L /
+// 64), and 256 threads, each a 4 x 4 micro tile of a 64 x 64 product; the
+// jobs of a (b, h), longest first:
+//  - key tile u (T of them): dX and dB_h of its 64 keys, over the row
+//    tiles t >= u (dM recomputed, M and dA through shared memory), the
+//    column sums of dMM and the key-side state terms;
+//  - row tile t (T of them): dC_h of its rows over the key tiles u <= t,
+//    the row sums of dMM and the row-side state terms;
+//  - the state: dS_prev, and exp(seg_{L-1}) sum S_prev * dS.
+// Per-head dB_h and dC_h, dseg's row and column parts and the partials of
+// d seg_{L-1} go to scratch the wrapper allocates; ssd_bwd_reduce sums them
+// over the heads and parts in a fixed order. Tiles sit in shared memory
+// with a row stride of 65 words, so that any 16 consecutive rows or columns
+// meet 16 banks, and are zero past L, hd and N.
+
+namespace {
+
+constexpr int BT = 256;          // threads: 16 x 16, a 4 x 4 micro tile each
+constexpr int TS = R + 1;        // the tiles' row stride (65 words)
+constexpr int TILE = R * TS;
+constexpr int RED = R * 17;      // a [64][17] reduction scratch
+// key job: X_u, B_u, G_t, C_t, M, dA; seg of keys and rows; two scratches
+constexpr int BWD_SMEM = (int)sizeof(float) * (6 * TILE + 2 * R + 2 * RED);
+static_assert(2 * (BWD_SMEM + 1024) <= 233472, "two blocks an SM");
+
+struct BwdArgs {
+  const float* xb;               // [B, L, nh, hd], rows strided
+  const float* b;                // [B, L, N], rows strided
+  const float* c;                // [B, L, N], rows strided
+  const float* seg;              // [B, L, nh], rows strided
+  const float* s_prev;           // [B, nh, hd, N], contiguous
+  const float* dy;               // [B, L, nh, hd], rows strided
+  const float* ds;               // [B, nh, hd, N], contiguous
+  const float* cb;               // [B, Lp, Lp]: C.B^T (ssd_cb_tc)
+  float* dxb;                    // [B, L, nh, hd], contiguous
+  float* db;                     // [B, L, N], contiguous
+  float* dc;                     // [B, L, N], contiguous
+  float* dseg;                   // [B, L, nh], contiguous
+  float* dsp;                    // [B, nh, hd, N], contiguous
+  float* dbh;                    // [B, nh, L, N] scratch: dB_h
+  float* dch;                    // [B, nh, L, N] scratch: dC_h
+  float* dsr;                    // [B, nh, L] scratch: dseg's row part
+  float* dsc;                    // [B, nh, L] scratch: dseg's column part
+  float* dtot;                   // [B, nh, T + 1] scratch: d seg_{L-1}
+  int L, Lp, nh, hd, N, T;
+  long long xb_b, xb_s, b_b, b_s, c_b, c_s, seg_b, seg_s, dy_b, dy_s;
+};
+
+// Rows [row0, row0 + 64) x columns [0, 64) of a row-strided fp32 matrix
+// into a [64][TS] tile: 0 past `rows` and `cols`. With `scale`, row i is
+// multiplied by exp(scale[i * scale_ld]).
+__device__ __forceinline__ void load_t(float* dst, const float* src,
+                                       long long ld, int row0, int rows,
+                                       int cols,
+                                       const float* scale = nullptr,
+                                       long long scale_ld = 0) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < R * R; e += BT) {
+    const int r = e / R, k = e % R, i = row0 + r;
+    float v = 0.f;
+    if (i < rows && k < cols) {
+      v = src[i * ld + k];
+      if (scale) v *= expf(scale[i * scale_ld]);
+    }
+    dst[r * TS + k] = v;
+  }
+}
+
+// 64 values of seg (one head) at rows row0 ..: 0 past L.
+__device__ __forceinline__ void load_s(float* dst, const BwdArgs& a,
+                                       const float* seg, int row0) {
+  if (threadIdx.x < R) {
+    const int i = row0 + threadIdx.x;
+    dst[threadIdx.x] = i < a.L ? seg[i * a.seg_s] : 0.f;
+  }
+}
+
+// acc[r][c] += sum_{k < K} a(16 r + ty, k) b(k, 16 c + tx) from [64][TS]
+// tiles, a(m, k) = AT ? A[k][m] : A[m][k], b(k, n) = BTR ? Bm[n][k] :
+// Bm[k][n]; k ascending.
+template <bool AT, bool BTR>
+__device__ __forceinline__ void mm(float (&acc)[4][4], const float* A,
+                                   const float* Bm, int K) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = AT ? A[k * TS + 16 * r + ty] : A[(16 * r + ty) * TS + k];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      bv[c] = BTR ? Bm[(16 * c + tx) * TS + k] : Bm[k * TS + 16 * c + tx];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+}
+
+__device__ __forceinline__ void zero4(float (&acc)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+}
+
+// out[m] = sum over tx = 0 .. 15 of part[r] (m = 16 r + ty), in order, for
+// m < 64 in threads 0 .. 63 (the result is returned there, 0 elsewhere).
+// Callers meet at a barrier first if red is reused.
+__device__ __forceinline__ float sum_over_tx(const float (&part)[4],
+                                             float* red) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) red[(16 * r + ty) * 17 + tx] = part[r];
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < R)
+    for (int q = 0; q < 16; ++q) s += red[threadIdx.x * 17 + q];
+  return s;
+}
+
+// The same over ty: out[n] = sum over ty of part[c] (n = 16 c + tx).
+__device__ __forceinline__ float sum_over_ty(const float (&part)[4],
+                                             float* red) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) red[(16 * c + tx) * 17 + ty] = part[c];
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < R)
+    for (int q = 0; q < 16; ++q) s += red[threadIdx.x * 17 + q];
+  return s;
+}
+
+// One (row tile, key tile) pair's masked entries from dM: dA = dM * dec
+// (into dA_s), M = C.B^T * dec (into M_s unless null); part[] gains the
+// thread's entries of dMM below the diagonal, by row (ROWS) or by column
+// (a diagonal entry's row and column terms cancel: it is left out of both).
+template <bool ROWS>
+__device__ __forceinline__ void pair_entries(const BwdArgs& a,
+                                             const float* cb, int i0, int j0,
+                                             const float* sr,
+                                             const float* sk,
+                                             const float (&dM)[4][4],
+                                             float* M_s, float* dA_s,
+                                             float (&part)[4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = 16 * r + ty, i = i0 + m;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = 16 * c + tx, j = j0 + n;
+      float mv = 0.f, da = 0.f;
+      if (i < a.L && j <= i) {
+        const float dec = expf(fminf(sr[m] - sk[n], 0.f));
+        const float cbv = cb[(size_t)i * a.Lp + j];
+        mv = cbv * dec;
+        da = dM[r][c] * dec;
+        if (j < i) part[ROWS ? r : c] += da * cbv;
+      }
+      if (M_s) M_s[m * TS + n] = mv;
+      dA_s[m * TS + n] = da;
+    }
+  }
+}
+
+// Key tile u of (b, h): dX and dB_h of keys j in [64 u, 64 u + 64), dseg's
+// column part there, and d seg_{L-1}'s partial sum_j w_j dw_j.
+__device__ void bwd_keys(const BwdArgs& a, int bb, int h, int u, float* sm) {
+  float* Xu = sm;
+  float* Bu = Xu + TILE;
+  float* Gt = Bu + TILE;
+  float* Ct = Gt + TILE;
+  float* Ms = Ct + TILE;
+  float* As = Ms + TILE;
+  float* sk = As + TILE;
+  float* sr = sk + R;
+  float* red = sr + R;
+  const int L = a.L, hd = a.hd, N = a.N, j0 = u * R;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* xb = a.xb + bb * a.xb_b + (long long)h * hd;
+  const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
+  const float* B = a.b + bb * a.b_b;
+  const float* C = a.c + bb * a.c_b;
+  const float* seg = a.seg + bb * a.seg_b + h;
+  const float* cb = a.cb + (size_t)bb * a.Lp * a.Lp;
+  const long long bh = (long long)bb * a.nh + h;
+
+  load_t(Xu, xb, a.xb_s, j0, L, hd);
+  load_t(Bu, B, a.b_s, j0, L, N);
+  load_s(sk, a, seg, j0);
+  float dX[4][4], dB[4][4], colp[4] = {0.f, 0.f, 0.f, 0.f};
+  zero4(dX);
+  zero4(dB);
+  for (int t = u; t < a.T; ++t) {
+    const int i0 = t * R;
+    __syncthreads();             // the last pair's tiles are read
+    load_t(Gt, dy, a.dy_s, i0, L, hd);
+    load_t(Ct, C, a.c_s, i0, L, N);
+    load_s(sr, a, seg, i0);
+    __syncthreads();
+    float dM[4][4];
+    zero4(dM);
+    mm<false, true>(dM, Gt, Xu, hd);          // dM(i, j) = G_i . X_j
+    pair_entries<false>(a, cb, i0, j0, sr, sk, dM, Ms, As, colp);
+    __syncthreads();
+    const int K = min(R, L - i0);
+    mm<true, false>(dX, Ms, Gt, K);           // dX(j, p) += M(i, j) G(i, p)
+    mm<true, false>(dB, As, Ct, K);           // dB(j, n) += dA(i, j) C(i, n)
+  }
+
+  // the state's terms: dS [hd][N] into G's tile
+  __syncthreads();
+  float* Ds = Gt;
+  load_t(Ds, a.ds + bh * hd * N, N, 0, hd, N);
+  __syncthreads();
+  float bd[4][4], xds[4][4];
+  zero4(bd);
+  zero4(xds);
+  mm<false, true>(bd, Bu, Ds, N);             // (B dS^T)(j, p)
+  mm<false, false>(xds, Xu, Ds, hd);          // (X dS)(j, n)
+  const float tot = seg[(L - 1) * a.seg_s];
+  float dwp[4] = {0.f, 0.f, 0.f, 0.f}, wr[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = 16 * r + ty;
+    wr[r] = j0 + m < L ? expf(tot - sk[m]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dwp[r] += Xu[m * TS + 16 * c + tx] * bd[r][c];
+      dX[r][c] += wr[r] * bd[r][c];
+      dB[r][c] += wr[r] * xds[r][c];
+    }
+  }
+  const float dw = sum_over_tx(dwp, red);
+  const float cs = sum_over_ty(colp, red + RED);
+  __syncthreads();               // red is free again below
+  // key L - 1 (w = 1) would add -dw to dseg_{L-1} here and +dw through
+  // d seg_{L-1}: it is left out of both, so the two cancel exactly
+  float wdw = 0.f;
+  if (threadIdx.x < R) {
+    const int j = j0 + threadIdx.x;
+    if (j < L) {
+      if (j < L - 1) wdw = expf(tot - sk[threadIdx.x]) * dw;
+      a.dsc[bh * L + j] = -cs - wdw;
+    }
+    red[threadIdx.x] = wdw;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int q = 0; q < R; ++q) s += red[q];
+    a.dtot[bh * (a.T + 1) + u] = s;
+  }
+
+  // dX into dxb; dB_h into its scratch
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = j0 + 16 * r + ty;
+    if (j >= L) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = 16 * c + tx;
+      if (k < hd) a.dxb[(((long long)bb * L + j) * a.nh + h) * hd + k] = dX[r][c];
+      if (k < N) a.dbh[(bh * L + j) * N + k] = dB[r][c];
+    }
+  }
+}
+
+// Row tile t of (b, h): dC_h of rows i in [64 t, 64 t + 64) and dseg's row
+// part there.
+__device__ void bwd_rows(const BwdArgs& a, int bb, int h, int t, float* sm) {
+  float* Gt = sm;
+  float* Ct = Gt + TILE;
+  float* Xu = Ct + TILE;
+  float* Bu = Xu + TILE;
+  float* As = Bu + TILE;
+  float* sk = sm + 6 * TILE;     // where the key job keeps them
+  float* sr = sk + R;
+  float* red = sr + R;
+  const int L = a.L, hd = a.hd, N = a.N, i0 = t * R;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* xb = a.xb + bb * a.xb_b + (long long)h * hd;
+  const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
+  const float* B = a.b + bb * a.b_b;
+  const float* C = a.c + bb * a.c_b;
+  const float* seg = a.seg + bb * a.seg_b + h;
+  const float* cb = a.cb + (size_t)bb * a.Lp * a.Lp;
+  const long long bh = (long long)bb * a.nh + h;
+
+  load_t(Gt, dy, a.dy_s, i0, L, hd);
+  load_t(Ct, C, a.c_s, i0, L, N);
+  load_s(sr, a, seg, i0);
+  float dC[4][4], rowp[4] = {0.f, 0.f, 0.f, 0.f};
+  zero4(dC);
+  for (int u = 0; u <= t; ++u) {
+    const int j0 = u * R;
+    __syncthreads();             // the last pair's tiles are read
+    load_t(Xu, xb, a.xb_s, j0, L, hd);
+    load_t(Bu, B, a.b_s, j0, L, N);
+    load_s(sk, a, seg, j0);
+    __syncthreads();
+    float dM[4][4];
+    zero4(dM);
+    mm<false, true>(dM, Gt, Xu, hd);
+    pair_entries<true>(a, cb, i0, j0, sr, sk, dM, nullptr, As, rowp);
+    __syncthreads();
+    mm<false, false>(dC, As, Bu, min(R, L - j0));   // dC(i, n) += dA(i, j) B(j, n)
+  }
+
+  // the state's terms: S_prev [hd][N] into X's tile
+  __syncthreads();
+  float* Ps = Xu;
+  load_t(Ps, a.s_prev + bh * hd * N, N, 0, hd, N);
+  __syncthreads();
+  float y0[4][4], gp[4][4];
+  zero4(y0);
+  zero4(gp);
+  mm<false, true>(y0, Ct, Ps, N);             // (C S_prev^T)(i, p)
+  mm<false, false>(gp, Gt, Ps, hd);           // (G S_prev)(i, n)
+  float yp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = 16 * r + ty;
+    const float es = i0 + m < L ? expf(sr[m]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      yp[r] += Gt[m * TS + 16 * c + tx] * y0[r][c];
+      dC[r][c] += es * gp[r][c];
+    }
+  }
+  const float rs = sum_over_tx(rowp, red);
+  const float gy = sum_over_tx(yp, red + RED);
+  if (threadIdx.x < R && i0 + threadIdx.x < L)
+    a.dsr[bh * L + i0 + threadIdx.x] = rs + expf(sr[threadIdx.x]) * gy;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 16 * r + ty;
+    if (i >= L) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = 16 * c + tx;
+      if (n < N) a.dch[(bh * L + i) * N + n] = dC[r][c];
+    }
+  }
+}
+
+// The state of (b, h): dS_prev = exp(tot) dS + (exp(seg) G)^T C, and
+// d seg_{L-1}'s partial exp(tot) sum S_prev * dS.
+__device__ void bwd_state(const BwdArgs& a, int bb, int h, float* sm) {
+  float* Ge = sm;
+  float* Ct = Ge + TILE;
+  float* red = sm + 6 * TILE + 2 * R;
+  const int L = a.L, hd = a.hd, N = a.N;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
+  const float* C = a.c + bb * a.c_b;
+  const float* seg = a.seg + bb * a.seg_b + h;
+  const long long bh = (long long)bb * a.nh + h;
+  float acc[4][4];
+  zero4(acc);
+  for (int t = 0; t < a.T; ++t) {
+    const int i0 = t * R;
+    __syncthreads();
+    load_t(Ge, dy, a.dy_s, i0, L, hd, seg, a.seg_s);   // exp(seg_i) G_i
+    load_t(Ct, C, a.c_s, i0, L, N);
+    __syncthreads();
+    mm<true, false>(acc, Ge, Ct, min(R, L - i0));     // (p, n) += Ge(i, p) C(i, n)
+  }
+  const float e_tot = expf(seg[(L - 1) * a.seg_s]);
+  const float* ds = a.ds + bh * hd * N;
+  const float* sp = a.s_prev + bh * hd * N;
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int p = 16 * r + ty;
+    if (p >= hd) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = 16 * c + tx;
+      if (n >= N) continue;
+      const long long at = (long long)p * N + n;
+      a.dsp[bh * hd * N + at] = e_tot * ds[at] + acc[r][c];
+      part[r] += sp[at] * ds[at];
+    }
+  }
+  const float s = sum_over_tx(part, red);
+  __syncthreads();
+  if (threadIdx.x < R) red[RED + threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = 0.f;
+    for (int q = 0; q < R; ++q) v += red[RED + q];
+    a.dtot[bh * (a.T + 1) + a.T] = e_tot * v;
+  }
+}
+
+__global__ void __launch_bounds__(BT, 2) ssd_bwd_fma(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, job = blockIdx.y, bb = blockIdx.z;
+  // the longest first: key tiles 0 .. T - 1, row tiles T - 1 .. 0, state
+  if (job < a.T)
+    bwd_keys(a, bb, h, job, smem);
+  else if (job < 2 * a.T)
+    bwd_rows(a, bb, h, 2 * a.T - 1 - job, smem);
+  else
+    bwd_state(a, bb, h, smem);
+}
+
+// dB and dC summed over the heads, dseg = row part + column part (+ the
+// partials of d seg_{L-1} at L - 1), each in a fixed order: element e of
+// batch blockIdx.y.
+__global__ void __launch_bounds__(BT) ssd_bwd_reduce(BwdArgs a) {
+  const int bb = blockIdx.y, L = a.L, N = a.N, nh = a.nh;
+  const long long e = (long long)blockIdx.x * BT + threadIdx.x;
+  if (e < (long long)L * N) {
+    const long long i = e / N, n = e % N;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < nh; ++h) {
+      const long long at = (((long long)bb * nh + h) * L + i) * N + n;
+      sb += a.dbh[at];
+      sc += a.dch[at];
+    }
+    a.db[((long long)bb * L + i) * N + n] = sb;
+    a.dc[((long long)bb * L + i) * N + n] = sc;
+  }
+  if (e < (long long)L * nh) {
+    const long long i = e / nh, h = e % nh, bh = (long long)bb * nh + h;
+    float v = a.dsr[bh * L + i] + a.dsc[bh * L + i];
+    if (i == L - 1) {
+      float d = 0.f;
+      for (int k = 0; k <= a.T; ++k) d += a.dtot[bh * (a.T + 1) + k];
+      v += d;
+    }
+    a.dseg[((long long)bb * L + i) * nh + h] = v;
+  }
+}
+
+}  // namespace
+
+// (dxb, dB_, dC_, dseg, dS_prev) of one SSD chunk step given its inputs
+// (as ssd_chunk_fwd takes them), dy [B,L,nh,hd] (rows strided, heads packed)
+// and dS_new [B,nh,hd,N] (contiguous); all fp32, outputs contiguous. cb is
+// an fp32 scratch [B, Lp, Lp] (Lp = L rounded up to 64, 16-byte aligned);
+// dbh and dch [B, nh, L, N], dsr and dsc [B, nh, L] and dtot [B, nh, T + 1]
+// (T = Lp / 64) are fp32 scratch. hd, N <= 64. Three launches (C.B^T, the
+// jobs, the sums over heads); returns the cudaError_t of the launches (0 on
+// success); never synchronises.
+extern "C" int ssd_chunk_bwd(const void* xb, const void* b, const void* c,
+                             const void* seg, const void* s_prev,
+                             const void* dy, const void* ds, void* dxb,
+                             void* db, void* dc, void* dseg, void* dsp,
+                             void* cb, void* dbh, void* dch, void* dsr,
+                             void* dsc, void* dtot, int B, int L, int nh,
+                             int hd, int N, long long xb_bs, long long xb_ss,
+                             long long b_bs, long long b_ss, long long c_bs,
+                             long long c_ss, long long seg_bs,
+                             long long seg_ss, long long dy_bs,
+                             long long dy_ss, void* stream) {
+  const int T = (L + R - 1) / R;
+  if (B <= 0 || L <= 0 || nh <= 0 || hd <= 0 || N <= 0 || hd > 64 || N > 64 ||
+      B > 65535 || 2 * T + 1 > 65535 ||
+      reinterpret_cast<uintptr_t>(cb) % 16)
+    return (int)cudaErrorInvalidValue;
+  const bool vec =
+      N % 4 == 0 && (b_bs | b_ss | c_bs | c_ss) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+  // C.B^T as the forward forms it (ssd_cb_tc reads only b, c and cb)
+  const Args f{static_cast<const float*>(xb), static_cast<const float*>(b),
+               static_cast<const float*>(c), static_cast<const float*>(seg),
+               static_cast<const float*>(s_prev), nullptr, nullptr,
+               static_cast<float*>(cb), L, T * R, nh, hd, N,
+               xb_bs, xb_ss, b_bs, b_ss, c_bs, c_ss, seg_bs, seg_ss, vec};
+  const BwdArgs a{static_cast<const float*>(xb), static_cast<const float*>(b),
+                  static_cast<const float*>(c), static_cast<const float*>(seg),
+                  static_cast<const float*>(s_prev),
+                  static_cast<const float*>(dy), static_cast<const float*>(ds),
+                  static_cast<const float*>(cb), static_cast<float*>(dxb),
+                  static_cast<float*>(db), static_cast<float*>(dc),
+                  static_cast<float*>(dseg), static_cast<float*>(dsp),
+                  static_cast<float*>(dbh), static_cast<float*>(dch),
+                  static_cast<float*>(dsr), static_cast<float*>(dsc),
+                  static_cast<float*>(dtot), L, T * R, nh, hd, N, T,
+                  xb_bs, xb_ss, b_bs, b_ss, c_bs, c_ss, seg_bs, seg_ss,
+                  dy_bs, dy_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool sized = false;     // the attribute once
+  cudaError_t e;
+  if (!sized) {
+    e = cudaFuncSetAttribute(ssd_bwd_fma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BWD_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 cb_grid(T * (T + 1) / 2, B);
+  const int d = N;               // ssd_cb_tc's K is N
+  if (d <= 16)
+    ssd_cb_tc<16><<<cb_grid, CB_THREADS, cb_smem<16>(), s>>>(f);
+  else if (d <= 32)
+    ssd_cb_tc<32><<<cb_grid, CB_THREADS, cb_smem<32>(), s>>>(f);
+  else
+    ssd_cb_tc<64><<<cb_grid, CB_THREADS, cb_smem<64>(), s>>>(f);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_fma<<<dim3(nh, 2 * T + 1, B), BT, BWD_SMEM, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long work = (long long)L * (N > nh ? N : nh);
+  ssd_bwd_reduce<<<dim3((unsigned)((work + BT - 1) / BT), B), BT, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }

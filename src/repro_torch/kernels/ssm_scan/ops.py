@@ -8,6 +8,15 @@ that lie on the CPU take the plain version (``ref.py``). On the card one
 call is two launches (C.B^T once per batch into a scratch the wrapper
 allocates, then the chunk step); ``ssd_chunk.launches`` counts calls.
 
+The gradient: where grad is enabled and an input requires it, a CUDA call
+goes through ``_SSDChunk``, which saves its inputs and whose backward
+launches the backward kernel through ``ssd_chunk_bwd`` (three launches a
+call: C.B^T, the per-head jobs, the sums over heads;
+``ssd_chunk_bwd.launches`` counts calls). Every other call launches the
+forward alone, as before; on CPU tensors the gradient is autograd of the
+plain version. ``torch.utils.checkpoint`` recomputing a layer in backward
+reruns the forward.
+
 ``ssd_scan`` is the port of ``repro.kernels.ssm_scan.ops.ssd_scan``: the
 whole scan as a host loop of ``ssd_chunk`` calls, the state passed from one
 launch to the next on the device. ``chunk_inputs`` and ``scan_chunks`` are
@@ -20,7 +29,7 @@ import ctypes
 import torch
 
 from ..build import counted, entry
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 MAX_DIM = 64                   # the kernel's largest head dim and state size
 CB_TILE = 64                   # the C.B^T scratch's side: L rounded up to it
@@ -51,18 +60,23 @@ def _check(xb, B_, C_, seg, S_prev) -> None:
                          f"{[str(t.device) for t in ops]}")
 
 
-def _launch(xb, B_, C_, seg, S_prev):
-    Bb, L, nh, hd = xb.shape
-    N = B_.shape[-1]
+def _check_layout(xb, B_, C_, seg, S_prev) -> None:
+    hd, N = xb.shape[-1], B_.shape[-1]
     if hd > MAX_DIM or N > MAX_DIM:
         raise ValueError(f"head dim {hd} or state size {N} > {MAX_DIM}")
-    if xb.stride(3) != 1 or (nh > 1 and xb.stride(2) != hd) \
+    if xb.stride(3) != 1 or (xb.shape[2] > 1 and xb.stride(2) != hd) \
             or B_.stride(2) != 1 or C_.stride(2) != 1 or seg.stride(2) != 1 \
             or not S_prev.is_contiguous():
         raise ValueError(
             f"strides xb {xb.stride()}, B_ {B_.stride()}, C_ {C_.stride()}, "
             f"seg {seg.stride()}, S_prev {S_prev.stride()}: the last dims "
             "must be packed and S_prev contiguous")
+
+
+def _launch(xb, B_, C_, seg, S_prev):
+    Bb, L, nh, hd = xb.shape
+    N = B_.shape[-1]
+    _check_layout(xb, B_, C_, seg, S_prev)
     launch = entry("ssd_chunk", "ssd_chunk_fwd", *[ctypes.c_void_p] * 8,
                    *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 8)
     y = torch.empty(xb.shape, dtype=torch.float32, device=xb.device)
@@ -77,6 +91,20 @@ def _launch(xb, B_, C_, seg, S_prev):
     return y, S_new
 
 
+class _SSDChunk(torch.autograd.Function):
+    """The chunk kernel's forward, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, xb, B_, C_, seg, S_prev):
+        y, S_new = _launch(xb, B_, C_, seg, S_prev)
+        ctx.save_for_backward(xb, B_, C_, seg, S_prev)
+        return y, S_new
+
+    @staticmethod
+    def backward(ctx, dy, dS_new):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy, dS_new)
+
+
 def ssd_chunk(xb: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
               seg: torch.Tensor, S_prev: torch.Tensor):
     """One SSD chunk step: (y ``[B,L,nh,hd]``, S_new ``[B,nh,hd,N]``)."""
@@ -84,11 +112,66 @@ def ssd_chunk(xb: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     if xb.device.type == "cpu":
         return ssd_chunk_ref(xb, B_, C_, seg, S_prev)
     if xb.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xb, B_, C_, seg, S_prev)):
+            return _SSDChunk.apply(xb, B_, C_, seg, S_prev)
         return _launch(xb, B_, C_, seg, S_prev)
     raise ValueError(f"unsupported device {xb.device}")
 
 
 counted(ssd_chunk)
+
+
+def _launch_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):
+    Bb, L, nh, hd = xb.shape
+    N = B_.shape[-1]
+    _check_layout(xb, B_, C_, seg, S_prev)
+    if dy.stride(3) != 1 or (nh > 1 and dy.stride(2) != hd):
+        dy = dy.contiguous()
+    dS_new = dS_new.contiguous()
+    launch = entry("ssd_chunk", "ssd_chunk_bwd", *[ctypes.c_void_p] * 18,
+                   *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 10)
+    f32 = dict(dtype=torch.float32, device=xb.device)
+    dxb, dB, dC = (torch.empty(t.shape, **f32) for t in (xb, B_, C_))
+    dseg, dS_prev = torch.empty(seg.shape, **f32), torch.empty(S_prev.shape,
+                                                               **f32)
+    T = -(-L // CB_TILE)
+    cb = torch.empty((Bb, T * CB_TILE, T * CB_TILE), **f32)
+    dbh, dch = (torch.empty((Bb, nh, L, N), **f32) for _ in range(2))
+    dsr, dsc = (torch.empty((Bb, nh, L), **f32) for _ in range(2))
+    dtot = torch.empty((Bb, nh, T + 1), **f32)
+    launch(xb.device, *(t.data_ptr() for t in (
+        xb, B_, C_, seg, S_prev, dy, dS_new, dxb, dB, dC, dseg, dS_prev, cb,
+        dbh, dch, dsr, dsc, dtot)), Bb, L, nh, hd, N,
+        *[s for t in (xb, B_, C_, seg, dy) for s in (t.stride(0),
+                                                     t.stride(1))])
+    ssd_chunk_bwd.launches += 1
+    return dxb, dB, dC, dseg, dS_prev
+
+
+def ssd_chunk_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):
+    """The gradient of ``ssd_chunk(xb, B_, C_, seg, S_prev)`` given dy
+    ``[B,L,nh,hd]`` and dS_new ``[B,nh,hd,N]``: (dxb, dB_, dC_, dseg,
+    dS_prev), all fp32 (``ref.ssd_chunk_bwd_ref``). On the card every sum
+    runs in a fixed order, so a gradient repeats bitwise."""
+    _check(xb, B_, C_, seg, S_prev)
+    if dy.shape != xb.shape or dS_new.shape != S_prev.shape:
+        raise ValueError(f"dy {tuple(dy.shape)}, dS_new "
+                         f"{tuple(dS_new.shape)} for xb {tuple(xb.shape)}, "
+                         f"S_prev {tuple(S_prev.shape)}")
+    if dy.dtype != torch.float32 or dS_new.dtype != torch.float32:
+        raise TypeError(f"dy {dy.dtype}, dS_new {dS_new.dtype}: float32")
+    if dy.device != xb.device or dS_new.device != xb.device:
+        raise ValueError(f"operands on different devices: {xb.device}, "
+                         f"{dy.device}, {dS_new.device}")
+    if xb.device.type == "cpu":
+        return ssd_chunk_bwd_ref(xb, B_, C_, seg, S_prev, dy, dS_new)
+    if xb.device.type == "cuda":
+        return _launch_bwd(xb, B_, C_, seg, S_prev, dy, dS_new)
+    raise ValueError(f"unsupported device {xb.device}")
+
+
+counted(ssd_chunk_bwd)
 
 
 def chunk_inputs(xh, dt, A, B_, C_, L: int):

@@ -382,6 +382,19 @@ def remat_policy_of(cfg):
     return lambda: create_selective_checkpoint_contexts(policy)
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant, with
+    :func:`remat_policy_of`'s context), as the reference's
+    ``jax.checkpoint`` of a scanned layer or period."""
+    if not cfg.remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    context = remat_policy_of(cfg)
+    kw = {} if context is None else {"context_fn": context}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _ce_chunk(h, targets, emb_out):
     logits = matmul_any(h, emb_out).float()
     lse = torch.logsumexp(logits, dim=-1)

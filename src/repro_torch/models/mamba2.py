@@ -11,8 +11,11 @@ Parameters are a dict shaped like the reference's pytree: the mamba layers
 stacked under ``mamba`` (leading axis ``n_layers``), the shared block under
 ``shared``, weights in ``[K, N]`` layout. The cache's conv and SSM states
 and the shared block's K/V are written in place, as the dense transformer
-writes its cache. Only the cached path is ported (prefill and decode); the
-no-cache path of training and the loss is not.
+writes its cache. ``loss_fn`` is training's cache-free path: periods of
+``attn_every`` mamba layers and the shared block over the whole sequence,
+each period recomputed in backward under ``cfg.remat``; its SSD scan goes
+through the chunk kernel's autograd Function (``kernels/ssm_scan``), its
+attention through the flash kernel's.
 """
 from __future__ import annotations
 
@@ -25,9 +28,9 @@ from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
 from ..kernels.ssm_scan.ops import chunk_inputs, scan_chunks
-from .layers import (attention, init_attention, init_swiglu, normal_stack,
-                     rms_norm, rope_table, swiglu)
-from .transformer import layer_params
+from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
+                     normal_stack, remat, rms_norm, rope_table, swiglu)
+from .transformer import layer_params, unstack_layers
 
 
 # ------------------------------------------------------------- mamba2 block --
@@ -197,7 +200,13 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
 
 
 def _n_attn(cfg) -> int:
-    return cfg.n_layers // cfg.ssm.attn_every
+    """The number of periods (each ``attn_every`` mamba layers, then the
+    shared block)."""
+    ae = cfg.ssm.attn_every
+    if cfg.n_layers % ae:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"multiple of attn_every={ae}")
+    return cfg.n_layers // ae
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
@@ -242,9 +251,6 @@ def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
     request)."""
     ae = cfg.ssm.attn_every
     fresh = not decode and isinstance(cache_index, int) and cache_index == 0
-    if cfg.n_layers % ae:
-        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
-                         f"multiple of attn_every={ae}")
     freqs = rope_table(cfg, x.device)
     for i in range(_n_attn(cfg)):
         for j in range(ae):
@@ -270,6 +276,36 @@ def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
 
 def _embed(params, tokens, cfg):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+def _train_period(x, layers, shared, cfg, positions, freqs):
+    """One period with no cache: its mamba layers from zero conv and SSM
+    states, then the shared block attending over the call's own tokens."""
+    for lp in layers:
+        x = mamba_block(lp, x, cfg)[0]
+    return _shared_block(shared, x, cfg, positions=positions, kv=None,
+                         cache_index=None, freqs=freqs, hetero_ctx=None)
+
+
+def loss_fn(params, inputs, targets, cfg):
+    """Training objective, the reference's ``loss_fn``: next-token CE over
+    the cache-free run (``attn_every`` mamba layers, then the shared block,
+    per period); with ``cfg.remat`` each period is recomputed in backward
+    (``layers.remat``), as the reference's ``jax.checkpoint`` per scanned
+    period. inputs / targets: [B, S] token ids. Returns (loss, {"ce",
+    "aux"}), aux a 0-dim fp32 zero."""
+    ae = cfg.ssm.attn_every
+    x = _embed(params, inputs, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
+    freqs = rope_table(cfg, x.device)
+    layers = unstack_layers(params["mamba"], cfg.n_layers)
+    for i in range(_n_attn(cfg)):
+        x = remat(cfg, _train_period, x, layers[i * ae:(i + 1) * ae],
+                  params["shared"], cfg, positions, freqs)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_ce_loss(params["head"], x, targets, chunk=cfg.loss_chunk)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)}
 
 
 def prefill(params, tokens, cache, cfg, *, start_index: int = 0,

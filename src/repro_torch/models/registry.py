@@ -3,9 +3,9 @@ MoE, VLM and audio transformers, the zamba2-style Mamba2 hybrid and RWKV-6.
 
 ``build_model(cfg)`` returns a ``Model`` whose members are plain functions:
     init(generator=None, device="cuda") -> params
-    loss(params, inputs, targets) -> (loss, {"ce", "aux"})  [train objective;
-        the transformer family (dense, MoE, VLM, audio), None for the
-        hybrid and RWKV, whose losses wait for their backward kernels]
+    loss(params, inputs, targets) -> (loss, {"ce", "aux"})  [train objective
+        of every family: the transformer (dense, MoE, VLM, audio), the
+        hybrid and RWKV]
     init_cache(batch, max_len, dtype=, device=) -> dense cache
     prefill(params, tokens, cache, start_index=) -> (last_logits, cache)
     decode_step(params, token, cache) -> (logits, cache)
@@ -71,8 +71,7 @@ def build_model(cfg) -> Model:
     else:
         mod = transformer
     init = partial(mod.init_params, cfg)
-    loss = (partial(transformer.loss_fn, cfg=cfg) if mod is transformer
-            else None)
+    loss = partial(mod.loss_fn, cfg=cfg)
     if cfg.encoder_only:
         return Model(cfg=cfg, init=init, init_cache=None, prefill=None,
                      decode_step=None, loss=loss,

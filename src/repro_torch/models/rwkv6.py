@@ -17,7 +17,10 @@ The cache's token-shift and WKV states are updated in place, as mamba2's
 are, so a captured decode loop replays over the same buffers; a prefill
 from position 0 starts from zero states, whatever the cache held (the
 engine reuses its cache per shape). ``hetero_ctx`` is accepted and ignored,
-as in the reference: every product here is a plain matmul.
+as in the reference: every product here is a plain matmul. ``loss_fn`` is
+training's cache-free path, each layer from zero states, recomputed in
+backward under ``cfg.remat``; its scan stays plain torch, differentiated
+by autograd (the clamped exponents keep its gradient finite).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch.nn.functional as F
 
 from ..configs import dtype_of
 from ..device import resolve_device
-from .layers import normal_stack, rms_norm
-from .transformer import layer_params
+from .layers import chunked_ce_loss, normal_stack, remat, rms_norm
+from .transformer import layer_params, unstack_layers
 
 
 def _heads(cfg):
@@ -239,6 +242,29 @@ def _run(params, x, cfg, *, cache, decode=False, fresh=False):
 
 def _embed(params, tokens, cfg):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+def _train_layer(x, lp, cfg):
+    """One layer with no cache, from zero token-shift and WKV states."""
+    zero = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                       device=x.device)
+    return _layer(lp, x, cfg, {"shift1": zero, "shift2": zero, "wkv": None},
+                  False)[0]
+
+
+def loss_fn(params, inputs, targets, cfg):
+    """Training objective, the reference's ``loss_fn``: next-token CE over
+    the cache-free run; with ``cfg.remat`` each layer is recomputed in
+    backward (``layers.remat``), as the reference's ``jax.checkpoint`` per
+    scanned layer. inputs / targets: [B, S] token ids. Returns (loss,
+    {"ce", "aux"}), aux a 0-dim fp32 zero."""
+    x = _embed(params, inputs, cfg)
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        x = remat(cfg, _train_layer, x, lp, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_ce_loss(params["head"], x, targets, chunk=cfg.loss_chunk)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)}
 
 
 def prefill(params, tokens, cache, cfg, *, start_index: int = 0,

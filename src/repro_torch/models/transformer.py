@@ -18,7 +18,7 @@ from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
-                     normal_stack, paged_attention, remat_policy_of, rms_norm,
+                     normal_stack, paged_attention, remat, rms_norm,
                      rope_table, slot_attention, swiglu)
 from .moe import init_moe, moe_ffn
 
@@ -131,22 +131,14 @@ def loss_fn(params, inputs, targets, cfg):
     embeddings (the modality stub); targets: [B, S] ids. Attention is the
     cache-free branch (the flash kernel, bidirectional for an encoder-only
     config). With ``cfg.remat`` each layer is recomputed in backward
-    (``torch.utils.checkpoint``, ``layers.remat_policy_of``), as the
-    reference's ``jax.checkpoint`` per scanned layer. Returns (loss,
-    {"ce", "aux"}), each a 0-dim fp32 tensor."""
-    from torch.utils.checkpoint import checkpoint
+    (``layers.remat``), as the reference's ``jax.checkpoint`` per scanned
+    layer. Returns (loss, {"ce", "aux"}), each a 0-dim fp32 tensor."""
     x = _embed(params, inputs, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
     freqs = rope_table(cfg, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    context = remat_policy_of(cfg)
     for lp in unstack_layers(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            kw = {} if context is None else {"context_fn": context}
-            x, a = checkpoint(_train_layer, x, lp, cfg, positions, freqs,
-                              use_reentrant=False, **kw)
-        else:
-            x, a = _train_layer(x, lp, cfg, positions, freqs)
+        x, a = remat(cfg, _train_layer, x, lp, cfg, positions, freqs)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     ce = chunked_ce_loss(_head_matrix(params, cfg), x, targets,

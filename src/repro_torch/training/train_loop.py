@@ -5,7 +5,8 @@ optional int8 error-feedback gradient compression.
 
 A step is ``model.loss`` forward, ``torch.autograd.grad`` of the loss
 with respect to every parameter (the attention's backward is the flash
-kernel's, ``kernels/flash_attention``), optional compression, then
+kernel's, ``kernels/flash_attention``; the hybrid's SSD scan's the SSD
+chunk kernel's, ``kernels/ssm_scan``), optional compression, then
 ``optimizer.apply_updates``. The state is a plain dict of tensors on the
 step's device with ``step`` a device int32; the step reads nothing back
 to the host. It runs on ``device`` (the card unless ``"cpu"`` is asked
@@ -66,9 +67,6 @@ def make_train_step(cfg, tcfg: TrainConfig, *, device="cuda"):
     and v are updated in place (``optimizer.apply_updates``)."""
     device = resolve_device(device)
     model = build_model(cfg)
-    if model.loss is None:
-        raise ValueError(f"{cfg.name}: the port has no loss for this "
-                         "family yet (the transformer family only)")
 
     def train_step(state, batch):
         loss, metrics, grads = loss_and_grads(

@@ -1,9 +1,11 @@
 """The port's training objective against the reference's: ``loss_fn`` and
 every leaf's gradient against ``jax.value_and_grad`` of the reference's
-``model.loss`` on the fp32 smoke models of five configs (smollm-135m,
+``model.loss`` on the fp32 smoke models of seven configs (smollm-135m,
 qwen3-1.7b with qk-norm, qwen2-moe-a2.7b with its aux loss, chameleon-34b,
-hubert-xlarge from float frames, bidirectional), each with the reference's
-own parameters (PRNGKey 7); ``chunked_ce_loss`` against the unchunked
+hubert-xlarge from float frames, bidirectional; the zamba2 hybrid, whose
+SSD scan is differentiated through the clamped plain chunk, and RWKV-6),
+each with the reference's own parameters (PRNGKey 7); ``chunked_ce_loss``
+against the unchunked
 cross-entropy and the reference's; the three remat settings giving the same
 gradients; the MoE aux loss that ``transformer._layer`` now returns; and
 ``score_nll`` on fp, int8 and W4A16 weights against the reference's."""
@@ -29,7 +31,7 @@ from repro_torch.training.tree import tree_flatten
 
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 ARCHS = ("smollm-135m", "qwen3-1.7b", "qwen2-moe-a2.7b", "chameleon-34b",
-         "hubert-xlarge")
+         "hubert-xlarge", "zamba2-2.7b", "rwkv6-3b")
 LOSS_TOL = 1e-5      # relative, on the scalar loss
 GRAD_TOL = 1e-4      # rel_err per leaf: two layers of fp32 sums in other
 #                      orders than XLA's, through a softmax and a CE
@@ -187,12 +189,12 @@ def test_remat_settings_give_identical_gradients(pairs):
 
 
 def test_loss_of_each_family():
-    """``build_model`` gives the transformer family (dense, MoE, VLM,
-    encoder) a loss; the hybrid and RWKV have none yet."""
+    """``build_model`` gives every family a loss: the transformer (dense,
+    MoE, VLM, encoder), the zamba2 hybrid and RWKV-6."""
     for arch in ARCHS:
         assert build_model(get_smoke_config(arch)).loss is not None
     for arch in ("zamba2-2.7b", "rwkv6-3b"):
-        assert build_model(get_smoke_config(arch)).loss is None
+        assert build_model(get_smoke_config(arch)).loss is not None
 
 
 @pytest.mark.parametrize("fmt", [None, "int8", "w4a16"])

@@ -6,7 +6,9 @@ checkpoints (round trip, GC, the ``.tmp`` dir invisible, a checkpoint
 written by either package restored by the other), fault tolerance under a
 FakeClock (a crash mid-run ends bitwise equal to the uninterrupted run),
 five ``train()`` steps against the reference's, and the CLI. All on the
-CPU, fp32 smollm smoke model."""
+CPU, fp32 smollm smoke model; the zamba2 hybrid's and RWKV-6's smoke
+models take ``make_train_step`` steps equal to the port's own sequence of
+gradient and AdamW update, and train through the CLI."""
 import json
 
 import jax
@@ -33,7 +35,8 @@ from repro_torch.training import optimizer as opt
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import PackedFile, Prefetcher, SyntheticLM
 from repro_torch.training.fault_tolerance import StepMonitor, run_resilient
-from repro_torch.training.train_loop import TrainConfig, train
+from repro_torch.training.train_loop import (TrainConfig, loss_and_grads,
+                                             make_train_step, train)
 from repro_torch.training.tree import tree_leaves, tree_map
 
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
@@ -358,3 +361,47 @@ def test_cli_smoke_on_cpu(tmp_path, capsys):
     assert "step     1 loss" in out and out.strip().splitlines()[-1
                                                                ].startswith(
         "done: loss")
+
+
+# ------------------------------------------------- the hybrid and RWKV-6 --
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
+def test_train_steps_of_the_hybrid_and_rwkv(arch):
+    """Three ``make_train_step`` steps of the fp32 smoke model on
+    SyntheticLM batches (the hybrid's SSD scan and shared attention, RWKV-6's
+    WKV scan, each layer or period recomputed in backward) equal the port's
+    own sequence of ``loss_and_grads`` then ``apply_updates`` on a copy of
+    the same params, bitwise: params, moments and losses, all finite."""
+    cfg = get_smoke_config(arch).with_(**FP32)
+    tcfg = TrainConfig(opt=opt.AdamWConfig(lr=1e-2, warmup_steps=1))
+    model, step_fn = make_train_step(cfg, tcfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    state = opt.init_state(params)
+    seq = opt.init_state(tree_map(lambda t: t.clone(), params))
+    data = SyntheticLM(cfg.vocab_size, 32, 2, seed=1)
+    losses = []
+    for _ in range(3):
+        batch = data.next()
+        state, metrics = step_fn(state, batch)
+        loss, _, grads = loss_and_grads(model, seq["params"],
+                                        torch.from_numpy(batch["inputs"]),
+                                        torch.from_numpy(batch["targets"]))
+        seq, _ = opt.apply_updates(seq, grads, tcfg.opt)
+        assert torch.equal(metrics["loss"], loss)
+        assert torch.isfinite(loss) and torch.isfinite(metrics["grad_norm"])
+        losses.append(float(loss))
+    assert int(state["step"]) == int(seq["step"]) == 3
+    for key in ("params", "m", "v"):
+        for a, b in zip(tree_leaves(state[key]), tree_leaves(seq[key])):
+            assert torch.isfinite(a).all() and torch.equal(a, b), key
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
+def test_cli_trains_the_hybrid_and_rwkv_on_cpu(arch, tmp_path, capsys):
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                    "2", "--seq", "16", "--batch", "2", "--ckpt-dir",
+                    str(tmp_path)])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("step     1 loss")
+    assert out[-1].startswith("done: loss")
