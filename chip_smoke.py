@@ -205,8 +205,39 @@ Among them run the phases of the solver's cost model and its two streams:
      0.99999: in bf16 its gradient's floor under any perturbation is near
      0.9985), then 1 warm-up and 4 timed steps (H4: 2) (step time,
      tokens/s, model-FLOP share, peak memory, the kernels' launches equal
-     to ``train_launches``) and a profiled step (busy share, device time a
-     call of each backward). (``[train]`` lines.)
+     to ``train_launches``) and, for H2 and H3, a profiled step (busy
+     share, device time a call of each backward). (``[train]`` lines.)
+
+  T. (after F, the llama3 weights still on the card; T2 after they are
+     freed) ``phase_tp`` and ``phase_tp_gloo``: tensor-parallel paged
+     serving (``serving/layout.py``). This process joins a one-rank NCCL
+     group. T0, the fp32 llama3 smoke model with TF32 off, on the eight
+     arms of the reference's ``tests/test_tp_serving.py`` (host, device
+     window 3, mixed, prefix, spec self k = 2, W4A16 + int8 KV, int8
+     weights, int8 KV): ``DeviceLayout`` on the card, ``MeshLayout`` over
+     the one-rank NCCL group on the card (its loops captured with the
+     collectives inside) and TP = 2 over two gloo CPU ranks give the same
+     tokens, pools drained, ``stats()["tp"]`` right. T1, llama3-8b at full
+     width and depth (bf16, phase 4's prompts, 16 new tokens, block 32,
+     width 8, window 8): ``DeviceLayout`` against the one-rank NCCL
+     ``MeshLayout`` on the fp window, the host tick, mixed and W4A16 +
+     int8 KV: tokens bitwise equal; tok/s, prefill and decode s of both in
+     the order device, mesh, mesh, device; graphs, capture s, pool bytes,
+     peak memory. T3, split-KV decode over the group at llama3's decode
+     shape ([8, 4096, 8, 128] bf16, positions 0, 1, 1234, 4095) against
+     the plain decode and kernel 2.5 within DTYPE_TOL, cache writes
+     bitwise, timed; ``compressed_psum`` on the group equal to its
+     arithmetic on the CPU. The group is left. T2, llama3-8b at full width
+     at TP = 2 as two processes sharing the card over gloo (eager: gloo's
+     collectives are not captured), host tick and device window, each rank
+     building the seeded full model and keeping its slices: first-token
+     cosine >= 0.999 against T1's ``DeviceLayout``, the two ranks' streams
+     equal, tokens compared with T1's (a difference logged with its first
+     step and the host tick's logit margin there), and the fp32 smoke
+     model's host and device arms equal T0's tokens. Its times are the
+     gloo transport's. (``[tp]`` lines.) No port kernel lies on this path
+     (TP excludes ``engine_mode``; the pool's attention is plain torch):
+     the kernels' launches on the earlier paths are unchanged.
 
 The line before the last is the kernels JSON line (each kernel launched
 on a phase E arm also carries ``serving_arms_launches``, on phase F's
@@ -2214,7 +2245,7 @@ def _model_flops(cfg, params, seq: int, batch: int) -> dict:
 def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
                      batch: int = 2, steps: int = 4, *, label: str = "H2",
                      parity: bool = True, parity_dtype: str | None = None,
-                     device: str = "cuda") -> dict:
+                     profile: bool = True, device: str = "cuda") -> dict:
     """A full-width training cell (bf16, seeded random weights, fp32 AdamW
     moments, remat per layer or period, seq x batch of SyntheticLM
     tokens). H2: qwen3-1.7b (28 layers, d_model 2048, 16 / 8 heads of 128,
@@ -2235,7 +2266,8 @@ def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
     training kernels' launches counted from 0 over the timed steps (each
     ``train_launches`` a step), peak memory over them, and one more step
     under torch.profiler for the busy share. No checkpoint is written at
-    this width."""
+    this width. ``profile=False`` skips the profiled step (its busy share
+    and device times are then None)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import fence
@@ -2323,10 +2355,12 @@ def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[train] {label} losses {losses}")
     marks.append(("timed", time.perf_counter()))
-    nxt = data.next()
-    prof = _profiled(f"train-step {arch}", lambda: step_fn(state, nxt),
-                     state["step"])
-    marks.append(("profiled", time.perf_counter()))
+    prof = {"rows": [], "share": None, "wall_s": None}
+    if profile:
+        nxt = data.next()
+        prof = _profiled(f"train-step {arch}", lambda: step_fn(state, nxt),
+                         state["step"])
+        marks.append(("profiled", time.perf_counter()))
     log(f"[time] {label} " + ", ".join(
         f"{name} {t - t0:.1f}s" for (_, t0), (name, t) in zip(marks,
                                                               marks[1:])))
@@ -2336,6 +2370,8 @@ def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
     def kernel_ms(names, calls):
         """Device ms a call of the kernels whose names hold one of
         ``names``, over ``calls`` calls in the profiled step."""
+        if not profile:
+            return None
         us = sum(r[0] for r in prof["rows"] if any(n in r[2] for n in names))
         return us / 1e3 / calls if calls else None
 
@@ -2393,8 +2429,11 @@ def phase_training() -> dict:
             ("H1", phase_train_smoke), ("H2", phase_train_full),
             ("H3", lambda: phase_train_full("zamba2-2.7b", label="H3",
                                             parity_dtype="float32")),
+            # H4 unprofiled: its ~250k-kernel step took 80-98 s under the
+            # profiler, the room phase T needs inside the time limit
             ("H4", lambda: phase_train_full(
-                "rwkv6-3b", steps=2, label="H4", parity=False))):
+                "rwkv6-3b", steps=2, label="H4", parity=False,
+                profile=False))):
         t0 = time.perf_counter()
         out[key] = phase()
         log(f"[time] phase H {key}: {time.perf_counter() - t0:.1f}s")
@@ -4597,6 +4636,469 @@ def phase_families() -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase T --
+
+# the reference's tests/test_tp_serving.py ARMS: PagedBatcher kwargs
+TP_ARMS = {
+    "host": dict(sync="host"),
+    "device": dict(sync="device", window=3),
+    "mixed": dict(sync="device", window=3, mixed_batch=True),
+    "prefix_cache": dict(sync="host", prefix_cache=True),
+    "spec_self": dict(sync="host", spec=2),
+    "w4a16_kv_int8": dict(sync="device", window=3, weight_quant="w4a16",
+                          kv_quant="int8"),
+    "w_int8": dict(sync="host", weight_quant="int8"),
+    "kv_int8": dict(sync="host", kv_quant="int8"),
+}
+# (label, PagedBatcher kwargs) of T1's llama3-8b pairs
+TP_FULL_ARMS = (
+    ("fp window", dict(sync="device")),
+    ("host tick", dict(sync="host")),
+    ("mixed", dict(sync="device", mixed_batch=True)),
+    ("w4a16+kv8", dict(sync="device", weight_quant="w4a16",
+                       kv_quant="int8")),
+)
+TP_COS = 0.999          # T2's first-token gate against T1's DeviceLayout
+
+
+def _tp_smoke_model(device: str):
+    """The fp32 llama3 smoke model on ``device``, seeded on the CPU (the
+    same weights on every device and rank)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
+                                              compute_dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(7),
+                                   device="cpu")
+    return cfg, _to_device(params, device)
+
+
+def _tp_smoke_serve(cfg, params, device, mesh=None, **kw):
+    """One closed-loop serve of the smoke prompts (3 requests, 8 new tokens
+    each, block 16, width 3): (tokens, stats, graphs), the pool drained."""
+    import numpy as np
+    from repro_torch.serving.scheduler import PagedBatcher
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 33)]
+    cb = PagedBatcher(cfg, params, num_blocks=40, block_size=16,
+                      max_blocks_per_seq=4, decode_width=3, buckets=(16, 32),
+                      mesh=mesh, device=device, **kw)
+    reqs = _requests(prompts, 8)
+    cb.run(reqs)
+    cb.kv.assert_drained()
+    if not all(r.done and len(r.output) == 8 for r in reqs):
+        raise AssertionError("a smoke request did not complete")
+    return [r.output for r in reqs], cb.stats(), cb.graph_stats()
+
+
+def _tp_cpu_rank(rank: int, arms) -> dict:
+    """T0's TP = 2 run on one of two gloo CPU ranks: every arm's (tokens,
+    stats)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(2)
+    cfg, params = _tp_smoke_model("cpu")
+    mesh = make_host_mesh(1, 2, device="cpu")
+    return {arm: _tp_smoke_serve(cfg, params, "cpu", mesh,
+                                 **TP_ARMS[arm])[:2] for arm in arms}
+
+
+def _tp_t0(mesh1, device="cuda") -> dict:
+    """T0: the eight arms on the card through DeviceLayout and through a
+    MeshLayout over the one-rank NCCL group, and TP = 2 over gloo on two
+    CPU ranks: the same tokens everywhere, pools drained, ``tp`` and the
+    capture state as the layout says."""
+    from repro_torch.launch.mesh import spawn_ranks
+    cfg, params = _tp_smoke_model(device)
+    card = device == "cuda"
+    t0 = time.perf_counter()
+    cpu = spawn_ranks(_tp_cpu_rank, 2, list(TP_ARMS), device="cpu")
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for arm, kw in TP_ARMS.items():
+        dev, dev_stats, _ = _tp_smoke_serve(cfg, params, device, **kw)
+        one, one_stats, graphs = _tp_smoke_serve(cfg, params, device, mesh1,
+                                                 **kw)
+        if dev_stats["tp"] != 1 or one_stats["tp"] != 1 \
+                or one_stats["captured"] is not card:
+            raise AssertionError(f"[tp] T0 {arm}: stats {one_stats}")
+        # the spec arm's verify is eager, and under host sync so is its
+        # draft round: every other arm decodes through captured loops
+        if card and "spec" not in kw and graphs["graphs"] < 1:
+            raise AssertionError(f"[tp] T0 {arm}: no captured graph")
+        for rank, res in enumerate(cpu):
+            toks, stats = res[arm]
+            if stats["tp"] != 2 or stats["captured"] is not False:
+                raise AssertionError(f"[tp] T0 {arm} CPU rank {rank}: "
+                                     f"stats {stats}")
+            if toks != dev:
+                raise AssertionError(f"[tp] T0 {arm}: CPU TP=2 rank {rank} "
+                                     f"tokens {toks} != card {dev}")
+        if one != dev:
+            raise AssertionError(f"[tp] T0 {arm}: one-rank NCCL tokens "
+                                 f"{one} != DeviceLayout {dev}")
+        out[arm] = {"tokens": dev, "graphs": graphs}
+        log(f"[tp] T0 {arm}: DeviceLayout = MeshLayout(1-rank NCCL, "
+            f"captured, {graphs['graphs']} graph(s)) = TP=2 gloo CPU ranks; "
+            f"tokens {dev}")
+    log(f"[tp] T0: 8 arms equal on the card, the one-rank NCCL group and two "
+        f"gloo CPU ranks (CPU spawn + run {spawn_s:.1f}s)")
+    return out
+
+
+def _tp_instrument(cb) -> dict:
+    """``_instrument``'s timers, the host tick timed under "decode" too."""
+    from repro_torch.core.sync import fence
+    timers, _ = _instrument(cb)
+    tick = cb._decode_tick
+
+    def timed_tick(*a, **k):
+        fence(cb.kv.pool["k"])
+        t = time.perf_counter()
+        out = tick(*a, **k)
+        fence(cb.kv.pool["k"])
+        timers["decode"] += time.perf_counter() - t
+        return out
+
+    cb._decode_tick = timed_tick
+    return timers
+
+
+def _tp_full_batcher(cfg, params, prompts, mesh, kw, device="cuda"):
+    """A T1 batcher (block 32, width 8, window 8, 16 new tokens) after its
+    first run over ``prompts``, which captures its loops; with its timers
+    (``_instrument``, the tick timed too) and first run's tokens."""
+    from repro_torch.core.sync import fence
+    t0 = time.perf_counter()
+    cb, reqs = _serve(cfg, params, prompts, device=device, engine_mode=None,
+                      window=8, decode_width=8, new_tokens=16, mesh=mesh,
+                      **kw)
+    timers = _tp_instrument(cb)
+    cb.run(reqs)
+    fence(cb.kv.pool["k"])
+    return {"cb": cb, "timers": timers, "setup_s": time.perf_counter() - t0,
+            "first": [r.output for r in reqs],
+            "first_logits": dict(timers["first_logits"])}
+
+
+def _tp_timed_run(arm, prompts) -> dict:
+    import torch
+    from repro_torch.core.sync import fence
+    cb, timers = arm["cb"], arm["timers"]
+    timers.update(prefill=0.0, decode=0.0, first_logits={})
+    reqs = _requests(prompts, 16)
+    fence(cb.kv.pool["k"])
+    card = cb.device.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cb.run(reqs)
+    fence(cb.kv.pool["k"])
+    wall = time.perf_counter() - t0
+    cb.kv.assert_drained()
+    tok = sum(len(r.output) for r in reqs)
+    return {"wall_s": wall, "tok_per_s": tok / wall,
+            "prefill_s": timers["prefill"], "decode_s": timers["decode"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if card
+            else 0.0, "outputs": [r.output for r in reqs]}
+
+
+def _tp_t1(cfg, params, mesh1, device="cuda") -> dict:
+    """T1: llama3-8b at full width, DeviceLayout against MeshLayout over the
+    one-rank NCCL group on each of TP_FULL_ARMS: bitwise-equal tokens, the
+    mesh's loops captured with the collectives inside; timed runs in the
+    order device, mesh, mesh, device."""
+    import torch
+    prompts = full_prompts(cfg)
+    out = {}
+    for label, kw in TP_FULL_ARMS:
+        arms = {"device": _tp_full_batcher(cfg, params, prompts, None, kw,
+                                           device),
+                "mesh": _tp_full_batcher(cfg, params, prompts, mesh1, kw,
+                                         device)}
+        runs = {"device": [], "mesh": []}
+        for which in ("device", "mesh", "mesh", "device"):
+            runs[which].append(_tp_timed_run(arms[which], prompts))
+        want = arms["device"]["first"]
+        for which, rs in runs.items():
+            for r in rs + [{"outputs": arms[which]["first"]}]:
+                if r["outputs"] != want:
+                    raise AssertionError(f"[tp] T1 {label}: {which} tokens "
+                                         f"differ from DeviceLayout's")
+        row = {"outputs": want}
+        for which in ("device", "mesh"):
+            cb = arms[which]["cb"]
+            g = _graph_info(cb)
+            rs = runs[which]
+            row[which] = {
+                "tok_per_s": [r["tok_per_s"] for r in rs],
+                "prefill_s": [r["prefill_s"] for r in rs],
+                "decode_s": [r["decode_s"] for r in rs],
+                "peak_gb": max(r["peak_gb"] for r in rs),
+                "setup_s": arms[which]["setup_s"], "graphs": g,
+                "stats": cb.stats()}
+            if device == "cuda" and g["graphs"] < 1:
+                raise AssertionError(f"[tp] T1 {label} {which}: no graph")
+            log(f"[tp] T1 {label} {which}: tok/s "
+                + " / ".join(f"{r['tok_per_s']:.2f}" for r in rs)
+                + ", prefill s " + " / ".join(f"{r['prefill_s']:.4f}"
+                                              for r in rs)
+                + ", decode s " + " / ".join(f"{r['decode_s']:.4f}"
+                                             for r in rs)
+                + f"; peak {row[which]['peak_gb']:.2f} GB (both batchers "
+                f"held); setup {arms[which]['setup_s']:.1f}s; graphs "
+                f"{g['graphs']}, capture {g['capture_s']:.2f}s, pool "
+                f"{g['pool_bytes'] / 1e6:.1f} MB; stats {cb.stats()}")
+        if row["mesh"]["stats"]["captured"] is not (device == "cuda"):
+            raise AssertionError(f"[tp] T1 {label}: mesh loops not captured")
+        if label == "fp window":
+            row["first_logits"] = arms["device"]["first_logits"]
+        log(f"[tp] T1 {label}: tokens bitwise equal, DeviceLayout and "
+            "MeshLayout(1-rank NCCL), first and timed runs")
+        out[label] = row
+        del arms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_t3(mesh1, device="cuda") -> dict:
+    """T3: split-KV decode over the one-rank NCCL group at llama3-8b's decode
+    shape (a [8, 4096, 8, 128] bf16 cache, 32 query heads) against the plain
+    decode and kernel 2.5, cache writes bitwise; ``compressed_psum`` on the
+    group against its arithmetic on the CPU."""
+    import torch
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.split_kv import (
+        local_shard, split_kv_decode_update_attend)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = torch.Generator(device=device).manual_seed(3)
+    B, S, Hq, Hkv, D = 8, 4096, 32, 8, 128
+    dt = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    q, kn, vn = randn(B, 1, Hq, D), randn(B, 1, Hkv, D), randn(B, 1, Hkv, D)
+    kc, vc = randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    tol = DTYPE_TOL["bfloat16"]
+    rows = {}
+    for pos in (0, 1, 1234, S - 1):
+        ck, cv = local_shard(kc, mesh1).clone(), local_shard(vc, mesh1).clone()
+        o, ck, cv = split_kv_decode_update_attend(
+            q, kn, vn, ck, cv, torch.tensor(pos, device=device), mesh1)
+        wk, wv = kc.clone(), vc.clone()
+        wk[:, pos], wv[:, pos] = kn[:, 0], vn[:, 0]
+        if not (torch.equal(ck, wk) and torch.equal(cv, wv)):
+            raise AssertionError(f"[tp] T3 pos {pos}: cache writes differ")
+        plain = decode_attention_ref(q[:, 0], wk, wv, pos + 1)
+        kern = decode_attention(q[:, 0], wk, wv, pos + 1)
+        e_plain = float((o[:, 0].float() - plain.float()).abs().max())
+        e_kern = float((o[:, 0].float() - kern.float()).abs().max())
+        if not (e_plain <= tol and e_kern <= tol):
+            raise AssertionError(f"[tp] T3 pos {pos}: split-KV vs plain "
+                                 f"{e_plain:.3g}, vs kernel 2.5 {e_kern:.3g} "
+                                 f"> {tol}")
+        rows[pos] = {"err_plain": e_plain, "err_kernel": e_kern}
+    split_ms = kern_ms = plain_ms = float("nan")      # timed on the card
+    if device == "cuda":
+        pos = torch.tensor(S - 1, device=device)
+        ck, cv = kc.clone(), vc.clone()
+        split_ms = cuda_time_ms(lambda: split_kv_decode_update_attend(
+            q, kn, vn, ck, cv, pos, mesh1))
+        kern_ms = cuda_time_ms(lambda: decode_attention(q[:, 0], kc, vc, S))
+        plain_ms = cuda_time_ms(
+            lambda: decode_attention_ref(q[:, 0], kc, vc, S))
+    x = torch.randn((4096, 1024), generator=g, device=device)
+    got = compressed_psum(x, mesh1.get_group("model"))
+    xc = x.cpu()
+    amax = xc.abs().amax()
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    want = torch.clamp(torch.round(xc / scale), -127, 127) * scale
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("[tp] T3 compressed_psum differs from its CPU "
+                             "arithmetic")
+    log(f"[tp] T3 split-KV decode [8, 4096, 8, 128] bf16 over the 1-rank "
+        f"NCCL group: max err vs plain / kernel 2.5 "
+        + ", ".join(f"pos {p}: {r['err_plain']:.3g} / {r['err_kernel']:.3g}"
+                    for p, r in rows.items())
+        + f" (tol {tol}); cache writes bitwise; ms split-KV {split_ms:.4f}, "
+        f"kernel 2.5 {kern_ms:.4f}, plain {plain_ms:.4f}; compressed_psum "
+        "equal to its CPU arithmetic")
+    return {"rows": rows, "split_kv_ms": split_ms, "kernel_ms": kern_ms,
+            "plain_ms": plain_ms}
+
+
+def phase_tp(cfg, params, device="cuda") -> dict:
+    """Phase T (the llama3 weights on the card): T0, T1 and T3 over a
+    one-rank NCCL group that this process joins and leaves (gloo with
+    ``device="cpu"``, the CPU rehearsal)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_host_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        init_ranks(1, 0, f"file://{tmp}/rendezvous", device=device)
+        try:
+            mesh1 = make_host_mesh(1, 1, device=device)
+            out = {}
+            t0 = time.perf_counter()
+            out["T0"] = _tp_t0(mesh1, device)
+            log(f"[time] phase T T0: {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            out["T1"] = _tp_t1(cfg, params, mesh1, device)
+            log(f"[time] phase T T1: {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            out["T3"] = _tp_t3(mesh1, device)
+            log(f"[time] phase T T3: {time.perf_counter() - t0:.1f}s")
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _tp_margins(cb) -> dict:
+    """Per (rid, step), the gap between the two largest logits of the step
+    that chose the request's token ``step`` (host ticks): recorded by
+    wrapping the batcher's tick loop."""
+    margins = {}
+    make = cb._loop
+
+    def loop_of(kind, chunk=None):
+        loop = make(kind, chunk)
+        if kind != "tick":
+            return loop
+
+        def run(*a):
+            logits = loop(*a)
+            top = logits[:, -1].float().topk(2, dim=-1).values.cpu()
+            for i, lane in enumerate(cb.lanes):
+                if lane is not None:
+                    margins[lane.req.rid, len(lane.req.output)] = float(
+                        top[i, 0] - top[i, 1])
+            return logits
+        return run
+
+    cb._loop = loop_of
+    return margins
+
+
+def _tp_gloo_rank(rank: int, t0_tokens: dict, t1: dict, device: str,
+                  make_model) -> dict:
+    """T2 on one of two ranks sharing the card over gloo: the fp32 smoke
+    model's host and device arms, then llama3-8b at full width (each rank
+    builds the seeded full model, its batcher keeps the rank's slices, the
+    rest is freed) on the host tick and the device window.
+    ``make_model``: ``full_model`` (a smaller model in a CPU rehearsal)."""
+    import torch
+    from repro_torch.core.sync import fence
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device == "cuda"
+    mesh = make_host_mesh(1, 2, device=device)
+    out = {"smoke": {}}
+    scfg, sparams = _tp_smoke_model(device)
+    for arm in ("host", "device"):
+        toks, stats, graphs = _tp_smoke_serve(scfg, sparams, device, mesh,
+                                              **TP_ARMS[arm])
+        if toks != t0_tokens[arm] or stats["captured"] is not False \
+                or graphs["graphs"] != 0:
+            raise AssertionError(f"[tp] T2 smoke {arm} rank {rank}: tokens "
+                                 f"{toks} vs {t0_tokens[arm]}, {stats}, "
+                                 f"{graphs}")
+        out["smoke"][arm] = toks
+    del scfg, sparams
+    cfg, params = make_model()
+    prompts = full_prompts(cfg)
+    for label, kw in (("host tick", dict(sync="host")),
+                      ("fp window", dict(sync="device"))):
+        cb, reqs = _serve(cfg, params, prompts, device=device,
+                          engine_mode=None, window=8, decode_width=8,
+                          new_tokens=16, mesh=mesh, **kw)
+        if label == "fp window":
+            del params                  # the other rank's columns go
+            gc.collect()
+            torch.cuda.empty_cache()
+        timers = _tp_instrument(cb)
+        margins = _tp_margins(cb)
+        fence(cb.kv.pool["k"])
+        t0 = time.perf_counter()
+        cb.run(reqs)
+        fence(cb.kv.pool["k"])
+        wall = time.perf_counter() - t0
+        cb.kv.assert_drained()
+        got = [r.output for r in reqs]
+        want = t1[label]["outputs"]
+        diff = [(rid, next((i for i, (a, b) in enumerate(zip(g_, w_))
+                            if a != b), None))
+                for rid, (g_, w_) in enumerate(zip(got, want))]
+        diff = [(rid, step) for rid, step in diff if step is not None]
+        row = {"wall_s": wall, "tokens": sum(len(o) for o in got),
+               "outputs": got,
+               "prefill_s": timers["prefill"], "decode_s": timers["decode"],
+               "stats": cb.stats(), "graphs": cb.graph_stats(),
+               "first_diff": [(rid, step, margins.get((rid, step)))
+                              for rid, step in diff],
+               "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if card else 0.0)}
+        if label == "host tick":
+            row["first_logits"] = {rid: lg.cpu() for rid, lg in
+                                   timers["first_logits"].items()}
+        out[label] = row
+        del cb, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_gloo(t0: dict, t1: dict, device="cuda",
+                  make_model=None) -> dict:
+    """T2: llama3-8b at full width, TP = 2 as two processes sharing the card
+    over gloo (eager: gloo's collectives are not captured), host tick and
+    device window; first-token cosine >= TP_COS against T1's DeviceLayout,
+    tokens compared (a difference is logged with its first step and the
+    host tick's logit margin there), and the fp32 smoke model's tokens
+    equal. Its times are the gloo transport's, not TP's speed."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t0_tokens = {arm: t0[arm]["tokens"] for arm in ("host", "device")}
+    want = {label: {"outputs": t1[label]["outputs"]}
+            for label in ("host tick", "fp window")}
+    ref_logits = {rid: lg.cpu()
+                  for rid, lg in t1["fp window"]["first_logits"].items()}
+    ranks = spawn_ranks(_tp_gloo_rank, 2, t0_tokens, want, device,
+                        make_model or full_model, device=device,
+                        backend="gloo")
+    for rank, res in enumerate(ranks):
+        cos = {rid: float(torch.nn.functional.cosine_similarity(
+            res["host tick"]["first_logits"][rid], ref_logits[rid], dim=0))
+            for rid in ref_logits}
+        res["cos"] = cos
+        if min(cos.values()) < TP_COS:
+            raise AssertionError(f"[tp] T2 rank {rank}: first-token cosine "
+                                 f"{cos} < {TP_COS}")
+        for label in ("host tick", "fp window"):
+            r = res[label]
+            log(f"[tp] T2 rank {rank} {label} (gloo transport, eager): "
+                f"{r['tokens']} tokens in {r['wall_s']:.3f}s "
+                f"({r['tokens'] / r['wall_s']:.2f} tok/s), prefill "
+                f"{r['prefill_s']:.3f}s, decode {r['decode_s']:.3f}s; peak "
+                f"{r['peak_gb']:.2f} GB; graphs {r['graphs']}; "
+                + ("tokens equal T1's DeviceLayout" if not r["first_diff"]
+                   else "tokens differ from T1's DeviceLayout at (request, "
+                   f"step, host-tick logit margin) {r['first_diff']}"))
+        log(f"[tp] T2 rank {rank}: first-token cosine vs T1 DeviceLayout "
+            + ", ".join(f"{c:.6f}" for c in cos.values())
+            + f"; smoke host / device tokens equal T0's")
+    for label in ("host tick", "fp window"):
+        if ranks[0][label]["outputs"] != ranks[1][label]["outputs"]:
+            raise AssertionError(f"[tp] T2 {label}: the two ranks' streams "
+                                 "differ")
+    return {"ranks": ranks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4639,9 +5141,11 @@ def main() -> int:
     streams = timed(phase_two_streams, cfg, params)
     arms = timed(phase_serving_arms, cfg, params, full)
     front = timed(phase_front_end, cfg, params, full)
+    tp = timed(phase_tp, cfg, params)
     del cfg, params                  # the llama3 weights leave the card
     gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
+    tp["T2"] = timed(phase_tp_gloo, tp["T0"], tp["T1"])
     hcfg, hparams = hybrid_model()
     hybrid = timed(phase_engine_hybrid, hcfg, hparams,
                    tables[("zamba2-2.7b", None)])
@@ -4842,6 +5346,13 @@ def main() -> int:
         + f"{training['H4']['mean_step_s']:.4f}s ("
         + f"{training['H4']['tokens_per_s']:.0f} tok/s, peak "
         + f"{training['H4']['peak_gb']:.2f} GB)"
+        + "; tp: T1 DeviceLayout / one-rank NCCL MeshLayout tok/s "
+        + ", ".join(f"{k} {sum(v['device']['tok_per_s']) / 2:.2f} / "
+                    f"{sum(v['mesh']['tok_per_s']) / 2:.2f}"
+                    for k, v in tp["T1"].items())
+        + "; T2 two gloo ranks on the card (transport) host tick "
+        + f"{tp['T2']['ranks'][0]['host tick']['wall_s']:.2f}s, first-token "
+        + f"cosine min {min(tp['T2']['ranks'][0]['cos'].values()):.6f}"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

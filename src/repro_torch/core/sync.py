@@ -11,7 +11,10 @@ runs every launch of the loop, with no Python between them.
   * ``CapturedLoop`` — a loop body captured as one CUDA graph over static
     input buffers (warmed up once on a side stream, then captured); a call
     copies its inputs in and replays. ``make_loop`` gives one on the card
-    and the body itself on the CPU, so both devices run the same staging.
+    and the body itself on the CPU, so both devices run the same staging;
+    also the body itself where the caller says the body cannot be captured
+    (a tensor-parallel layout over gloo, whose collectives a graph cannot
+    record).
   * ``decode_loop`` — the single-request engine's loops over its dense
     cache. ``generate_on_device`` (fast sync) runs all ``n_steps`` greedy
     steps in one replay, the position and the tokens kept on the device;
@@ -19,7 +22,8 @@ runs every launch of the loop, with no Python between them.
     waits for it, carrying its token to the host and back (the clFinish
     analogue, the per-token cost the paper measures).
   * ``paged_window_loop`` — the batcher's fused WINDOW of batched paged
-    decode steps with no host read inside it, so the scheduler pays one
+    decode steps (the ``model``'s, or a layout's ``PagedSteps``) with no
+    host read inside it, so the scheduler pays one
     host round-trip per window instead of per token; ``paged_step_loop``
     its host-synced tick's one step. Finished lanes are masked, as the
     reference's ``_masked_step`` does: a lane whose budget ran out or that
@@ -47,6 +51,7 @@ from __future__ import annotations
 import gc
 import time
 from contextlib import contextmanager
+from functools import partial
 
 import numpy as np
 import torch
@@ -113,6 +118,10 @@ class CapturedLoop:
     from it; its state is put back after the warm-up, so the first replay
     draws from where an eager run would.
 
+    Under tensor parallelism over NCCL the body's collectives are recorded
+    too; the warm-up issues the first of them (which sets up the
+    communicator) before the capture.
+
     A call copies its inputs into the static buffers (without waiting for
     the host: the batcher stages its inputs in page-locked memory),
     replays, and returns the static outputs, which the next replay
@@ -178,12 +187,21 @@ class CapturedLoop:
         return self.outputs
 
 
-def make_loop(body, inputs, *, generator=None):
+def make_loop(body, inputs, *, generator=None, capture: bool = True):
     """``body`` as a :class:`CapturedLoop` on ``inputs``' CUDA device; on
-    the CPU, ``body`` itself, called eagerly with each call's inputs."""
-    if inputs[0].is_cuda:
+    the CPU, ``body`` itself, called eagerly with each call's inputs. On
+    the card with ``capture`` False, ``body`` called eagerly on each call's
+    inputs copied to the card (the callers stage them in host memory, as
+    for a graph's buffers)."""
+    if not inputs[0].is_cuda:
+        return body
+    if capture:
         return CapturedLoop(body, inputs, generator=generator)
-    return body
+    return partial(_eager_on, body, inputs[0].device)
+
+
+def _eager_on(body, device, *inputs):
+    return body(*(t.to(device, non_blocking=True) for t in inputs))
 
 
 def stage(*arrays, device) -> list:
@@ -372,7 +390,7 @@ def generate_host_loop(loop, first_token, cache, n_steps: int):
 
 def paged_window_loop(model, params, pool, width: int, max_blocks: int,
                       n_steps: int, *, sampler: SamplerConfig | None = None,
-                      eos_id=None, generator=None):
+                      eos_id=None, generator=None, capture: bool = True):
     """The batcher's fused window over ``pool`` (see :func:`make_loop`):
     ``loop(last [W, 1], tables [W, NBmax], lengths [W], remaining [W])``
     runs :func:`paged_decode_window_eager`'s ``n_steps`` steps and returns
@@ -390,10 +408,12 @@ def paged_window_loop(model, params, pool, width: int, max_blocks: int,
 
     return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
                             zeros(width), zeros(width)),
-                     generator=generator if sampled else None)
+                     generator=generator if sampled else None,
+                     capture=capture)
 
 
-def paged_step_loop(model, params, pool, width: int, max_blocks: int):
+def paged_step_loop(model, params, pool, width: int, max_blocks: int, *,
+                    capture: bool = True):
     """The host-synced tick's one batched paged decode step over ``pool``
     (see :func:`make_loop`): ``loop(last [W, 1], tables [W, NBmax], lengths
     [W])`` returns logits [W, 1, V]; sampling stays with the caller.
@@ -407,13 +427,13 @@ def paged_step_loop(model, params, pool, width: int, max_blocks: int):
         return logits
 
     return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
-                            zeros(width)))
+                            zeros(width)), capture=capture)
 
 
 def paged_mixed_window_loop(model, params, pool, width: int,
                             max_blocks: int, n_steps: int, chunk: int, *,
                             mixed_step_fn, sampler: SamplerConfig | None = None,
-                            eos_id=None, generator=None):
+                            eos_id=None, generator=None, capture: bool = True):
     """The batcher's window carrying one prefill chunk of ``chunk`` tokens
     (see :func:`make_loop`): ``loop(last, tables, lengths, remaining,
     chunk_tokens [1, C], chunk_table [1, NBmax], start)``, ``start`` a
@@ -437,11 +457,13 @@ def paged_mixed_window_loop(model, params, pool, width: int,
     return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
                             zeros(width), zeros(width), zeros(1, chunk),
                             zeros(1, max_blocks), zeros()),
-                     generator=generator if sampled else None)
+                     generator=generator if sampled else None,
+                     capture=capture)
 
 
 def paged_mixed_step_loop(model, params, pool, width: int, max_blocks: int,
-                          chunk: int, *, mixed_step_fn):
+                          chunk: int, *, mixed_step_fn,
+                          capture: bool = True):
     """The host-synced tick carrying one prefill chunk of ``chunk`` tokens
     (see :func:`make_loop`): ``loop(last, tables, lengths, chunk_tokens,
     chunk_table, start)`` returns (decode logits [W, 1, V], the chunk's
@@ -459,7 +481,7 @@ def paged_mixed_step_loop(model, params, pool, width: int, max_blocks: int,
 
     return make_loop(body, (zeros(width, 1), zeros(width, max_blocks),
                             zeros(width), zeros(1, chunk),
-                            zeros(1, max_blocks), zeros()))
+                            zeros(1, max_blocks), zeros()), capture=capture)
 
 
 def slot_decode_loop(model, params, cache, n_steps: int):

@@ -3,13 +3,14 @@
 per-tensor scale and error feedback (the quantization residual is carried
 and added back next step, so compression accumulates no bias).
 
-``compressed_psum`` (the collective that moves the int8 payload) waits for
-tensor / data parallelism in the port; the pair below is what the trainer
-applies to every gradient before a reduction.
+``compress_grads_with_feedback`` is what the trainer applies to every
+gradient before a reduction; ``compressed_psum`` is the collective that
+moves the int8 payload over a ``torch.distributed`` group.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..training.tree import tree_map
 
@@ -46,3 +47,18 @@ def _one(g: torch.Tensor, e: torch.Tensor):
 def init_error(params: dict) -> dict:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks through int8 codes: the
+    ranks' amax is max-combined first and the scale widened by the group
+    size, so the int32 sum of the codes stays in range; then dequantized to
+    ``x``'s dtype. The reference's arithmetic, op for op."""
+    n = float(dist.get_world_size(group))
+    amax = x.abs().amax().float().reshape(1)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0) * n
+    q = torch.clamp(torch.round(x.float() / scale * n), -127, 127
+                    ).to(torch.int32)
+    dist.all_reduce(q, group=group)
+    return (q.float() * scale / n).to(x.dtype)

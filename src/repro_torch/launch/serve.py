@@ -16,6 +16,8 @@
         --engine-mode hetero-tensor --sync device --open-loop \\
         --priority-mix 0.5 --trace-out trace.json --metrics-out run.prom \\
         --plan-drift
+    python -m repro_torch.launch.serve --arch llama3-8b --batched --paged \\
+        --sync device --tp 1
 
 Without ``--batched`` it runs the single-request HeteroInfer engine
 (``InferenceEngine.generate`` on one seeded prompt of ``--prompt-len``
@@ -86,13 +88,29 @@ default) or open loop:
                     us against the traced dispatch time per (site, M,
                     strategy); needs --engine-mode for decision tags)
 
-Tensor parallelism (``--tp``) is not ported yet.
+Tensor parallelism:
+
+  --tp N            serve over N ranks, one process each, head-wise
+                    tensor-parallel over a 1 x N ("data", "model") mesh
+                    (serving/layout.py): each rank holds its column slices
+                    of the weights and its KV heads of the pool, and runs
+                    the same batcher bookkeeping. NCCL on the card (rank r
+                    on card r; N may not exceed the cards there), gloo with
+                    --device cpu. Greedy streams equal the single-device
+                    batcher's; rank 0 reports, and every rank's streams are
+                    compared at the end. --tp 1 serves over a one-rank NCCL
+                    group, its decode loops CUDA graphs with the
+                    collectives inside. Batched paged serving only, closed
+                    loop (each rank admits on its own clock, so an open
+                    loop could admit differently on different ranks);
+                    excludes --engine-mode.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 
 def main(argv=None):
@@ -180,6 +198,9 @@ def main(argv=None):
     ap.add_argument("--watermark", type=int, default=0,
                     help="defer admission while it would leave fewer than "
                          "N free+cached blocks (paged mode)")
+    ap.add_argument("--tp", type=int, default=None, metavar="N",
+                    help="tensor-parallel width: N ranks, weights and the "
+                         "paged pool sharded head-wise (paged batcher)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -216,6 +237,8 @@ def main(argv=None):
             and not args.batched:
         ap.error("--trace-out / --metrics-out / --plan-drift trace the "
                  "batched servers: add --batched")
+    if args.tp is not None:
+        _check_tp(ap, args)
 
     from repro_torch.configs import get_config, get_smoke_config
 
@@ -223,12 +246,61 @@ def main(argv=None):
     if cfg.encoder_only:
         ap.error(f"{args.arch} is encoder-only: it has no prefill or decode "
                  "step to generate with")
+    if args.tp is not None:
+        _run_tp(cfg, args)
+        return
     rng = np.random.default_rng(0)
     if not args.batched:
         _run_engine(cfg, args, rng)
         return
 
     _run_batched(cfg, args, rng)
+
+
+def _check_tp(ap, args) -> None:
+    if not (args.batched and args.paged):
+        ap.error("--tp applies to the paged batcher: add --batched --paged")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.engine_mode:
+        ap.error("--tp and --engine-mode are mutually exclusive: the hetero "
+                 "engine and the device mesh are separate axes")
+    if args.open_loop:
+        ap.error("--tp serves closed loop: each rank admits on its own "
+                 "clock, and an open loop could admit differently on "
+                 "different ranks")
+    if torch.device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        if args.tp > cards:
+            ap.error(f"--tp {args.tp} needs {args.tp} cards (one NCCL rank "
+                     f"each), {cards} visible")
+
+
+def _run_tp(cfg, args) -> None:
+    """``--tp N``: N ranks serve the same seeded workload; rank 0 reports,
+    and the ranks' streams must agree."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    streams = spawn_ranks(_serve_rank, args.tp, cfg, args,
+                          device=args.device)
+    for rank, got in enumerate(streams[1:], start=1):
+        if got != streams[0]:
+            raise SystemExit(f"rank {rank}'s token streams differ from "
+                             "rank 0's")
+    print(f"  tp: {args.tp} ranks, streams equal on every rank")
+
+
+def _serve_rank(rank, cfg, args):
+    from repro_torch.launch.mesh import make_host_mesh
+    if torch.device(args.device).type == "cpu":    # the ranks share the cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // args.tp))
+    mesh = make_host_mesh(1, args.tp, device=args.device)
+    return _run_batched(cfg, args, np.random.default_rng(0), mesh=mesh,
+                        lead=rank == 0)
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
 
 
 def draw_workload(rng, vocab: int, n: int, prompt_len: int,
@@ -245,10 +317,12 @@ def draw_workload(rng, vocab: int, n: int, prompt_len: int,
     return prompts, prios
 
 
-def _run_batched(cfg, args, rng) -> None:
+def _run_batched(cfg, args, rng, *, mesh=None, lead: bool = True) -> list:
     """The batched servers on seeded prompts through the async ingress, on
     a MonotonicClock: all serving time flows through the clock, and the
-    run is fenced at both ends."""
+    run is fenced at both ends. ``mesh``: tensor-parallel serving (one
+    rank of ``--tp``); only the ``lead`` rank prints the report and writes
+    the trace and metrics files. Returns the requests' token streams."""
     from repro_torch.core.sync import fence
     from repro_torch.serving.ingress import (AsyncServer, arrival_times,
                                              open_loop_workload)
@@ -257,6 +331,7 @@ def _run_batched(cfg, args, rng) -> None:
     from repro_torch.serving.telemetry import MonotonicClock
     from repro_torch.serving.trace import Tracer
 
+    say = print if lead else _quiet
     max_len = args.prompt_len + args.new_tokens + 8
     clock = MonotonicClock()
     tracing = bool(args.trace_out or args.metrics_out or args.plan_drift)
@@ -277,7 +352,7 @@ def _run_batched(cfg, args, rng) -> None:
                           spec=spec, prefix_cache=args.prefix_cache,
                           weight_quant=args.weight_quant,
                           kv_quant=args.kv_quant, device=args.device,
-                          tracer=tracer)
+                          mesh=mesh, tracer=tracer)
         anchor = cb.kv.pool["k"]
         label = (f"paged (bs={args.block_size}, blocks={num_blocks}, "
                  f"W={args.decode_width}, sync={args.sync}"
@@ -292,6 +367,9 @@ def _run_batched(cfg, args, rng) -> None:
                  + (f", weights={args.weight_quant}" if args.weight_quant
                     else "")
                  + (f", kv={args.kv_quant}" if args.kv_quant else "")
+                 + (f", tp={cb.layout.tp} "
+                    f"{'captured' if cb.stats()['captured'] else 'eager'}"
+                    if mesh is not None else "")
                  + f", device={cb.device})")
     else:
         cb = ContinuousBatcher(cfg, max_batch=4, max_len=max_len,
@@ -316,54 +394,55 @@ def _run_batched(cfg, args, rng) -> None:
     tok = sum(len(h.tokens) for h in handles)
     loop = (f"open-loop {args.arrival}@{args.rate}/s" if args.open_loop
             else "closed-loop")
-    print(f"{label}: {loop}, {args.requests} reqs, {tok} tokens in "
-          f"{dt:.2f}s ({tok / dt:.1f} tok/s, peak concurrency "
-          f"{cb.peak_active})")
+    say(f"{label}: {loop}, {args.requests} reqs, {tok} tokens in "
+        f"{dt:.2f}s ({tok / dt:.1f} tok/s, peak concurrency "
+        f"{cb.peak_active})")
     rep = server.report(slo_ms=args.slo_ms)
     for m in ("ttft_ms", "tpot_ms", "queue_delay_ms"):
         st = rep[m]
         if st["n"]:
-            print(f"  {m.removesuffix('_ms')}: p50 {st['p50']:.1f} ms, "
-                  f"p95 {st['p95']:.1f} ms, p99 {st['p99']:.1f} ms "
-                  f"(n={st['n']})")
+            say(f"  {m.removesuffix('_ms')}: p50 {st['p50']:.1f} ms, "
+                f"p95 {st['p95']:.1f} ms, p99 {st['p99']:.1f} ms "
+                f"(n={st['n']})")
     good = rep["goodput_req_s"]
-    print(f"  goodput: {good:.2f} req/s"
-          + (f" under TTFT SLO {args.slo_ms:.0f} ms "
-             f"({100 * rep['slo_attainment']:.0f}% attainment)"
-             if args.slo_ms is not None else " (no SLO given)")
-          + (f", {rep['preemptions']} preemptions"
-             if rep["preemptions"] else ""))
+    say(f"  goodput: {good:.2f} req/s"
+        + (f" under TTFT SLO {args.slo_ms:.0f} ms "
+           f"({100 * rep['slo_attainment']:.0f}% attainment)"
+           if args.slo_ms is not None else " (no SLO given)")
+        + (f", {rep['preemptions']} preemptions"
+           if rep["preemptions"] else ""))
     if args.paged:
-        print(f"  decode: {cb.decode_dispatches} host dispatches for "
-              f"{cb.decode_steps} decoded tokens "
-              f"({cb.decode_steps / max(cb.decode_dispatches, 1):.1f} "
-              f"tokens/dispatch)")
-        print(f"  prefill: {cb.prefill_dispatches} standalone dispatches, "
-              f"{cb.fused_steps} chunks fused into decode dispatches "
-              f"({cb.total_dispatches} host dispatches total)")
+        say(f"  decode: {cb.decode_dispatches} host dispatches for "
+            f"{cb.decode_steps} decoded tokens "
+            f"({cb.decode_steps / max(cb.decode_dispatches, 1):.1f} "
+            f"tokens/dispatch)")
+        say(f"  prefill: {cb.prefill_dispatches} standalone dispatches, "
+            f"{cb.fused_steps} chunks fused into decode dispatches "
+            f"({cb.total_dispatches} host dispatches total)")
         s = cb.stats()
         if spec is not None:
-            print(f"  spec: {s['verify_dispatches']} verify dispatches, "
-                  f"acceptance {s['acceptance_rate']:.2f} "
-                  f"({s['accepted_tokens']}/{s['drafted_tokens']} drafts, "
-                  f"draft={s['draft_model']})")
+            say(f"  spec: {s['verify_dispatches']} verify dispatches, "
+                f"acceptance {s['acceptance_rate']:.2f} "
+                f"({s['accepted_tokens']}/{s['drafted_tokens']} drafts, "
+                f"draft={s['draft_model']})")
         if args.prefix_cache:
-            print(f"  prefix-cache: {s['prefix_hits']} hit admissions, "
-                  f"{s['prefix_tokens_reused']} prompt tokens reused, "
-                  f"{s['cached_blocks']} blocks retained, {s['evictions']} "
-                  f"evictions, {s['cow_copies']} CoW copies")
+            say(f"  prefix-cache: {s['prefix_hits']} hit admissions, "
+                f"{s['prefix_tokens_reused']} prompt tokens reused, "
+                f"{s['cached_blocks']} blocks retained, {s['evictions']} "
+                f"evictions, {s['cow_copies']} CoW copies")
     if args.stats:
-        print(f"  stats: {server.stats()}")
-    if tracer is not None:
+        say(f"  stats: {server.stats()}")
+    if tracer is not None and lead:
         if args.trace_out:
             tracer.save_chrome(args.trace_out)
-            print(f"  trace: {tracer.n_events} events "
-                  f"({tracer.dropped} dropped) -> {args.trace_out}")
+            say(f"  trace: {tracer.n_events} events "
+                f"({tracer.dropped} dropped) -> {args.trace_out}")
         if args.metrics_out:
             tracer.save_prometheus(args.metrics_out)
-            print(f"  metrics: -> {args.metrics_out}")
+            say(f"  metrics: -> {args.metrics_out}")
         if args.plan_drift:
-            print(tracer.drift.format_table())
+            say(tracer.drift.format_table())
+    return [h.tokens for h in handles]
 
 
 def _run_engine(cfg, args, rng) -> None:

@@ -8,6 +8,12 @@ decode-attention kernels, but for per-slot indices (one position a lane,
 reference takes with ``preferred_element_type=float32`` are taken here on
 fp32 copies of the operands, which gives the same exact products of
 bf16/fp16 values.
+
+Tensor parallelism (serving/layout.py): with ``tp_group`` given, the layer
+holds its rank's column slices of every matrix and the config's local
+head counts; :func:`tp_all_gather` reassembles a column-sharded activation
+in rank order, so every output column is one rank's full-depth reduction
+and the result is the single-device one bit for bit.
 """
 from __future__ import annotations
 
@@ -15,15 +21,44 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs import dtype_of
 from ..core.partition import matmul_any
+from ..distributed.sharding import split_kv_active, split_kv_mesh
+from ..distributed.split_kv import split_kv_decode_update_attend
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
 _POS_PAD = int(np.iinfo(np.int32).max)     # kv_pos of padded slots: masked
+
+
+def tp_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Concatenate the ranks' slices of a column-sharded ``x`` along its
+    last axis, in rank order within ``group``: the reference's tiled
+    ``all_gather``. Issued at every group size, one included, so a
+    one-rank group runs the same collectives as a wider one. The gather
+    lands rank-major on axis 0 (the form gloo takes as well as NCCL) and is
+    moved to the last axis by one copy."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.view(n, *x.shape).movedim(0, -2).reshape(
+        *x.shape[:-1], n * x.shape[-1])
+
+
+def _out_proj(o, p, mm, tp_group):
+    """``o @ wo`` of attention output ``o`` [B, S, H*D]: under tensor
+    parallelism the local heads are gathered before the product and wo's
+    output columns after it."""
+    if tp_group is not None:
+        o = tp_all_gather(o, tp_group)
+    out = mm(o, p["wo"], name="wo")
+    return out if tp_group is None else tp_all_gather(out, tp_group)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -183,7 +218,7 @@ def _qkv_rope(p: dict, x, cfg, positions, hetero_ctx, freqs):
 
 
 def attention(p: dict, x, cfg, *, positions, cache: dict | None,
-              cache_index, freqs, hetero_ctx=None):
+              cache_index, freqs, hetero_ctx=None, tp_group=None):
     """GQA attention over one layer of the dense KV cache, or over the
     call's own tokens when ``cache`` is None (``forward_hidden``): the
     flash kernel over the whole sequence, bidirectional for an
@@ -198,13 +233,25 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
     the whole cache masked at ``cache_index + 1`` with the decode kernel; a
     chunk of S > 1 tokens at an int start attends over the prefix
     ``[0, start + S)`` with the causal flash kernel, aligned bottom-right.
-    Returns (out, cache)."""
+
+    Under ``distributed.sharding.split_kv_enabled`` a one-token step
+    takes the split-KV path instead (``distributed/split_kv.py``): the
+    cache is this rank's sequence shard, the owner of the position writes,
+    and the shards' softmax partials combine over the mesh's ``model``
+    group. ``tp_group``: the layer is this rank's head slice (see
+    :func:`tp_all_gather`). Returns (out, cache)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v, mm = _qkv_rope(p, x, cfg, positions, hetero_ctx, freqs)
     if cache is None:
         o = flash_attention(q, k, v, causal=not cfg.encoder_only)
-        return mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo"), None
+        return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
+                         tp_group), None
+    if S == 1 and split_kv_active():
+        o, _, _ = split_kv_decode_update_attend(
+            q, k, v, cache["k"], cache["v"], cache_index, split_kv_mesh())
+        return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
+                         tp_group), cache
     ck, cv = cache["k"], cache["v"]
     if isinstance(cache_index, torch.Tensor):
         if S != 1:
@@ -227,8 +274,8 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
         end = cache_index + S
         o = flash_attention(q, ck[:, :end].to(q.dtype),
                             cv[:, :end].to(q.dtype), causal=True)
-    out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
-    return out, cache
+    return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
+                     tp_group), cache
 
 
 def slot_attention(p: dict, x, cfg, *, lengths, cache: dict, freqs,
@@ -259,17 +306,22 @@ def slot_attention(p: dict, x, cfg, *, lengths, cache: dict, freqs,
     return out, cache
 
 
-def quantize_kv_slot(x: torch.Tensor, scale_dtype=torch.bfloat16
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_slot(x: torch.Tensor, scale_dtype=torch.bfloat16,
+                     tp_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token-slot symmetric int8 KV quantization: x ``[T, Hkv, D]`` ->
     (codes int8 ``[T, Hkv, D]``, scale ``[T]`` in ``scale_dtype``).
 
     The scale is rounded to its storage type BEFORE the codes are computed,
     so codes quantize against the value the gather multiplies by and any
     chunking of the same token stream writes the same bytes. An all-zero
-    slot stores scale 0 and dequantizes to exactly 0."""
+    slot stores scale 0 and dequantizes to exactly 0. With ``tp_group``
+    ``x`` holds this rank's KV heads, and the slot's amax is the maximum
+    over the group's (a max of maxes is exact), so codes and scales are the
+    single-device pool's byte for byte."""
     xf = x.float()
     amax = xf.abs().amax(dim=(-2, -1))
+    if tp_group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp_group)
     s_stored = torch.where(amax > 0, amax / 127.0, 0.0).to(scale_dtype)
     denom = torch.where(s_stored == 0, 1.0, s_stored.float())
     codes = torch.clamp(torch.round(xf / denom[..., None, None]), -127, 127)
@@ -284,7 +336,7 @@ def dequant_kv_ref(codes: torch.Tensor, scale: torch.Tensor,
 
 
 def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
-                    freqs, hetero_ctx=None):
+                    freqs, hetero_ctx=None, tp_group=None):
     """GQA attention over one layer of the paged KV pool.
 
     Logical position ``t`` of request ``b`` lives at physical slot
@@ -296,7 +348,10 @@ def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
     null block. pool: {"k","v": [NB, BS, Hkv, D]}, plus {"k_scale",
     "v_scale": [NB, BS]} for an int8 pool, which quantizes on the write and
     dequantizes in the gather; block_table: [B, NBmax] (0 = null block);
-    freqs: the RoPE table. Returns (out, pool).
+    freqs: the RoPE table. With ``tp_group`` the pool holds this rank's KV
+    heads and the layer its head slice: the scatter, gather and softmax run
+    on the local heads, and the only collectives are the int8 slot scale's
+    max and the two gathers around wo. Returns (out, pool).
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -316,7 +371,7 @@ def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
         new = new.reshape(B * S, Hkv, D)
         if quant:
             sc = pool[f"{name}_scale"]
-            new, new_sc = quantize_kv_slot(new, sc.dtype)
+            new, new_sc = quantize_kv_slot(new, sc.dtype, tp_group)
             sc.view(NB * BS)[flat_idx] = new_sc
         flat[flat_idx] = new.to(flat.dtype)
 
@@ -331,8 +386,8 @@ def paged_attention(p: dict, x, cfg, *, positions, pool: dict, block_table,
     kv_pos = torch.arange(NBmax * BS, dtype=torch.long, device=x.device)
     o = blockwise_attention(q, ck, cv, q_pos=pos, kv_pos=kv_pos, causal=True,
                             block_k=cfg.attn_block_k)
-    out = mm(o.reshape(B, S, cfg.n_heads * hd), p["wo"], name="wo")
-    return out, pool
+    return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
+                     tp_group), pool
 
 
 # ---------------------------------------------------------------------- ffn --
@@ -350,11 +405,19 @@ def init_swiglu(cfg, generator: torch.Generator, device, n_layers: int) -> dict:
     }
 
 
-def swiglu(p: dict, x, hetero_ctx=None) -> torch.Tensor:
+def swiglu(p: dict, x, hetero_ctx=None, tp_group=None) -> torch.Tensor:
+    """SwiGLU FFN. With ``tp_group`` w_gate / w_up hold this rank's d_ff
+    columns and w_down its output columns: the hidden activation is
+    gathered before w_down and the output after it, never a sum of
+    row-parallel partials (which would reassociate the d_ff reduction)."""
     mm = hetero_ctx.matmul if hetero_ctx is not None else matmul_any
     g = mm(x, p["w_gate"], name="w_gate")
     u = mm(x, p["w_up"], name="w_up")
-    return mm(F.silu(g) * u, p["w_down"], name="w_down")
+    h = F.silu(g) * u
+    if tp_group is not None:
+        h = tp_all_gather(h, tp_group)
+    out = mm(h, p["w_down"], name="w_down")
+    return out if tp_group is None else tp_all_gather(out, tp_group)
 
 
 # ----------------------------------------------------------------- training --

@@ -6,6 +6,11 @@ tensors under ``layers`` (leading axis L), weights in ``[K, N]`` layout
 (``y = x @ w``); an MoE model has ``layers["moe"]`` (models/moe.py) where a
 dense one has ``layers["ffn"]``. The layer loop is a Python loop over the
 stacked axis; each iteration reads views, never copies.
+
+The paged entry points take ``tp_group``: under tensor-parallel serving
+(serving/layout.py) each rank runs this unchanged code on the config's
+local head counts and its column slices of the weights, and the layers
+gather the slices over the group (``layers.tp_all_gather``).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from ..core.partition import matmul_any
 from ..device import resolve_device
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
                      normal_stack, paged_attention, remat, rms_norm,
-                     rope_table, slot_attention, swiglu)
+                     rope_table, slot_attention, swiglu, tp_all_gather)
 from .moe import init_moe, moe_ffn
 
 
@@ -61,20 +66,22 @@ def layer_params(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
-def _layer(lp, x, cfg, attend, hetero_ctx):
+def _layer(lp, x, cfg, attend, hetero_ctx, tp_group=None):
     """One pre-norm block; ``attend(attn_params, h) -> (out, kv)`` is the
     dense-cache, paged or cache-free attention of this layer. The FFN is
-    the SwiGLU, or the MoE layer (whose capacity groups are the tokens of
-    this call). Returns (x, aux): the MoE layer's load-balancing loss, a
-    0-dim fp32 tensor, or None for a dense FFN (the reference's zero),
-    which the serving entry points ignore and ``loss_fn`` sums."""
+    the SwiGLU (column-sharded over ``tp_group`` when given), or the MoE
+    layer (whose capacity groups are the tokens of this call). Returns (x,
+    aux): the MoE layer's load-balancing loss, a 0-dim fp32 tensor, or
+    None for a dense FFN (the reference's zero), which the serving entry
+    points ignore and ``loss_fn`` sums."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + attend(lp["attn"], h)[0]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
         out, aux = moe_ffn(lp["moe"], h, cfg, hetero_ctx=hetero_ctx)
         return x + out, aux
-    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx), None
+    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx,
+                      tp_group=tp_group), None
 
 
 def _embed(params, inputs, cfg):
@@ -89,13 +96,19 @@ def _head_matrix(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _head_logits(params, x, cfg, hetero_ctx=None):
-    """LM-head matmul — a partitionable site like any other ("head")."""
+def _head_logits(params, x, cfg, hetero_ctx=None, tp_group=None):
+    """LM-head matmul — a partitionable site like any other ("head").
+    Under ``tp_group`` an untied head holds this rank's vocab columns and
+    the fp32 logits are gathered along V; a tied head reads the replicated
+    embedding and needs no collective."""
     if hetero_ctx is not None:
         y = hetero_ctx.matmul(x, _head_matrix(params, cfg), name="head")
     else:
         y = matmul_any(x, _head_matrix(params, cfg))
-    return y.float()
+    y = y.float()
+    if tp_group is not None and not cfg.tie_embeddings:
+        y = tp_all_gather(y, tp_group)
+    return y
 
 
 def unstack_layers(layers: dict, n: int) -> list[dict]:
@@ -276,7 +289,7 @@ def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
 
 
 def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
-                      hetero_ctx=None):
+                      hetero_ctx=None, tp_group=None):
     """All layers over the paged pool, which is updated in place."""
     freqs = rope_table(cfg, x.device)
     for i in range(cfg.n_layers):
@@ -284,7 +297,8 @@ def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    partial(paged_attention, cfg=cfg, positions=positions,
                            pool=layer_pool, block_table=block_table,
-                           freqs=freqs, hetero_ctx=hetero_ctx), hetero_ctx)[0]
+                           freqs=freqs, hetero_ctx=hetero_ctx,
+                           tp_group=tp_group), hetero_ctx, tp_group)[0]
     return x, pool
 
 
@@ -301,7 +315,7 @@ def _positions(start_index, S: int, device) -> torch.Tensor:
 
 
 def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
-                  hetero_ctx=None):
+                  hetero_ctx=None, tp_group=None):
     """Prefill a prompt chunk into the request's pages. tokens: [B, S];
     block_table: [B, NBmax]; ``start_index`` an int (uniform batch) or a
     [B] tensor of per-lane starts. Returns (last-token logits [B, 1, V],
@@ -310,13 +324,14 @@ def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
     positions = _positions(start_index, tokens.shape[1], x.device)
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_table,
-                                hetero_ctx=hetero_ctx)
+                                hetero_ctx=hetero_ctx, tp_group=tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head_logits(params, x[:, -1:, :], cfg, hetero_ctx), pool
+    return _head_logits(params, x[:, -1:, :], cfg, hetero_ctx,
+                        tp_group), pool
 
 
 def paged_verify(params, tokens, pool, cfg, *, block_table, start_index,
-                 hetero_ctx=None):
+                 hetero_ctx=None, tp_group=None):
     """Speculative-decoding verification: append ``tokens`` ([B, K+1], each
     lane's pending token and its K drafts) after each lane's cached prefix
     and return the logits of EVERY position, [B, K+1, V]. ``start_index``:
@@ -330,14 +345,14 @@ def paged_verify(params, tokens, pool, cfg, *, block_table, start_index,
     positions = _positions(start_index, tokens.shape[1], x.device)
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_table,
-                                hetero_ctx=hetero_ctx)
+                                hetero_ctx=hetero_ctx, tp_group=tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head_logits(params, x, cfg, hetero_ctx), pool
+    return _head_logits(params, x, cfg, hetero_ctx, tp_group), pool
 
 
 def mixed_step(params, decode_tokens, prefill_tokens, pool, cfg, *,
                decode_tables, decode_lengths, prefill_table, prefill_start=0,
-               hetero_ctx=None):
+               hetero_ctx=None, tp_group=None):
     """Stage-parallel mixed batch: one batched paged decode step of every
     lane AND one prefill chunk of an admitting request, over the same pool.
     Per layer the decode lanes run first, with no ``hetero_ctx`` (the
@@ -359,20 +374,22 @@ def mixed_step(params, decode_tokens, prefill_tokens, pool, cfg, *,
         xd = _layer(lp, xd, cfg,
                     partial(paged_attention, cfg=cfg, positions=dec_pos,
                             pool=layer_pool, block_table=decode_tables,
-                            freqs=freqs), None)[0]
+                            freqs=freqs, tp_group=tp_group), None,
+                    tp_group)[0]
         xp = _layer(lp, xp, cfg,
                     partial(paged_attention, cfg=cfg, positions=pre_pos,
                             pool=layer_pool, block_table=prefill_table,
-                            freqs=freqs, hetero_ctx=hetero_ctx),
-                    hetero_ctx)[0]
+                            freqs=freqs, hetero_ctx=hetero_ctx,
+                            tp_group=tp_group), hetero_ctx, tp_group)[0]
     xd = rms_norm(xd, params["final_norm"], cfg.norm_eps)
     xp = rms_norm(xp, params["final_norm"], cfg.norm_eps)
-    return (_head_logits(params, xd, cfg),
-            _head_logits(params, xp[:, -1:, :], cfg, hetero_ctx), pool)
+    return (_head_logits(params, xd, cfg, tp_group=tp_group),
+            _head_logits(params, xp[:, -1:, :], cfg, hetero_ctx, tp_group),
+            pool)
 
 
 def paged_decode_step(params, token, pool, cfg, *, block_tables, lengths,
-                      hetero_ctx=None):
+                      hetero_ctx=None, tp_group=None):
     """One batched decode step over the page pool. token: [B, 1];
     block_tables: [B, NBmax]; lengths: [B] per-request write positions.
     Inactive lanes (length 0, null table) sink writes into the null block.
@@ -381,6 +398,6 @@ def paged_decode_step(params, token, pool, cfg, *, block_tables, lengths,
     positions = lengths[:, None].long()
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_tables,
-                                hetero_ctx=hetero_ctx)
+                                hetero_ctx=hetero_ctx, tp_group=tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head_logits(params, x, cfg, hetero_ctx), pool
+    return _head_logits(params, x, cfg, hetero_ctx, tp_group), pool

@@ -52,7 +52,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models import transformer
+from .layout import DeviceLayout
 from .trace import NULL_TRACER
 
 
@@ -200,12 +200,16 @@ class PagedKVCache:
     ``open_sequence``, and the sequence may start with ``cached_tokens``
     positions resident (prefill only the suffix); pass the written token
     stream to ``close_sequence``, and its full blocks retire into the
-    cache for later requests."""
+    cache for later requests.
+
+    ``layout`` (serving/layout.py; by default the single device) allocates
+    the pool: under a ``MeshLayout`` this rank's KV heads only."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int = 32,
                  max_blocks_per_seq: int | None = None,
                  dtype=torch.bfloat16, kv_quant: str | None = None,
-                 prefix_cache: bool = False, device="cuda", tracer=None):
+                 prefix_cache: bool = False, device="cuda", layout=None,
+                 tracer=None):
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg = cfg
         self.kv_quant = kv_quant
@@ -214,7 +218,11 @@ class PagedKVCache:
         self.max_blocks_per_seq = (max_blocks_per_seq
                                    if max_blocks_per_seq is not None
                                    else num_blocks - 1)
-        self.pool = transformer.init_paged_cache(
+        # the layout (serving/layout.py) owns physical placement: the whole
+        # pool on one device, this rank's KV heads under tensor
+        # parallelism; everything below reasons about logical block ids
+        self.layout = layout if layout is not None else DeviceLayout()
+        self.pool = self.layout.init_pool(
             cfg, num_blocks=num_blocks, block_size=block_size, dtype=dtype,
             kv_quant=kv_quant, device=device)
         self.allocator = BlockAllocator(num_blocks)

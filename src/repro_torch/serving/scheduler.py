@@ -50,8 +50,13 @@ for the async ingress (serving/ingress.py). Both batchers take a
 ``tracer`` (serving/trace.py): with a live one every dispatch becomes a
 span tagged with the plan's decisions, closed after a fence, and the
 tracer's counters move with ``stats()``; with the default ``NULL_TRACER``
-nothing is recorded and nothing waits. Tensor parallelism is not ported
-yet (``stats()`` has no ``tp``).
+nothing is recorded and nothing waits.
+
+``PagedBatcher(mesh=...)`` serves head-wise tensor-parallel over the
+mesh's ``model`` axis (serving/layout.py): one process per rank, each
+running this same bookkeeping on its slices of the weights and the pool,
+the four paged entry points through the layout's step functions.
+``stats()["tp"]`` is the group's width.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ from ..core.sync import (loop_stats, paged_mixed_step_loop,
 from ..device import resolve_device
 from ..models import build_model
 from ..models.quant import WEIGHT_FORMATS, quantize_params
+from .layout import make_layout
 from .paged_cache import PagedKVCache, SequenceBlocks
 from .sampler import SamplerConfig, greedy_verify, sample
 from .spec import DraftLanes, SpecConfig
@@ -326,6 +332,14 @@ class PagedBatcher:
     the draft lanes' caches, by default the compute dtype.
     ``tracer`` (serving/trace.py) records every dispatch, the pool's prefix
     events and the draft lanes' dispatches.
+
+    ``mesh`` (a ``("data", "model")`` ``DeviceMesh``, launch/mesh.py):
+    tensor parallelism over its ``model`` axis (serving/layout.py). Every
+    rank of the group builds this batcher on the same full ``params`` and
+    keeps its column slices; the draft lanes keep the full params (they
+    run replicated, with no collective). Excludes ``engine_mode``. Under
+    NCCL the decode loops are CUDA graphs with the collectives inside;
+    under gloo they run eagerly (``stats()["captured"]``).
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
@@ -340,9 +354,14 @@ class PagedBatcher:
                  spec_draft_params=None, prefix_cache: bool = False,
                  weight_quant: str | None = None,
                  kv_quant: str | None = None, device="cuda", table=None,
-                 tracer=None):
+                 mesh=None, tracer=None):
         if sync not in ("host", "device"):
             raise ValueError(f"sync must be 'host' or 'device', got {sync!r}")
+        if mesh is not None and engine_mode is not None:
+            raise ValueError(
+                "engine_mode and mesh are mutually exclusive: the hetero "
+                "engine partitions matmuls within one device, tensor "
+                "parallelism partitions them across the mesh")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         if isinstance(spec, int):
@@ -385,13 +404,17 @@ class PagedBatcher:
                     else dtype_of(cfg.compute_dtype))
         self.block_size = block_size
         self.prefix_cache = prefix_cache
+        # placement (one device, or this rank's slices over the mesh) is the
+        # layout's; the bookkeeping below is the same on every rank
+        self.mesh = mesh
+        self.layout = make_layout(cfg, mesh)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.kv = PagedKVCache(
             cfg, num_blocks=num_blocks, block_size=block_size,
             max_blocks_per_seq=max_blocks_per_seq,
             dtype=fp_dtype, kv_quant=kv_quant,
             prefix_cache=prefix_cache, device=self.device,
-            tracer=self.tracer)
+            layout=self.layout, tracer=self.tracer)
         self.W = decode_width
         self.buckets = tuple(sorted(buckets))
         self.sampler = sampler
@@ -446,8 +469,12 @@ class PagedBatcher:
         self.drafted_tokens = 0          # drafts offered (budget-covered)
         self.accepted_tokens = 0         # drafts the target accepted
         self.verify_dispatches = 0       # batched paged_verify dispatches
-        self._prefill = partial(self.model.paged_prefill, hetero_ctx=self.ctx)
-        self._mixed_step = partial(self.model.mixed_step, hetero_ctx=self.ctx)
+        # the four paged entry points as the layout runs them (the model's
+        # own on one device), kept for this batcher's life: its decode
+        # loops are built on them
+        self.steps = self.layout.step_fns(self.model)
+        self._prefill = partial(self.steps.paged_prefill, hetero_ctx=self.ctx)
+        self._mixed_step = partial(self.steps.mixed_step, hetero_ctx=self.ctx)
         self._loops: dict[tuple, object] = {}      # loop_key -> decode loop
         self.drafts = None
         if spec is not None:
@@ -468,7 +495,10 @@ class PagedBatcher:
                 device=self.device, tracer=self.tracer)
             vctx = (self.ctx.for_verify(spec.k, decode_width)
                     if self.ctx is not None else None)
-            self._verify = partial(self.model.paged_verify, hetero_ctx=vctx)
+            self._verify = partial(self.steps.paged_verify, hetero_ctx=vctx)
+        # only after the draft lanes took the full params: the target's
+        # weights go to this rank's slices
+        self.params = self.layout.place_params(self.params)
 
     def _dispatch_span(self, kind: str, track: str, specs=(), **args):
         """The span of one traced dispatch (``traced_dispatch``): ``specs``
@@ -498,11 +528,13 @@ class PagedBatcher:
         return self.decode_dispatches + self.prefill_dispatches
 
     def stats(self) -> dict:
-        """Counter snapshot: dispatches issued vs tokens produced, the
-        prefix cache's counters and, in spec mode, speculation's; the
-        reference's keys but ``tp``, which comes with tensor-parallel
-        serving (not ported)."""
+        """Counter snapshot: the tensor-parallel width, dispatches issued vs
+        tokens produced, the prefix cache's counters and, in spec mode,
+        speculation's: the reference's keys. Under a mesh also
+        ``captured``: whether the decode loops are CUDA graphs (False on
+        the CPU and under gloo)."""
         s = {
+            "tp": self.layout.tp,
             "peak_active": self.peak_active,
             "decode_dispatches": self.decode_dispatches,
             "decode_steps": self.decode_steps,
@@ -511,6 +543,9 @@ class PagedBatcher:
             "preemptions": self.preemptions,
             "total_dispatches": self.total_dispatches,
         }
+        if self.mesh is not None:
+            s["captured"] = (self.device.type == "cuda"
+                             and self.layout.capturable)
         s.update(self.kv.prefix_stats())
         if self.spec is not None:
             s.update({
@@ -551,21 +586,23 @@ class PagedBatcher:
     def _loop(self, kind: str, chunk: int | None = None):
         key = self.loop_key(kind, chunk)
         if key not in self._loops:
-            shape = (self.model, self.params, self.kv.pool, self.W,
+            shape = (self.steps, self.params, self.kv.pool, self.W,
                      self.kv.max_blocks_per_seq)
+            capture = self.layout.capturable
             window = dict(sampler=self.sampler, eos_id=self.eos_id,
-                          generator=self.generator)
+                          generator=self.generator, capture=capture)
             if kind == "window":
                 loop = paged_window_loop(*shape, self.window, **window)
             elif kind == "tick":
-                loop = paged_step_loop(*shape)
+                loop = paged_step_loop(*shape, capture=capture)
             elif kind == "mixed-window":
                 loop = paged_mixed_window_loop(
                     *shape, self.window, chunk,
                     mixed_step_fn=self._mixed_step, **window)
             else:
                 loop = paged_mixed_step_loop(
-                    *shape, chunk, mixed_step_fn=self._mixed_step)
+                    *shape, chunk, mixed_step_fn=self._mixed_step,
+                    capture=capture)
             self._loops[key] = loop
         return self._loops[key]
 

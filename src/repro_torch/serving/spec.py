@@ -14,7 +14,11 @@ the accepted prefix.
     kernel (``transformer.prefill_slot``).
   * **Verify** — ONE target dispatch (``transformer.paged_verify``) scores
     the K+1 positions through a ``HeteroCtx`` resolving the solver's
-    VERIFY decisions; ``sampler.greedy_verify`` accepts losslessly.
+    VERIFY decisions; ``sampler.greedy_verify`` accepts losslessly. In a
+    ``PagedBatcher`` the dispatch is its layout's ``paged_verify``
+    (serving/layout.py): under tensor parallelism each rank verifies on
+    its slices, while the draft lanes keep the full draft params on every
+    rank and run with no collective.
   * **Rollback** — ``PagedKVCache.truncate_to`` returns whole blocks past
     the accepted prefix; the draft lanes reset their cursors.
 

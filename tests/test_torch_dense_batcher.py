@@ -265,8 +265,7 @@ def test_fuzz_schedules_equal_reference(smoke_model, port_params, drafts,
     assert not got_b.busy
     assert [r.output for r in reqs[got_b]] == [r.output for r in
                                                reqs[want_b]]
-    assert got_b.stats() == {k: v for k, v in want_b.stats().items()
-                             if k != "tp"}
+    assert got_b.stats() == want_b.stats()
     if paged:
         got_b.kv.assert_drained()
         assert got_b.kv.utilization() == 0.0

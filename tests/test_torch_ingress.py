@@ -181,7 +181,7 @@ def test_server_equals_reference(smoke_model, port_params, arm):
     assert all(x.done and x.terminal_events == 1 for x in h)
     assert (s.ticks, s.deferrals, s.preemptions) == \
         (rs.ticks, rs.deferrals, rs.preemptions)
-    assert s.stats() == {k: v for k, v in rs.stats().items() if k != "tp"}
+    assert s.stats() == rs.stats()
     assert s.report() == rs.report()
     assert s.report(slo_ms=20.0) == rs.report(slo_ms=20.0)
     assert counter_reconciliation(t, s.stats()) == {}

@@ -160,8 +160,7 @@ def test_traced_run_equals_reference(smoke_model, port_params, tmp_path,
 
     s = pb.stats()
     assert counter_reconciliation(tracer, s) == {}
-    assert {k: v for k, v in s.items()} == \
-        {k: v for k, v in ref_pb.stats().items() if k != "tp"}
+    assert s == ref_pb.stats()
     by_kind = _dispatch_counts(tracer)
     assert by_kind.get("prefill_chunk", 0) == s["prefill_dispatches"]
     assert sum(by_kind.get(k, 0) for k in DECODE_KINDS) \
@@ -242,11 +241,11 @@ def test_drift_rows_cover_every_plan_site(port_params):
 
 
 def test_stats_schema(port_params):
-    """Every mirrored key is an int in the port's stats() (``tp`` aside,
-    the reference's keys: tensor parallelism is not ported)."""
+    """Every mirrored key is an int in the port's stats() (the reference's
+    keys; ``tp`` is 1 without a mesh)."""
     pb, _, _ = _port_run(port_params, **ARMS["spec-host"])
     s = pb.stats()
-    assert "tp" not in s and s["preemptions"] == 0
+    assert s["tp"] == 1 and s["preemptions"] == 0
     for k, v in s.items():
         assert isinstance(v, (int, float, str)), (k, type(v))
         if k in STATS_COUNTER_KEYS or k in STATS_GAUGE_KEYS:
