@@ -2418,15 +2418,353 @@ def phase_train_full(arch: str = "qwen3-1.7b", seq: int = 4096,
     return row
 
 
+def _leaf_cosines(grads_a, grads_b, device) -> dict:
+    """Per leaf path, the cosine of two gradient trees' leaves (the first
+    may wait on the host)."""
+    import torch
+    from repro_torch.training.tree import tree_flatten
+    return {"/".join(path): float(torch.nn.functional.cosine_similarity(
+        a.to(device).float().flatten(), b.to(device).float().flatten(),
+        dim=0)) for (path, a), (_, b) in zip(tree_flatten(grads_a),
+                                              tree_flatten(grads_b))}
+
+
+def _h_opt():
+    """H5 / H6's AdamW: one warm-up step, so the first steps run at the
+    full lr (3e-4) and move the bf16 params by whole ulps."""
+    from repro_torch.training.optimizer import AdamWConfig
+    return AdamWConfig(warmup_steps=1)
+
+
+def _update_agreement(p0, pa, pb) -> dict:
+    """Two updates ``pa - p0`` and ``pb - p0`` of a param tree, in fp32:
+    the leaves bitwise equal, the worst leaf's cosine (an equal leaf
+    counts 1, a zero update against a nonzero one 0) and the whole
+    tree's cosine."""
+    import torch
+    from repro_torch.training.tree import tree_flatten
+    worst, leaf, equal, n = 1.0, "", 0, 0
+    dot = na = nb = 0.0
+    for (path, a0), (_, a), (_, b) in zip(tree_flatten(p0), tree_flatten(pa),
+                                          tree_flatten(pb)):
+        n += 1
+        da, db = (a.float() - a0.float()).flatten(), \
+            (b.float() - a0.float()).flatten()
+        dot += float(da @ db)
+        na += float(da @ da)
+        nb += float(db @ db)
+        if torch.equal(a, b):
+            equal += 1
+            continue
+        c = float(torch.nn.functional.cosine_similarity(da, db, dim=0))
+        if c < worst:
+            worst, leaf = c, "/".join(path)
+    return {"leaves": n, "bitwise": equal, "worst_cos": worst,
+            "worst_leaf": leaf,
+            "tree_cos": dot / max((na * nb) ** 0.5, 1e-30)}
+
+
+def phase_train_sharded(arch: str = "qwen3-1.7b", seq: int = 4096,
+                        batch: int = 2, device: str = "cuda") -> dict:
+    """H5: ``build_train_step`` (launch/steps.py) for qwen3-1.7b over a
+    one-rank NCCL mesh with ``seq_shard=True``, at 4096 x 2, on H2's
+    seeded weights and first batch: step 1's loss within 1e-6 relative of
+    ``make_train_step``'s and every gradient at cosine >= 0.99999 (and
+    whether they are bitwise equal); then one warm-up of each and two
+    timed steps each, alternating, on one state (a one-rank state's blocks
+    are the whole tensors), with each step's peak memory. Both steps run
+    AdamW with one warm-up step (``_h_opt``), so a step moves every parameter
+    at the full lr: before the timed steps, one step of each from the same
+    params and batch must give the same update (per leaf bitwise or at
+    cosine >= 0.99999) and the same gradient norm (1e-6 relative)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import fence
+    from repro_torch.launch.mesh import init_ranks, make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import (TrainConfig, loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import tree_flatten, tree_map
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in
+                data.next().items()} for _ in range(5)]
+    with tempfile.TemporaryDirectory() as tmp:
+        init_ranks(1, 0, f"file://{tmp}/rendezvous", device=device)
+        try:
+            mesh1 = make_host_mesh(1, 1, device=device)
+            step, _, _, _ = build_train_step(cfg, mesh1, opt_cfg=_h_opt(),
+                                             seq_shard=True)
+            params = model.init(torch.Generator(device=device).manual_seed(0),
+                                device=device)
+            first = batches[0]
+            loss_s, _, grads_s = loss_and_grads(model, params,
+                                                first["inputs"],
+                                                first["targets"])
+            grads_s = tree_map(lambda t: t.cpu(), grads_s)
+            torch.cuda.empty_cache()
+            _zero_counts()
+            loss_m, _, grads_m = step.loss_and_grads(params, first["inputs"],
+                                                     first["targets"])
+            launches = _train_counts()
+            e_loss = abs(float(loss_m) - float(loss_s)) / abs(float(loss_s))
+            cos = _leaf_cosines(grads_s, grads_m, device)
+            worst = min(cos, key=cos.get)
+            bitwise = float(loss_m) == float(loss_s) and all(
+                torch.equal(a.to(device), b) for (_, a), (_, b) in
+                zip(tree_flatten(grads_s), tree_flatten(grads_m)))
+            log(f"[train] H5 {arch} sharded step (1-rank NCCL mesh, "
+                f"seq_shard): step-1 loss {float(loss_m):.6f} vs "
+                f"make_train_step {float(loss_s):.6f} (rel {e_loss:.2e}); "
+                f"gradient cosine worst {cos[worst]:.8f} ({worst}); bitwise "
+                f"equal: {bitwise}; launches {launches}")
+            if not (e_loss <= 1e-6 and cos[worst] >= 0.99999):
+                raise AssertionError(f"[train] H5: loss {e_loss:.3g}, cosine "
+                                     f"{cos[worst]:.8f} ({worst})")
+            if device == "cuda" and min(launches["flash_attention"],
+                                        launches["flash_attention_bwd"]) <= 0:
+                raise AssertionError(f"[train] H5 launches {launches}")
+            del grads_s, grads_m
+            gc.collect()
+            torch.cuda.empty_cache()
+            _, single = make_train_step(cfg, TrainConfig(opt=_h_opt()),
+                                        device=device)
+            # one step of each from the same params: the same update
+            p0 = tree_map(torch.clone, params)
+            state = opt.init_state(tree_map(torch.clone, params))
+            state, m_sh = step(state, first)
+            other, m_one = single(opt.init_state(params), first)
+            upd = _update_agreement(p0, state["params"], other["params"])
+            norm_rel = abs(float(m_sh["grad_norm"]) - float(
+                m_one["grad_norm"])) / float(m_one["grad_norm"])
+            log(f"[train] H5 one AdamW step at lr {float(m_one['lr']):.2e} "
+                f"from the same params: update bitwise equal on "
+                f"{upd['bitwise']} of {upd['leaves']} leaves, worst cosine "
+                f"{upd['worst_cos']:.8f} ({upd['worst_leaf']}); grad norm "
+                f"{float(m_sh['grad_norm']):.6f} vs "
+                f"{float(m_one['grad_norm']):.6f} (rel {norm_rel:.2e})")
+            if not (upd["worst_cos"] >= 0.99999 and norm_rel <= 1e-6):
+                raise AssertionError(f"[train] H5 update: cosine "
+                                     f"{upd['worst_cos']:.8f}, grad norm "
+                                     f"{norm_rel:.3g}")
+            del other, p0, params
+            gc.collect()
+            torch.cuda.empty_cache()
+            fns = {"sharded": step, "single": single}
+            times = {"sharded": [], "single": []}
+            peaks = {"sharded": 0.0, "single": 0.0}
+            order = ("sharded", "single") * 3
+            for i, which in enumerate(order):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = fns[which](state, batches[i % 4 + 1])
+                fence(state["step"])
+                if i >= 2:                       # the first pair warms up
+                    times[which].append(time.perf_counter() - t0)
+                    peaks[which] = max(peaks[which],
+                                       torch.cuda.max_memory_allocated()
+                                       / 1e9)
+                if not math.isfinite(float(metrics["loss"])):
+                    raise AssertionError(f"[train] H5 loss {metrics}")
+        finally:
+            dist.destroy_process_group()
+    row = {"arch": arch, "seq": seq, "batch": batch, "loss_rel": e_loss,
+           "worst_cos": cos[worst], "worst_leaf": worst, "bitwise": bitwise,
+           "update": upd, "norm_rel": norm_rel,
+           "launches": launches, "step_s": times, "peak_gb": peaks}
+    log(f"[train] H5 timed steps (order sharded, single, sharded, single "
+        f"after one warm-up each): sharded {times['sharded']} s, single "
+        f"{times['single']} s; peak {peaks['sharded']:.2f} / "
+        f"{peaks['single']:.2f} GB")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+H6_LAYERS, H6_SEQ, H6_BATCH = 2, 1024, 2
+# the two-step update's tree cosine against the single device's, H2's
+# bf16 gate: Adam's step flips with the sign of a gradient element inside
+# the bf16 noise (measured 0.99956 on the H100, the tied embedding's leaf
+# alone 0.9954); skipping AdamW gives 0, a wrong m / v block far less
+H6_UPDATE_COS = 0.999
+
+
+def _train_gloo_rank(rank: int, arch: str) -> dict:
+    """H6 on one of two gloo ranks sharing the card, a data 1 x model 2
+    mesh: qwen3-1.7b at full width and H6_LAYERS layers, two sharded
+    train steps (flash 2.4 / 4b at the local 8 / 4 heads) at the full lr
+    (``_h_opt``), the gradients each step applied gathered. Rank 0 then
+    runs the single-device loss and gradients and two single-device steps
+    on the same params and batches, and replays ``apply_updates`` on one
+    device with the gathered gradients."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import gather_tree, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import (TrainConfig, loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(1, 2, device="cuda")
+    cfg = get_config(arch).with_(n_layers=H6_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    step, _, ssh, _ = build_train_step(cfg, mesh, opt_cfg=_h_opt(),
+                                       seq_shard=True)
+    specs = tree_map(lambda sh: sh.spec, ssh["params"])
+    data = SyntheticLM(cfg.vocab_size, H6_SEQ, H6_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.next().items()} for _ in range(2)]
+    # the gradients each step applies, gathered (every rank gathers)
+    applied, run = [], step.loss_and_grads
+
+    def recording(*args):
+        res = run(*args)
+        whole = gather_tree(res[2], specs, mesh)
+        if rank == 0:
+            applied.append(whole)
+        return res
+    step.loss_and_grads = recording
+    state = opt.init_state(tree_map(torch.clone,
+                                    shard_tree(params, specs, mesh)))
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, m1 = step(state, batches[0])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = _train_counts()
+    state, m2 = step(state, batches[1])
+    norms = [float(m1["grad_norm"]), float(m2["grad_norm"])]
+    after = {k: gather_tree(state[k], specs, mesh) for k in ("params", "m",
+                                                             "v")}
+    out = {"loss": float(m1["loss"]), "launches": counts, "step_s": step_s,
+           "local_heads": (step.plan.cfg_local.n_heads,
+                           step.plan.cfg_local.n_kv_heads)}
+    if rank == 0:
+        p0 = tree_map(torch.clone, params)
+        ref_loss, _, ref_grads = loss_and_grads(model, params,
+                                                batches[0]["inputs"],
+                                                batches[0]["targets"])
+        ref_norm = float(opt.global_norm(ref_grads))
+        grad_cos = _leaf_cosines(ref_grads, applied[0], "cuda")
+        del ref_grads
+        # the optimizer held to itself: one device, the same gradients
+        replay = opt.init_state(tree_map(torch.clone, p0))
+        norm_rel = 0.0
+        for g, n in zip(applied, norms):
+            replay, rm = opt.apply_updates(replay, g, _h_opt())
+            norm_rel = max(norm_rel, abs(n - float(rm["grad_norm"]))
+                           / float(rm["grad_norm"]))
+        moment_err = max(
+            float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+            for k in ("m", "v") for (_, a), (_, b) in
+            zip(tree_flatten(after[k]), tree_flatten(replay[k])))
+        pairs = list(zip(tree_flatten(after["params"]),
+                         tree_flatten(replay["params"])))
+        param_diff = sum(int(torch.sum(a != b)) for (_, a), (_, b) in pairs)
+        n_params = sum(a.numel() for (_, a), _ in pairs)
+        del replay, applied[:]
+        # the single device's own two steps
+        _, single = make_train_step(cfg, TrainConfig(opt=_h_opt()),
+                                    device="cuda")
+        one = opt.init_state(params)
+        for b in batches:
+            one, _ = single(one, b)
+        out.update(ref_loss=float(ref_loss), grad_cos=grad_cos,
+                   norm_rel_single=abs(norms[0] - ref_norm) / ref_norm,
+                   norm_rel_replay=norm_rel, moment_err=moment_err,
+                   param_diff=param_diff / n_params,
+                   update=_update_agreement(p0, after["params"],
+                                            one["params"]))
+    return out
+
+
+def phase_train_gloo(arch: str = "qwen3-1.7b") -> dict:
+    """H6: qwen3-1.7b's sharded train step at TP = 2 as two gloo processes
+    sharing the card (full width, H6_LAYERS layers, seq H6_SEQ x batch
+    H6_BATCH) against the single-device step on the same params, two
+    steps at the full lr (``_h_opt``). Gates: step 1's loss within 1e-3
+    relative and every gradient at cosine >= 0.999 (H2's bf16 gate); the
+    sharded optimizer against ``apply_updates`` on one device fed the
+    gathered gradients (gradient norms within 1e-5 relative, m / v within
+    1e-5 of their largest magnitude, at most 1e-4 of the bf16 params
+    differing); the update of the two steps against the single device's
+    own at a tree cosine >= H6_UPDATE_COS, and step 1's gradient norm
+    against the single device's within 1e-2 relative (the cosine gate
+    lets a leaf's bf16 gradient differ by up to sqrt(2 (1 - 0.999)), 4.5 %
+    of its norm; measured 1.0e-3, the tied embedding's). Its times are the
+    gloo transport's."""
+    from repro_torch.launch.mesh import spawn_ranks
+    ranks = spawn_ranks(_train_gloo_rank, 2, arch, device="cuda",
+                        backend="gloo")
+    r0 = ranks[0]
+    e_loss = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    g_worst = min(r0["grad_cos"], key=r0["grad_cos"].get)
+    upd = r0["update"]
+    log(f"[train] H6 {arch} TP = 2 over two gloo ranks on the card "
+        f"({H6_LAYERS} layers, {H6_SEQ} x {H6_BATCH}, local heads "
+        f"{r0['local_heads']}): loss {r0['loss']:.6f} / rank 1 "
+        f"{ranks[1]['loss']:.6f} vs single device {r0['ref_loss']:.6f} "
+        f"(rel {e_loss:.2e}); gradient cosine worst "
+        f"{r0['grad_cos'][g_worst]:.7f} ({g_worst}); grad norm vs single "
+        f"device rel {r0['norm_rel_single']:.2e}; sharded AdamW vs one "
+        f"device on the same gradients: norms rel "
+        f"{r0['norm_rel_replay']:.2e}, m / v {r0['moment_err']:.2e}, params "
+        f"differing {r0['param_diff']:.2e}; two-step update vs the single "
+        f"device's: tree cosine {upd['tree_cos']:.7f}, worst leaf "
+        f"{upd['worst_cos']:.7f} ({upd['worst_leaf']}), bitwise "
+        f"{upd['bitwise']} of {upd['leaves']}; step 1 {r0['step_s']:.3f}s "
+        f"(gloo transport); launches rank 0 {r0['launches']}, rank 1 "
+        f"{ranks[1]['launches']}")
+    if not (e_loss <= 1e-3 and r0["grad_cos"][g_worst] >= 0.999
+            and ranks[1]["loss"] == r0["loss"]
+            and r0["norm_rel_single"] <= 1e-2
+            and r0["norm_rel_replay"] <= 1e-5 and r0["moment_err"] <= 1e-5
+            and r0["param_diff"] <= 1e-4
+            and upd["tree_cos"] >= H6_UPDATE_COS):
+        raise AssertionError(
+            f"[train] H6: loss {e_loss:.3g}, gradient cosine "
+            f"{r0['grad_cos'][g_worst]:.7f}, norms {r0['norm_rel_single']:.3g}"
+            f" / {r0['norm_rel_replay']:.3g}, m / v {r0['moment_err']:.3g}, "
+            f"params {r0['param_diff']:.3g}, update {upd['tree_cos']:.7f}")
+    for r in ranks:
+        if min(r["launches"]["flash_attention"],
+               r["launches"]["flash_attention_bwd"]) <= 0:
+            raise AssertionError(f"[train] H6 launches {r['launches']}")
+    return {"loss_rel": e_loss, "grad_cos": r0["grad_cos"][g_worst],
+            "norm_rel_single": r0["norm_rel_single"],
+            "norm_rel_replay": r0["norm_rel_replay"],
+            "moment_err": r0["moment_err"], "param_diff": r0["param_diff"],
+            "update": upd,
+            "launches": [r["launches"] for r in ranks],
+            "step_s": [r["step_s"] for r in ranks]}
+
+
 def phase_training() -> dict:
     """Phase H: training through the flash kernel's and the SSD chunk
     kernel's backwards. H0 the two backward kernels, H1 the fp32 smoke
-    models and two crash-restarts on the card, H2 qwen3-1.7b, H3
-    zamba2-2.7b and H4 rwkv6-3b at full width."""
+    models and two crash-restarts on the card, H2 qwen3-1.7b, H5 its
+    sharded step over a one-rank mesh, H6 at TP = 2 over two gloo ranks,
+    H3 zamba2-2.7b and H4 rwkv6-3b at full width."""
     out = {}
     for key, phase in (
             ("H0", phase_flash_bwd), ("H0 ssd", phase_ssd_bwd),
             ("H1", phase_train_smoke), ("H2", phase_train_full),
+            ("H5", phase_train_sharded), ("H6", phase_train_gloo),
             ("H3", lambda: phase_train_full("zamba2-2.7b", label="H3",
                                             parity_dtype="float32")),
             # H4 unprofiled: its ~250k-kernel step took 80-98 s under the
@@ -4932,10 +5270,192 @@ def _tp_t3(mesh1, device="cuda") -> dict:
             "plain_ms": plain_ms}
 
 
+A2_SITES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "head")
+A2_M = (256, 8)         # a prefill chunk's rows, and decode width 8
+
+
+def _tp_a2(cfg, params, device="cuda") -> dict:
+    """A2: does a column half of a bf16 product round as those columns of
+    the whole product? MeshLayout computes ``x @ w[:, s]`` where
+    DeviceLayout computes ``(x @ w)[:, s]``. For each projection site of
+    layer 0 (and the untied head), at M = 256 and M = 8, seeded inputs,
+    both halves compared bitwise, with
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    at PyTorch's default and off: one line per (setting, site, M) with the
+    count of differing elements and the largest difference."""
+    import torch
+    lp = params["layers"]
+    ws = {"wq": lp["attn"]["wq"][0], "wk": lp["attn"]["wk"][0],
+          "wv": lp["attn"]["wv"][0], "wo": lp["attn"]["wo"][0],
+          "w_gate": lp["ffn"]["w_gate"][0], "w_up": lp["ffn"]["w_up"][0],
+          "w_down": lp["ffn"]["w_down"][0], "head": params["head"]}
+    flags = torch.backends.cuda.matmul
+    default = flags.allow_bf16_reduced_precision_reduction
+    rows = []
+    try:
+        for setting in (default, False):
+            flags.allow_bf16_reduced_precision_reduction = setting
+            for site in A2_SITES:
+                w = ws[site]
+                n = w.shape[1] // 2
+                halves = [w[:, i * n:(i + 1) * n].contiguous()
+                          for i in range(2)]
+                for M in A2_M:
+                    g = torch.Generator(device=device).manual_seed(M)
+                    x = torch.randn((M, w.shape[0]), generator=g,
+                                    device=device).to(w.dtype)
+                    whole = x @ w
+                    diff, worst = 0, 0.0
+                    for i, h in enumerate(halves):
+                        part = x @ h
+                        ref = whole[:, i * n:(i + 1) * n]
+                        diff += int((part != ref).sum())
+                        worst = max(worst, float(
+                            (part.float() - ref.float()).abs().max()))
+                    rows.append({"reduced_precision_reduction": setting,
+                                 "site": site, "M": M, "K": w.shape[0],
+                                 "N": w.shape[1], "differing": diff,
+                                 "of": M * w.shape[1], "max_diff": worst})
+                    log(f"[tp] A2 reduced-precision-reduction={setting} "
+                        f"{site} M={M} K={w.shape[0]} N={w.shape[1]}: "
+                        f"{diff} of {M * w.shape[1]} elements differ, "
+                        f"largest {worst:.6g}")
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = default
+    off = [r for r in rows if r["reduced_precision_reduction"] is False]
+    on = [r for r in rows if r["reduced_precision_reduction"] is default]
+    log(f"[tp] A2 summary: flag default ({default}) "
+        f"{sum(r['differing'] for r in on)} differing elements over "
+        f"{len(on)} site shapes; flag off "
+        f"{sum(r['differing'] for r in off)} over {len(off)}")
+    return {"default": default, "rows": rows}
+
+
+T4_BATCH, T4_PROMPT, T4_CACHE, T4_NEW = 8, 1024, 4096, 16
+
+
+def _t4_run(prefill, decode, cache, toks) -> dict:
+    """One prefill of ``toks`` into the zeroed ``cache``, then T4_NEW
+    greedy decode steps: logits, tokens and the fenced times."""
+    import torch
+    from repro_torch.core.sync import fence
+    for name in ("k", "v", "index"):
+        cache[name].zero_()
+    fence(cache["k"])
+    t0 = time.perf_counter()
+    logits, cache = prefill(toks, cache)
+    fence(logits)
+    prefill_s = time.perf_counter() - t0
+    out, tokens = [logits], []
+    t0 = time.perf_counter()
+    for _ in range(T4_NEW):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        tokens.append(tok)
+        logits, cache = decode(tok, cache)
+        out.append(logits)
+    fence(logits)
+    return {"logits": out, "tokens": torch.cat(tokens, 1),
+            "prefill_s": prefill_s,
+            "decode_s": time.perf_counter() - t0}
+
+
+def _tp_t4(cfg, params, mesh1, device="cuda") -> dict:
+    """T4: ``make_step_and_specs`` (launch/steps.py) for llama3-8b at full
+    width and depth over the one-rank NCCL group: a prefill of 8 prompts
+    of 1024 tokens into a 4096-token cache, then 16 greedy decode steps,
+    in KV modes "head" (the decode kernel on the cache's heads) and "seq"
+    (the split-KV decode on its sequence shard), against the unsharded
+    model's ``prefill`` / ``decode_step`` on the same cache (in "seq" mode
+    under ``split_kv_enabled``, the model's own split-KV path): the step
+    plan skips a one-rank group's collectives (the split-KV combine's
+    all-reduces still run), so tokens and logits must be bitwise equal.
+    Times (each arm warmed up on a 64-token prompt first, then the model,
+    then the step) and the launches of kernels 2.4 / 2.5 of the sharded
+    run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import (shard_tensor, shard_tree,
+                                                  split_kv_enabled)
+    from repro_torch.launch.steps import make_step_and_specs
+    from repro_torch.models import build_model
+    from repro_torch.training.tree import tree_map
+    model = build_model(cfg)
+    dec = dataclasses.replace(SHAPES["decode_32k"], seq_len=T4_CACHE,
+                              global_batch=T4_BATCH)
+    pre = dataclasses.replace(dec, kind="prefill")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (T4_BATCH, T4_PROMPT))).to(device)
+    cache = model.init_cache(batch=T4_BATCH, max_len=T4_CACHE, device=device)
+    out = {}
+    for kv_mode in ("head", "seq"):
+        pstep, (pargs, tok_arg, _), _ = make_step_and_specs(
+            cfg, mesh1, pre, kv_mode=kv_mode)
+        dstep, _, _ = make_step_and_specs(cfg, mesh1, dec, kv_mode=kv_mode)
+        # one rank: every block is the whole tensor (views, no copy)
+        local = shard_tree(params, tree_map(lambda a: a.spec, pargs), mesh1)
+        split = dstep.use_split
+
+        def plain_decode(tok, c):
+            with split_kv_enabled(split):
+                return model.decode_step(params, tok, c)
+
+        arms = {"plain": (lambda t, c: model.prefill(params, t, c),
+                          plain_decode, toks),
+                "sharded": (lambda t, c: pstep(local, t, c),
+                            lambda t, c: dstep(local, t, c),
+                            shard_tensor(toks, tok_arg.spec, mesh1))}
+        with torch.no_grad():
+            for prefill, decode, t in arms.values():    # warm-ups
+                logits, c = prefill(t[:, :64], cache)
+                decode(logits[:, -1].argmax(-1, keepdim=True), c)
+            plain = _t4_run(*arms["plain"][:2], cache, toks)
+            _zero_counts()
+            sharded = _t4_run(*arms["sharded"][:2], cache,
+                              arms["sharded"][2])
+            counts = _read_counts()
+        same = (torch.equal(plain["tokens"], sharded["tokens"])
+                and all(torch.equal(a, b) for a, b in
+                        zip(plain["logits"], sharded["logits"])))
+        row = {"kv_mode": dstep.kv_mode, "split": split,
+               "bitwise": same,
+               "prefill_s": sharded["prefill_s"],
+               "decode_s": sharded["decode_s"],
+               "plain_prefill_s": plain["prefill_s"],
+               "plain_decode_s": plain["decode_s"],
+               "launches": {k: counts[k] for k in ("flash_attention",
+                                                   "decode_attention")}}
+        log(f"[tp] T4 {kv_mode}: make_step_and_specs over the one-rank NCCL "
+            f"mesh, {T4_BATCH} x {T4_PROMPT} prefill into {T4_CACHE}, "
+            f"{T4_NEW} decode steps (split-KV {split}): tokens and logits "
+            f"bitwise equal to the model's: {same}; prefill "
+            f"{sharded['prefill_s']:.4f}s (model {plain['prefill_s']:.4f}s), "
+            f"decode {sharded['decode_s']:.4f}s for {T4_NEW} steps (model "
+            f"{plain['decode_s']:.4f}s); launches {row['launches']}")
+        if not same:
+            raise AssertionError(f"[tp] T4 {kv_mode}: the sharded step's "
+                                 "tokens or logits differ from the model's")
+        if device == "cuda" and (counts["flash_attention"] != cfg.n_layers
+                                 or 
+                                 counts["decode_attention"]
+                                 != (0 if split
+                                     else cfg.n_layers * T4_NEW)):
+            raise AssertionError(f"[tp] T4 {kv_mode}: launches {counts}")
+        out[kv_mode] = row
+        del pstep, dstep, local, plain, sharded
+        gc.collect()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_tp(cfg, params, device="cuda") -> dict:
-    """Phase T (the llama3 weights on the card): T0, T1 and T3 over a
+    """Phase T (the llama3 weights on the card): T0, T1, T3 and T4 over a
     one-rank NCCL group that this process joins and leaves (gloo with
-    ``device="cpu"``, the CPU rehearsal)."""
+    ``device="cpu"``, the CPU rehearsal), then A2's rounding table."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_ranks, make_host_mesh
@@ -4953,6 +5473,12 @@ def phase_tp(cfg, params, device="cuda") -> dict:
             t0 = time.perf_counter()
             out["T3"] = _tp_t3(mesh1, device)
             log(f"[time] phase T T3: {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            out["T4"] = _tp_t4(cfg, params, mesh1, device)
+            log(f"[time] phase T T4: {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            out["A2"] = _tp_a2(cfg, params, device)
+            log(f"[time] phase T A2: {time.perf_counter() - t0:.1f}s")
         finally:
             dist.destroy_process_group()
     return out
@@ -5242,6 +5768,20 @@ def main() -> int:
                for k in ("H2", "H3")}
         return {k: n for k, n in got.items() if n}
 
+    def sharded_launches_of(name):
+        """The kernel's launches in the sharded steps: T4's prefill and
+        decode (per KV mode), H5's one-rank train step, H6's two ranks."""
+        got = {f"T4 {mode}": tp["T4"][mode]["launches"].get(name, 0)
+               for mode in ("head", "seq")}
+        got["H5"] = training["H5"]["launches"].get(name, 0)
+        for r, counts in enumerate(training["H6"]["launches"]):
+            got[f"H6 rank {r}"] = counts.get(name, 0)
+        return {k: n for k, n in got.items() if n}
+
+    for i, name in ((3, "flash_attention"), (4, "decode_attention")):
+        kernels["kernels"][i]["sharded_launches"] = sharded_launches_of(name)
+        if not kernels["kernels"][i]["sharded_launches"]:
+            raise AssertionError(f"{name} never launched in a sharded step")
     kernels["kernels"][3]["training_launches"] = train_launches_of(
         "flash_attention")
     kernels["kernels"][5]["training_launches"] = train_launches_of(
@@ -5260,6 +5800,7 @@ def main() -> int:
         "kernel_ms": bwd["ms"],
         "device_ms": training["H2"]["bwd_step_device_ms"],
         "training_launches": train_launches_of("flash_attention_bwd"),
+        "sharded_launches": sharded_launches_of("flash_attention_bwd"),
         "zamba2_row": {
             k: training["H0"]["path_zamba2"][k]
             for k in ("shape", "causal", "ms", "plain_ms", "bound_ms",
@@ -5353,6 +5894,17 @@ def main() -> int:
         + "; T2 two gloo ranks on the card (transport) host tick "
         + f"{tp['T2']['ranks'][0]['host tick']['wall_s']:.2f}s, first-token "
         + f"cosine min {min(tp['T2']['ranks'][0]['cos'].values()):.6f}"
+        + "; sharded steps: T4 prefill / 16 decode s head "
+        + f"{tp['T4']['head']['prefill_s']:.4f} / "
+        + f"{tp['T4']['head']['decode_s']:.4f}, seq "
+        + f"{tp['T4']['seq']['prefill_s']:.4f} / "
+        + f"{tp['T4']['seq']['decode_s']:.4f}; H5 qwen3-1.7b sharded / "
+        + "single step s "
+        + f"{sum(training['H5']['step_s']['sharded']) / 2:.4f} / "
+        + f"{sum(training['H5']['step_s']['single']) / 2:.4f} (bitwise "
+        + f"{training['H5']['bitwise']}); H6 TP = 2 gloo gradient cosine "
+        + f"{training['H6']['grad_cos']:.6f}, two-step update cosine "
+        + f"{training['H6']['update']['tree_cos']:.6f}"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ concurrent runs never race for a port); ``make_host_mesh`` lays a
 ``("data", "model")`` ``DeviceMesh`` over it; ``spawn_ranks`` starts the
 ranks of a group as processes and returns what each one computed. NCCL serves CUDA tensors and
 gloo CPU tensors; a caller may name gloo for CUDA tensors (several ranks
-sharing one card, which NCCL refuses). The 256/512-chip production mesh
-is not ported.
+sharing one card, which NCCL refuses). ``make_production_mesh`` lays the
+reference's 16 x 16 (single pod) or 2 x 16 x 16 (two pods) mesh over a
+group of 256 or 512 ranks; a fake process group
+(``torch.testing._internal.distributed.fake_pg``) builds it in one
+process, which is how its shapes are checked without the ranks.
 """
 from __future__ import annotations
 
@@ -51,6 +54,29 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device="cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(torch.device(device).type, (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh over the initialized default group: 16 x 16 =
+    256 ranks ``("data", "model")``, or with ``multi_pod`` 2 x 16 x 16 =
+    512 ranks ``("pod", "data", "model")``; batch and FSDP dims shard over
+    the compound ``("pod", "data")`` axes (:func:`data_axes`). Raises
+    unless the group has exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialized "
+                           "process group")
+    n = 1
+    for w in shape:
+        n *= w
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks, the "
+                         f"process group has {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)
 
 
 def data_axes(mesh) -> tuple:

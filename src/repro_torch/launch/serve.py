@@ -17,7 +17,7 @@
         --priority-mix 0.5 --trace-out trace.json --metrics-out run.prom \\
         --plan-drift
     python -m repro_torch.launch.serve --arch llama3-8b --batched --paged \\
-        --sync device --tp 1
+        --sync device --tp 1 [--open-loop --priority-mix 0.5]
 
 Without ``--batched`` it runs the single-request HeteroInfer engine
 (``InferenceEngine.generate`` on one seeded prompt of ``--prompt-len``
@@ -100,10 +100,12 @@ Tensor parallelism:
                     batcher's; rank 0 reports, and every rank's streams are
                     compared at the end. --tp 1 serves over a one-rank NCCL
                     group, its decode loops CUDA graphs with the
-                    collectives inside. Batched paged serving only, closed
-                    loop (each rank admits on its own clock, so an open
-                    loop could admit differently on different ranks);
-                    excludes --engine-mode.
+                    collectives inside. Batched paged serving only;
+                    excludes --engine-mode. With --open-loop and more
+                    than one rank, rank 0 admits for the group on its
+                    clock and broadcasts each tick's decisions; the other
+                    ranks apply them (serving/ingress.py::TickBroadcast).
+                    A closed loop admits alike on every rank.
 """
 from __future__ import annotations
 
@@ -265,10 +267,6 @@ def _check_tp(ap, args) -> None:
     if args.engine_mode:
         ap.error("--tp and --engine-mode are mutually exclusive: the hetero "
                  "engine and the device mesh are separate axes")
-    if args.open_loop:
-        ap.error("--tp serves closed loop: each rank admits on its own "
-                 "clock, and an open loop could admit differently on "
-                 "different ranks")
     if torch.device(args.device).type == "cuda":
         cards = torch.cuda.device_count()
         if args.tp > cards:
@@ -379,7 +377,14 @@ def _run_batched(cfg, args, rng, *, mesh=None, lead: bool = True) -> list:
     prompts, prios = draw_workload(rng, cfg.vocab_size, args.requests,
                                    args.prompt_len, args.shared_prefix,
                                    args.priority_mix)
-    server = AsyncServer(cb, clock=clock, admit_watermark=args.watermark)
+    sync = None
+    if args.open_loop and mesh is not None and args.tp > 1:
+        # a closed loop admits alike on every rank (every arrival at t0);
+        # an open one admits on rank 0's clock for the group
+        from repro_torch.serving.ingress import TickBroadcast
+        sync = TickBroadcast(mesh.get_group("model"))
+    server = AsyncServer(cb, clock=clock, admit_watermark=args.watermark,
+                         tick_sync=sync)
     if args.open_loop:
         t_arr = arrival_times(args.arrival, args.rate, args.requests,
                               args.arrival_seed)

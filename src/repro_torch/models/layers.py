@@ -26,7 +26,9 @@ import torch.nn.functional as F
 
 from ..configs import dtype_of
 from ..core.partition import matmul_any
-from ..distributed.sharding import split_kv_active, split_kv_mesh
+from ..distributed.sharding import (activation_sharding, active_plan,
+                                    current_activation, split_kv_active,
+                                    split_kv_mesh)
 from ..distributed.split_kv import split_kv_decode_update_attend
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
@@ -253,6 +255,11 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
         return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
                          tp_group), cache
     ck, cv = cache["k"], cache["v"]
+    plan = active_plan()
+    if S > 1 and plan is not None and plan.kv_seq:
+        o = _seq_sharded_prefill(q, k, v, ck, cv, cache_index, plan)
+        return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
+                         tp_group), cache
     if isinstance(cache_index, torch.Tensor):
         if S != 1:
             raise ValueError("a device cache index takes one token, got "
@@ -276,6 +283,26 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
                             cv[:, :end].to(q.dtype), causal=True)
     return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
                      tp_group), cache
+
+
+def _seq_sharded_prefill(q, k, v, ck, cv, start: int, plan):
+    """A prompt chunk at host position ``start`` over a cache layer whose
+    SEQUENCE is sharded over the step's ``model`` axis (split-KV serving):
+    this rank writes the positions its block holds, and the chunk attends
+    (causal flash kernel) over the prefix as the cache stores it — the
+    chunk's own K/V rounded to the cache's dtype, after the earlier
+    positions gathered from the ranks' blocks when ``start > 0``."""
+    S, chunk = q.shape[1], ck.shape[1]
+    lo = plan.kv_seq_chunk(ck)
+    a, b = max(start, lo), min(start + S, lo + chunk)
+    if a < b:
+        ck[:, a - lo:b - lo] = k[:, a - start:b - start].to(ck.dtype)
+        cv[:, a - lo:b - lo] = v[:, a - start:b - start].to(cv.dtype)
+    kk, vv = k.to(ck.dtype), v.to(cv.dtype)
+    if start:
+        kk = torch.cat([plan.gather_seq_cache(ck)[:, :start], kk], dim=1)
+        vv = torch.cat([plan.gather_seq_cache(cv)[:, :start], vv], dim=1)
+    return flash_attention(q, kk.to(q.dtype), vv.to(q.dtype), causal=True)
 
 
 def slot_attention(p: dict, x, cfg, *, lengths, cache: dict, freqs,
@@ -455,11 +482,28 @@ def remat(cfg, fn, *args):
     from torch.utils.checkpoint import checkpoint
     context = remat_policy_of(cfg)
     kw = {} if context is None else {"context_fn": context}
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return checkpoint(_in_context(fn), *args, use_reentrant=False, **kw)
+
+
+def _in_context(fn):
+    """``fn`` run under the activation context of this call: a
+    checkpointed function's recompute runs in backward, on the autograd
+    engine's thread, where the caller's context variables are not set."""
+    act = current_activation()
+    if act is None:
+        return fn
+
+    def run(*args):
+        with activation_sharding(*act):
+            return fn(*args)
+    return run
 
 
 def _ce_chunk(h, targets, emb_out):
     logits = matmul_any(h, emb_out).float()
+    plan = active_plan()
+    if plan is not None and plan.tp_blocks["vocab"]:
+        return plan.vocab_ce(logits, targets)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.sum(lse - gold)
@@ -473,15 +517,19 @@ def chunked_ce_loss(emb_out, h: torch.Tensor, targets: torch.Tensor, *,
     reference's ``@jax.checkpoint``), so only one chunk's fp32 logits are
     alive at a time. emb_out: the head ``[D, V]`` (an untied head, possibly
     a QuantWeight, or the embedding's transpose); h: [B, S, D]; targets:
-    [B, S] ids."""
+    [B, S] ids. In a sharded step a vocabulary-sharded head takes the
+    log-sum-exp across ranks, and the mean is over the global token count
+    (``StepPlan.vocab_ce`` / ``token_mean``)."""
     from torch.utils.checkpoint import checkpoint
     B, S, _ = h.shape
     chunk = min(chunk, S)
     while S % chunk:
         chunk -= 1
     total = torch.zeros((), dtype=torch.float32, device=h.device)
+    ce_chunk = _in_context(_ce_chunk)
     for i in range(0, S, chunk):
-        total = total + checkpoint(_ce_chunk, h[:, i:i + chunk],
+        total = total + checkpoint(ce_chunk, h[:, i:i + chunk],
                                    targets[:, i:i + chunk], emb_out,
                                    use_reentrant=False)
-    return total / (B * S)
+    plan = active_plan()
+    return total / (B * S) if plan is None else plan.token_mean(total, B * S)

@@ -27,6 +27,9 @@ import torch.nn.functional as F
 from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
+from ..distributed.sharding import (gather_layer, hidden_constraint,
+                                    hidden_enter, hidden_gather,
+                                    logits_constraint, tp_slice)
 from ..kernels.ssm_scan.ops import chunk_inputs, scan_chunks
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
                      normal_stack, remat, rms_norm, rope_table, swiglu)
@@ -120,8 +123,12 @@ def _in_proj(p, x, cfg, mm):
 
 
 def _out_proj(p, x, y, z, cfg, mm):
+    """The gated norm, then ``out_proj`` into the residual: in a sharded
+    step, this rank's rows of ``out_proj`` on its columns of the normed
+    output, summed over ``model`` (``hidden_constraint``)."""
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return x + mm(y, p["out_proj"], name="out_proj")
+    out = mm(tp_slice(y, "mamba"), p["out_proj"], name="out_proj")
+    return x + hidden_constraint(out, "mamba")
 
 
 def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
@@ -129,9 +136,11 @@ def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
     """x: [B,S,D] -> (y, new_conv_state, new_ssm_state)."""
     s = cfg.ssm
     d_in, nh, _ = _dims(cfg)
-    B, S, _ = x.shape
+    p = gather_layer(p, "mamba")
+    h = hidden_gather(x)
+    B, S, _ = h.shape
     mm = hetero_ctx.matmul if hetero_ctx is not None else matmul_any
-    z, xbc, dt = _in_proj(p, x, cfg, mm)
+    z, xbc, dt = _in_proj(p, h, cfg, mm)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xs, B_, C_ = torch.split(xbc, [d_in, s.d_state, s.d_state], dim=-1)
     dt = _softplus(dt.float() + p["dt_bias"][None, None, :])
@@ -148,6 +157,7 @@ def mamba_decode_step(p, x, cfg, conv_state, ssm_state, hetero_ctx=None):
     """Exact single-step recurrence. x: [B,1,D]."""
     s = cfg.ssm
     d_in, nh, _ = _dims(cfg)
+    p = gather_layer(p, "mamba")
     B = x.shape[0]
     mm = hetero_ctx.matmul if hetero_ctx is not None else matmul_any
     z, xbc, dt = _in_proj(p, x, cfg, mm)
@@ -233,13 +243,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 
 def _shared_block(sp, x, cfg, *, positions, kv, cache_index, freqs,
                   hetero_ctx):
-    h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
+    sp = gather_layer(sp, "shared", stacked=False)
+    h = hidden_gather(rms_norm(x, sp["attn_norm"], cfg.norm_eps))
     a, _ = attention(sp["attn"], h, cfg, positions=positions, cache=kv,
                      cache_index=cache_index, freqs=freqs,
                      hetero_ctx=hetero_ctx)
-    x = x + a
-    h = rms_norm(x, sp["ffn_norm"], cfg.norm_eps)
-    return x + swiglu(sp["ffn"], h, hetero_ctx=hetero_ctx)
+    x = x + hidden_constraint(a, "attn")
+    h = hidden_gather(rms_norm(x, sp["ffn_norm"], cfg.norm_eps))
+    return x + hidden_constraint(swiglu(sp["ffn"], h, hetero_ctx=hetero_ctx),
+                                 "ffn")
 
 
 def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
@@ -298,11 +310,12 @@ def loss_fn(params, inputs, targets, cfg):
     x = _embed(params, inputs, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
     freqs = rope_table(cfg, x.device)
+    x = hidden_enter(x)
     layers = unstack_layers(params["mamba"], cfg.n_layers)
     for i in range(_n_attn(cfg)):
         x = remat(cfg, _train_period, x, layers[i * ae:(i + 1) * ae],
                   params["shared"], cfg, positions, freqs)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     ce = chunked_ce_loss(params["head"], x, targets, chunk=cfg.loss_chunk)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=x.device)}
@@ -318,10 +331,11 @@ def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
     x = _embed(params, tokens, cfg)
     positions = torch.arange(start_index, start_index + S, dtype=torch.long,
                              device=x.device)
-    x = _run(params, x, cfg, positions=positions, cache=cache,
+    x = _run(params, hidden_enter(x), cfg, positions=positions, cache=cache,
              cache_index=start_index, hetero_ctx=hetero_ctx)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = matmul_any(x[:, -1:, :], params["head"]).float()
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
+    logits = logits_constraint(matmul_any(x[:, -1:, :],
+                                          params["head"]).float())
     index = torch.full((), start_index + S, dtype=torch.int32,
                        device=x.device)
     return logits, {**cache, "index": index}
@@ -339,5 +353,5 @@ def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
     x = _run(params, x, cfg, positions=idx.reshape(1).long(), cache=cache,
              cache_index=idx, decode=True, hetero_ctx=hetero_ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = matmul_any(x, params["head"]).float()
+    logits = logits_constraint(matmul_any(x, params["head"]).float())
     return logits, {**cache, "index": idx + 1}

@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import active_plan
 from .layers import normal_stack, swiglu
 
 
@@ -117,12 +118,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, hetero_ctx=None):
         combine = combine + outer * gate_vals[..., j, None, None].to(cd)
 
     expert_in = torch.einsum("gtec,gtd->gecd", disp, xt)       # [G, E, C, D]
-    ei = expert_in.permute(1, 0, 2, 3).reshape(E, G * cap, D)
+    # a sharded step's expert-parallel rank computes its own experts and
+    # combines their part of the output (summed over ranks by the caller)
+    plan = active_plan()
+    lo, hi = (0, E) if plan is None else plan.moe_experts(E)
+    ei = expert_in[:, lo:hi].permute(1, 0, 2, 3).reshape(hi - lo, G * cap, D)
     g = torch.bmm(ei, p["w_gate"])
     u = torch.bmm(ei, p["w_up"])
     eo = torch.bmm(F.silu(g) * u, p["w_down"])
-    eo = eo.reshape(E, G, cap, D).permute(1, 0, 2, 3)          # [G, E, C, D]
-    out = torch.einsum("gtec,gecd->gtd", combine, eo)
+    eo = eo.reshape(hi - lo, G, cap, D).permute(1, 0, 2, 3)    # [G, e, C, D]
+    out = torch.einsum("gtec,gecd->gtd", combine[:, :, lo:hi], eo)
 
     # Switch aux loss: E * mean_g sum_e f_e * P_e
     f = (disp.sum(-1) > 0).float().mean(1)                     # [G, E]

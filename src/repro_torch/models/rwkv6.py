@@ -31,6 +31,9 @@ import torch.nn.functional as F
 
 from ..configs import dtype_of
 from ..device import resolve_device
+from ..distributed.sharding import (gather_layer, hidden_constraint,
+                                    hidden_enter, hidden_gather,
+                                    logits_constraint, tp_gather, tp_slice)
 from .layers import chunked_ce_loss, normal_stack, remat, rms_norm
 from .transformer import layer_params, unstack_layers
 
@@ -137,47 +140,59 @@ def _shifted(x, shift_state):
 
 def _token_mix(p, x, cfg, *, shift_state, wkv_state, decode=False):
     """x: [B, S, D]. Returns (out, new shift [B, D], new wkv
-    [B, H, hd, hd])."""
+    [B, H, hd, hd]). In a sharded step r / k / v / g are this rank's heads
+    (column-parallel), the decay and ``u`` are cut to them, the WKV state
+    is this rank's heads of the whole one (gathered back after the scan),
+    and ``out`` is ``wo``'s row-parallel partial sum."""
     B, S, D = x.shape
-    H, hd = _heads(cfg)
+    _, hd = _heads(cfg)
     prev = _shifted(x, shift_state)
     xr, xk, xv, xg, xw = (x * m + prev * (1 - m) for m in p["mix"])
-    r = (xr @ p["wr"]).reshape(B, S, H, hd)
-    k = (xk @ p["wk"]).reshape(B, S, H, hd)
-    v = (xv @ p["wv"]).reshape(B, S, H, hd)
+    r = (xr @ p["wr"]).reshape(B, S, -1, hd)
+    k = (xk @ p["wk"]).reshape(B, S, -1, hd)
+    v = (xv @ p["wv"]).reshape(B, S, -1, hd)
     g = F.silu(xg @ p["wg"])
     lora = torch.tanh(xw.float() @ p["w_lora_a"].float()) \
         @ p["w_lora_b"].float()
     lw = -torch.exp(p["w_base"][None, None] + lora)        # log decay <= 0
-    lw = torch.clamp(lw, -40.0, -1e-5).reshape(B, S, H, hd)
-    u = p["u"].reshape(H, hd)
+    lw = tp_slice(torch.clamp(lw, -40.0, -1e-5), "rwkv_tm").reshape(
+        B, S, -1, hd)
+    u = tp_slice(p["u"], "rwkv_tm").reshape(-1, hd)
+    if wkv_state is not None:
+        wkv_state = tp_slice(wkv_state, "rwkv_tm", 1)
     if decode:
         y, new_wkv = wkv6_recurrent(r, k, v, lw, u, state=wkv_state)
     else:
         y, new_wkv = wkv6_chunked(r, k, v, lw, u, chunk=cfg.rwkv.chunk,
                                   state=wkv_state)
-    y = rms_norm(y.reshape(B * S, H, hd),
+    y = rms_norm(y.reshape(B * S, -1, hd),
                  torch.ones((hd,), dtype=y.dtype, device=y.device),
-                 cfg.norm_eps).reshape(B, S, D).to(x.dtype)
-    return (y * g) @ p["wo"], x[:, -1], new_wkv
+                 cfg.norm_eps).reshape(B, S, -1).to(x.dtype)
+    return ((y * g) @ p["wo"], x[:, -1],
+            tp_gather(new_wkv, "rwkv_tm", 1))
 
 
 def _channel_mix(p, x, *, shift_state):
+    """In a sharded step ``kk`` is this rank's d_ff columns, the gate
+    ``rr`` is gathered whole, and the output is ``wv_ffn``'s row-parallel
+    partial sum."""
     prev = _shifted(x, shift_state)
     xk = x * p["mix_ffn"] + prev * (1 - p["mix_ffn"])
     kk = torch.square(torch.relu(xk @ p["wk_ffn"]))
-    rr = torch.sigmoid(x @ p["wr_ffn"])
+    rr = tp_gather(torch.sigmoid(x @ p["wr_ffn"]), "rwkv_cm")
     return rr * (kk @ p["wv_ffn"]), x[:, -1]
 
 
 def _layer(lp, x, cfg, st, decode):
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    lp = gather_layer(lp)
+    h = hidden_gather(rms_norm(x, lp["ln1"], cfg.norm_eps))
     tm, s1, wkv = _token_mix(lp, h, cfg, shift_state=st["shift1"],
                              wkv_state=st["wkv"], decode=decode)
-    x = x + tm
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + hidden_constraint(tm, "rwkv_tm")
+    h = hidden_gather(rms_norm(x, lp["ln2"], cfg.norm_eps))
     cm, s2 = _channel_mix(lp, h, shift_state=st["shift2"])
-    return x + cm, {"shift1": s1, "shift2": s2, "wkv": wkv}
+    return (x + hidden_constraint(cm, "rwkv_cm"),
+            {"shift1": s1, "shift2": s2, "wkv": wkv})
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -258,10 +273,10 @@ def loss_fn(params, inputs, targets, cfg):
     backward (``layers.remat``), as the reference's ``jax.checkpoint`` per
     scanned layer. inputs / targets: [B, S] token ids. Returns (loss,
     {"ce", "aux"}), aux a 0-dim fp32 zero."""
-    x = _embed(params, inputs, cfg)
+    x = hidden_enter(_embed(params, inputs, cfg))
     for lp in unstack_layers(params["layers"], cfg.n_layers):
         x = remat(cfg, _train_layer, x, lp, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     ce = chunked_ce_loss(params["head"], x, targets, chunk=cfg.loss_chunk)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=x.device)}
@@ -272,10 +287,10 @@ def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
     """Process a prompt chunk (``start_index`` a host int): the states are
     updated in place, from zero at ``start_index == 0``. Returns
     (last-token logits ``[B, 1, V]``, cache with ``index = start + S``)."""
-    x = _embed(params, tokens, cfg)
+    x = hidden_enter(_embed(params, tokens, cfg))
     x = _run(params, x, cfg, cache=cache, fresh=start_index == 0)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1:, :] @ params["head"]).float()
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
+    logits = logits_constraint((x[:, -1:, :] @ params["head"]).float())
     index = torch.full((), start_index + tokens.shape[1], dtype=torch.int32,
                        device=x.device)
     return logits, {**cache, "index": index}
@@ -287,5 +302,5 @@ def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
     x = _embed(params, token, cfg)
     x = _run(params, x, cfg, cache=cache, decode=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["head"]).float()
+    logits = logits_constraint((x @ params["head"]).float())
     return logits, {**cache, "index": cache["index"] + 1}

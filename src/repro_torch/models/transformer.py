@@ -11,6 +11,14 @@ The paged entry points take ``tp_group``: under tensor-parallel serving
 (serving/layout.py) each rank runs this unchanged code on the config's
 local head counts and its column slices of the weights, and the layers
 gather the slices over the group (``layers.tp_all_gather``).
+
+A sharded train / serve step (launch/steps.py) runs the cache-free and
+dense-cache entry points under ``distributed.sharding.activation_sharding``:
+each layer gathers its leaves (``gather_layer``), each block's input is
+the whole sequence (``hidden_gather``) and its output goes back into the
+between-blocks layout (``hidden_constraint``), the logits of a
+vocabulary-sharded head are gathered (``logits_constraint``). Outside
+that context the hooks return their inputs.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ import torch
 from ..configs import dtype_of
 from ..core.partition import matmul_any
 from ..device import resolve_device
+from ..distributed.sharding import (data_mean, gather_layer, hidden_constraint,
+                                    hidden_enter, hidden_gather,
+                                    logits_constraint)
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
                      normal_stack, paged_attention, remat, rms_norm,
                      rope_table, slot_attention, swiglu, tp_all_gather)
@@ -74,14 +85,15 @@ def _layer(lp, x, cfg, attend, hetero_ctx, tp_group=None):
     aux): the MoE layer's load-balancing loss, a 0-dim fp32 tensor, or
     None for a dense FFN (the reference's zero), which the serving entry
     points ignore and ``loss_fn`` sums."""
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + attend(lp["attn"], h)[0]
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    lp = gather_layer(lp)
+    h = hidden_gather(rms_norm(x, lp["attn_norm"], cfg.norm_eps))
+    x = x + hidden_constraint(attend(lp["attn"], h)[0], "attn")
+    h = hidden_gather(rms_norm(x, lp["ffn_norm"], cfg.norm_eps))
     if cfg.moe:
         out, aux = moe_ffn(lp["moe"], h, cfg, hetero_ctx=hetero_ctx)
-        return x + out, aux
-    return x + swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx,
-                      tp_group=tp_group), None
+        return x + hidden_constraint(out, "moe"), aux
+    return x + hidden_constraint(swiglu(lp["ffn"], h, hetero_ctx=hetero_ctx,
+                                        tp_group=tp_group), "ffn"), None
 
 
 def _embed(params, inputs, cfg):
@@ -105,7 +117,7 @@ def _head_logits(params, x, cfg, hetero_ctx=None, tp_group=None):
         y = hetero_ctx.matmul(x, _head_matrix(params, cfg), name="head")
     else:
         y = matmul_any(x, _head_matrix(params, cfg))
-    y = y.float()
+    y = logits_constraint(y.float())
     if tp_group is not None and not cfg.tie_embeddings:
         y = tp_all_gather(y, tp_group)
     return y
@@ -149,11 +161,13 @@ def loss_fn(params, inputs, targets, cfg):
     x = _embed(params, inputs, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
     freqs = rope_table(cfg, x.device)
+    x = hidden_enter(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"], cfg.n_layers):
         x, a = remat(cfg, _train_layer, x, lp, cfg, positions, freqs)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = data_mean(aux)
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     ce = chunked_ce_loss(_head_matrix(params, cfg), x, targets,
                          chunk=cfg.loss_chunk)
     return ce + 0.01 * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
@@ -167,12 +181,13 @@ def forward_hidden(params, inputs, cfg):
     x = _embed(params, inputs, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
     freqs = rope_table(cfg, x.device)
+    x = hidden_enter(x)
     for i in range(cfg.n_layers):
         x = _layer(layer_params(params["layers"], i), x, cfg,
                    partial(attention, cfg=cfg, positions=positions,
                            cache=None, cache_index=None, freqs=freqs),
                    None)[0]
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
@@ -213,9 +228,10 @@ def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
     x = _embed(params, tokens, cfg)
     positions = torch.arange(start_index, start_index + S, dtype=torch.long,
                              device=x.device)
-    x = _run_layers_dense(params, x, cfg, cache=cache, hetero_ctx=hetero_ctx,
-                          positions=positions, cache_index=start_index)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _run_layers_dense(params, hidden_enter(x), cfg, cache=cache,
+                          hetero_ctx=hetero_ctx, positions=positions,
+                          cache_index=start_index)
+    x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     logits = _head_logits(params, x[:, -1:, :], cfg, hetero_ctx)
     index = torch.full((), start_index + S, dtype=torch.int32,
                        device=x.device)

@@ -25,6 +25,16 @@ either batcher of serving/scheduler.py.
     ``handle.tokens`` accumulates the stream (a resumed request continues
     its stream, no token is re-emitted).
 
+Tensor-parallel serving (``PagedBatcher(mesh=)``, one process per rank)
+admits ONCE for the whole model group: ``AsyncServer(..., tick_sync=
+TickBroadcast(group))``. The group's first rank (the leader) runs the
+loop on its own clock and broadcasts each loop iteration's decisions —
+the arrivals it submitted, then either a tick's admission events
+(admissions, deferrals, preemptions, in order), a sleep, or the stop —
+with ``broadcast_object_list``; the other ranks (followers) apply them
+and never admit on their own clocks, so every rank's batcher takes the
+same submits and preemptions in the same order and steps alike.
+
 The server never reads the wall clock itself: every stamp comes from the
 injected :class:`Clock`. Under :class:`FakeClock` the loop only advances
 virtual time (arrival sleeps collapse to ``advance``; ``step_time_s``
@@ -46,8 +56,8 @@ from .telemetry import Clock, MonotonicClock, Telemetry
 from .trace import NULL_TRACER
 
 __all__ = [
-    "AsyncServer", "RequestHandle", "poisson_arrivals", "burst_arrivals",
-    "arrival_times",
+    "AsyncServer", "RequestHandle", "TickBroadcast", "poisson_arrivals",
+    "burst_arrivals", "arrival_times",
 ]
 
 
@@ -137,6 +147,31 @@ class RequestHandle:
         return item
 
 
+# ------------------------------------------------------- one admission --
+
+class TickBroadcast:
+    """The leader's loop decisions to the other ranks of ``group`` (a
+    ``torch.distributed`` group: the mesh's ``model`` group), one
+    ``broadcast_object_list`` per loop iteration from the group's first
+    rank."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+        self.group = group
+        self.src = dist.get_global_rank(group, 0)
+        self.leader = dist.get_rank(group) == 0
+
+    def send(self, msg: dict) -> None:
+        import torch.distributed as dist
+        dist.broadcast_object_list([msg], src=self.src, group=self.group)
+
+    def recv(self) -> dict:
+        import torch.distributed as dist
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+
 # ------------------------------------------------------------- the server --
 
 @dataclass
@@ -174,13 +209,17 @@ class AsyncServer:
     so latency percentiles are meaningful and bitwise-reproducible in
     tests; it is rejected on a wall clock, where real time passes by
     itself.
+
+    ``tick_sync`` (a :class:`TickBroadcast`): one admission for a
+    tensor-parallel group — its leader decides, its followers apply.
     """
 
     def __init__(self, batcher, *, clock: Clock | None = None,
                  telemetry: Telemetry | None = None,
                  admit_watermark: int = 0, preempt: bool = True,
                  step_time_s: float | None = None,
-                 max_ticks: int = 100_000, tracer=None):
+                 max_ticks: int = 100_000, tracer=None,
+                 tick_sync: TickBroadcast | None = None):
         if not isinstance(batcher, (PagedBatcher, ContinuousBatcher)):
             raise TypeError(f"unsupported batcher {type(batcher).__name__}")
         self.batcher = batcher
@@ -211,6 +250,8 @@ class AsyncServer:
         self._order: list[_Entry] = []   # submit order (stable rid listing)
         self._next_rid = 0
         self._next_seq = 0
+        self.tick_sync = tick_sync
+        self._due: list = []             # arrivals submitted this iteration
 
     # ------------------------------------------------------------- intake --
     def submit(self, prompt, max_new_tokens: int = 16, *, priority: int = 0,
@@ -269,11 +310,51 @@ class AsyncServer:
             entry.prompt, np.asarray(entry.emitted, np.int32)])
         return prompt, entry.max_new_tokens - len(entry.emitted)
 
-    def _admit_phase(self) -> int:
+    def _admit_phase(self, events: Optional[list] = None) -> int:
         """Push runnable requests into the batcher, highest priority first,
         debiting a virtual free-block/lane budget so one tick never
         over-admits. Strict priority: a blocked request blocks its
-        inferiors (and may preempt one of them)."""
+        inferiors (and may preempt one of them). A follower applies the
+        leader's ``events`` instead; the leader sends the events it made."""
+        if events is not None:
+            return self._apply(events)
+        made: list = []
+        admitted = self._decide(made)
+        if self.tick_sync is not None:
+            self.tick_sync.send({"arrivals": self._due, "action": "tick",
+                                 "events": made})
+        return admitted
+
+    def _apply(self, events: list) -> int:
+        admitted = 0
+        for kind, rid, arg in events:
+            entry = self._entries[rid]
+            if kind == "admit":
+                self._admit(entry)
+                admitted += 1
+            elif kind == "defer":
+                self._defer()
+            else:                        # preempt lane ``arg`` for ``rid``
+                self._preempt_lane(arg, entry)
+        return admitted
+
+    def _defer(self) -> None:
+        self.deferrals += 1
+        self.tracer.count("ingress_deferrals")
+
+    def _admit(self, entry: _Entry) -> None:
+        prompt, budget = self._remaining(entry)
+        req = Request(rid=entry.rid, prompt=prompt, max_new_tokens=budget)
+        self.batcher.submit(req)
+        resumed = bool(entry.emitted)
+        entry.cur_req = req
+        entry.streamed = 0
+        entry.state = "running"
+        self.telemetry.on_admit(entry.rid)
+        self.tracer.request_event("resume" if resumed else "admit",
+                                  entry.rid)
+
+    def _decide(self, made: list) -> int:
         b = self.batcher
         if self.paged:
             free_lanes = sum(lane is None for lane in b.lanes)
@@ -297,36 +378,28 @@ class AsyncServer:
                 need = 0
                 ok = free_lanes > 0
             if not ok:
-                self.deferrals += 1
-                self.tracer.count("ingress_deferrals")
-                if self._try_preempt(entry):
-                    self.preemptions += 1
-                    self.tracer.count("ingress_preemptions")
+                self._defer()
+                made.append(("defer", entry.rid, None))
+                lane = self._try_preempt(entry)
+                if lane is not None:
+                    made.append(("preempt", entry.rid, lane))
                 break                    # strict priority FCFS
-            req = Request(rid=entry.rid, prompt=prompt,
-                          max_new_tokens=budget)
-            b.submit(req)
-            resumed = bool(entry.emitted)
-            entry.cur_req = req
-            entry.streamed = 0
-            entry.state = "running"
-            self.telemetry.on_admit(entry.rid)
-            self.tracer.request_event("resume" if resumed else "admit",
-                                      entry.rid)
+            self._admit(entry)
+            made.append(("admit", entry.rid, None))
             free_lanes -= 1
             virtual_free -= need
             admitted += 1
         return admitted
 
-    def _try_preempt(self, blocked: _Entry) -> bool:
+    def _try_preempt(self, blocked: _Entry) -> Optional[int]:
         """Evict one running lane strictly below ``blocked``'s priority:
         lowest priority first, youngest admission within it (least work
         lost is not the goal — freeing capacity for the high lane is).
         The victim's sequence closes through the prefix cache and the
         request re-enters the queue with its progress folded into the
-        prompt."""
+        prompt. Returns the evicted lane, or None."""
         if not self.preempt_enabled:
-            return False
+            return None
         b = self.batcher
         victims = []
         for i, lane in enumerate(b.lanes):
@@ -337,17 +410,23 @@ class AsyncServer:
                 continue
             victims.append((entry.priority, -entry.seq_no, i, entry))
         if not victims:
-            return False
+            return None
         victims.sort(key=lambda v: v[:3])
-        _, _, lane_idx, victim = victims[0]
-        b.preempt(lane_idx)
+        lane_idx = victims[0][2]
+        self._preempt_lane(lane_idx, blocked)
+        return lane_idx
+
+    def _preempt_lane(self, lane_idx: int, blocked: _Entry) -> None:
+        victim = self._entries[self.batcher.lanes[lane_idx].req.rid]
+        self.batcher.preempt(lane_idx)
         victim.cur_req = None
         victim.state = "queued"
+        self.preemptions += 1
+        self.tracer.count("ingress_preemptions")
         self.telemetry.on_preempt(victim.rid)
         self.tracer.request_event("preempt", victim.rid,
                                   args={"by": blocked.rid,
                                         "lane": lane_idx})
-        return True
 
     # ------------------------------------------------------------ the loop --
     def _drain_phase(self) -> None:
@@ -371,13 +450,14 @@ class AsyncServer:
                     args={"tokens": len(entry.emitted)})
                 entry.handle._finish()
 
-    def _tick(self) -> bool:
+    def _tick(self, events: Optional[list] = None) -> bool:
         """One scheduler iteration: admit -> step -> drain. Returns True if
-        anything progressed (admission or batcher work)."""
+        anything progressed (admission or batcher work). ``events``: a
+        follower's admission, as the leader made it."""
         self.ticks += 1
         self.tracer.count("ingress_ticks")
         with self.tracer.span("tick", track="ingress"):
-            admitted = self._admit_phase()
+            admitted = self._admit_phase(events)
             progressed = False
             if self.batcher.busy:
                 progressed = bool(self.batcher.step())
@@ -401,36 +481,72 @@ class AsyncServer:
         ticks the loop yields to the event loop, so ``async for`` consumers
         stream concurrently; when idle it sleeps (virtually, under
         FakeClock) until the next arrival. Returns all handles in submit
-        order."""
+        order. A follower of a :class:`TickBroadcast` ignores
+        ``arrivals`` and runs the leader's loop (:meth:`_follow`)."""
+        if self.tick_sync is not None and not self.tick_sync.leader:
+            return await self._follow()
         pending = deque(sorted(arrivals, key=lambda a: a[0]))
         stalled = 0
         while True:
             now = self.clock.now()
+            self._due = []
             while pending and pending[0][0] <= now + 1e-9:
                 t, kw = pending.popleft()
                 self.submit(**kw, at=t)
+                self._due.append((t, kw))
             if self._has_work:
                 progressed = self._tick()
-                if self.ticks > self.max_ticks:
-                    raise RuntimeError(
-                        f"ingress exceeded max_ticks={self.max_ticks}")
-                if progressed or self.batcher.busy:
-                    stalled = 0
-                else:
-                    # queued work, idle batcher, nothing admitted: only an
-                    # arrival or a freed lane could unblock — with neither
-                    # in sight this is a permanent stall, fail loudly
-                    stalled += 1
-                    if not pending and stalled > 2:
-                        blocked = [e.rid for e in self._queued()]
+                try:
+                    if self.ticks > self.max_ticks:
                         raise RuntimeError(
-                            f"ingress stalled: requests {blocked} can never "
-                            f"admit (watermark={self.admit_watermark}, "
-                            f"pool too small, or every lane above their "
-                            "priority)")
+                            f"ingress exceeded max_ticks={self.max_ticks}")
+                    if progressed or self.batcher.busy:
+                        stalled = 0
+                    else:
+                        # queued work, idle batcher, nothing admitted: only
+                        # an arrival or a freed lane could unblock — with
+                        # neither in sight this is a permanent stall, fail
+                        # loudly
+                        stalled += 1
+                        if not pending and stalled > 2:
+                            blocked = [e.rid for e in self._queued()]
+                            raise RuntimeError(
+                                f"ingress stalled: requests {blocked} can "
+                                f"never admit (watermark="
+                                f"{self.admit_watermark}, pool too small, or "
+                                "every lane above their priority)")
+                except RuntimeError as e:
+                    self._send({"action": "abort", "error": str(e)})
+                    raise
                 await asyncio.sleep(0)   # let stream consumers run
             elif pending:
+                self._send({"arrivals": self._due, "action": "sleep",
+                            "dt": pending[0][0] - now})
                 await self.clock.sleep(pending[0][0] - now)
+            else:
+                self._send({"arrivals": self._due, "action": "stop"})
+                break
+        return self.handles
+
+    def _send(self, msg: dict) -> None:
+        if self.tick_sync is not None:
+            self.tick_sync.send(msg)
+
+    async def _follow(self) -> list[RequestHandle]:
+        """A follower's loop: each of the leader's iterations as it
+        broadcast it — its arrivals submitted at their times, then its
+        tick (with its admission events), sleep or stop."""
+        while True:
+            msg = self.tick_sync.recv()
+            if msg["action"] == "abort":
+                raise RuntimeError(msg["error"])
+            for t, kw in msg["arrivals"]:
+                self.submit(**kw, at=t)
+            if msg["action"] == "tick":
+                self._tick(msg["events"])
+                await asyncio.sleep(0)
+            elif msg["action"] == "sleep":
+                await self.clock.sleep(msg["dt"])
             else:
                 break
         return self.handles

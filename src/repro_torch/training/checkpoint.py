@@ -16,8 +16,15 @@ synchronous; the write runs on a background thread into
 mid-write never leaves a readable but partial checkpoint, and then the
 oldest beyond ``keep`` are removed. ``restore(step, like, device=)`` puts
 each tensor leaf on ``device`` (default: the device of the leaf of
-``like`` it replaces) in that leaf's dtype; restoring onto another mesh
-waits for the port's meshes.
+``like`` it replaces) in that leaf's dtype.
+
+A sharded state (each rank holding its blocks, ``shardings=`` a tree of
+``distributed.sharding.NamedSharding`` beside it) saves as the whole
+arrays, in the same layout: every rank gathers each leaf, global rank 0
+writes, and the others wait for its commit. ``restore(step, like,
+shardings)`` gives each rank its own block under ``shardings``, which may
+be another mesh's: a checkpoint reshards across meshes, and across the
+two packages.
 """
 from __future__ import annotations
 
@@ -64,8 +71,16 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     # ----------------------------------------------------------------- save --
-    def save(self, step: int, state: Any, *, blocking: bool = False):
-        """Snapshot to host memory synchronously, write asynchronously."""
+    def save(self, step: int, state: Any, *, blocking: bool = False,
+             shardings: Optional[Any] = None):
+        """Snapshot to host memory synchronously, write asynchronously.
+        With ``shardings`` (a tree like ``state`` of ``NamedSharding``;
+        every rank of the mesh calls it): the leaves are gathered whole,
+        global rank 0 writes, and the call returns on every rank once the
+        checkpoint is committed."""
+        if shardings is not None:
+            self._save_sharded(step, state, shardings)
+            return
         host = [(name, *_host(leaf)) for name, leaf in _leaf_paths(state)]
         if self._thread is not None:
             self._thread.join()          # one outstanding write at a time
@@ -94,6 +109,19 @@ class CheckpointManager:
         if blocking:
             self.wait()
 
+    def _save_sharded(self, step: int, state: Any, shardings: Any):
+        import torch.distributed as dist
+        from ..distributed.sharding import gather_tensor
+        sh = dict(_leaf_paths(shardings))
+        whole = tree_unflatten([
+            (path, gather_tensor(leaf, sh["/".join(path)].spec,
+                                 sh["/".join(path)].mesh)
+             if isinstance(leaf, torch.Tensor) else leaf)
+            for path, leaf in tree_flatten(state)])
+        if dist.get_rank() == 0:
+            self.save(step, whole, blocking=True)
+        dist.barrier()
+
     def wait(self):
         if self._thread is not None:
             self._thread.join()
@@ -117,23 +145,35 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *, device=None) -> Any:
+    def restore(self, step: int, like: Any, shardings: Optional[Any] = None,
+                *, device=None) -> Any:
         """Rebuild the nested dict of ``like`` from the checkpoint of
         ``step``: a tensor leaf on ``device`` (default: like's leaf's) in
-        like's leaf's dtype, a Python scalar leaf as its type."""
+        like's leaf's dtype, a Python scalar leaf as its type. With
+        ``shardings`` (a tree like ``like`` of ``NamedSharding``) a tensor
+        leaf is this rank's block of the saved array, and ``like``'s
+        leaves have the local shapes."""
+        from ..distributed.sharding import shard_tensor
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         leaves = dict(_leaf_paths(like))
+        sh = dict(_leaf_paths(shardings)) if shardings is not None else {}
         out = {}
         for name, meta in manifest["leaves"].items():
             arr = np.load(d / meta["file"])
             tgt = leaves.get(name)
+            shape = tuple(arr.shape)
+            if sh.get(name) is not None:
+                shape = sh[name].local_shape(shape)
             if (tgt is not None and hasattr(tgt, "shape")
-                    and tuple(arr.shape) != tuple(tgt.shape)):
+                    and shape != tuple(tgt.shape)):
                 raise ValueError(f"shape mismatch for {name}: "
-                                 f"{arr.shape} vs {tuple(tgt.shape)}")
+                                 f"{shape} vs {tuple(tgt.shape)}")
             if isinstance(tgt, torch.Tensor):
-                out[name] = _tensor(arr, meta["dtype"]).to(
+                t = _tensor(arr, meta["dtype"])
+                if sh.get(name) is not None:
+                    t = shard_tensor(t, sh[name].spec, sh[name].mesh)
+                out[name] = t.to(
                     device=tgt.device if device is None else device,
                     dtype=tgt.dtype)
             elif not hasattr(tgt, "shape"):      # python scalar leaf

@@ -9,9 +9,9 @@ Mechanisms (single-controller process here; the contracts mirror multi-host):
     restores the latest checkpoint + data state and continues, up to
     ``max_restarts``. Deterministic data (stepped RNG) makes the retrace
     bit-reproducible.
-  * Elastic restart (the reference's restore onto another mesh) waits for
-    the port's meshes; ``restore`` here puts each leaf on the device of the
-    state it replaces.
+  * Elastic restart — ``CheckpointManager.restore(step, like, shardings)``
+    gives each rank its block on the CURRENT mesh, whatever mesh saved it
+    (a sharded save writes the whole arrays).
 
 The reference's ``repro.training.fault_tolerance``; step durations come
 from the injected telemetry clock (serving/telemetry.py), never the wall.

@@ -56,12 +56,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(state: dict, grads: dict, cfg: AdamWConfig
+def apply_updates(state: dict, grads: dict, cfg: AdamWConfig, *,
+                  grad_norm: torch.Tensor | None = None
                   ) -> tuple[dict, dict]:
     """One AdamW step: params, m and v updated in place, ``step`` + 1.
+    ``grad_norm``: the global norm of a sharded step's gradients (each
+    rank holding its blocks), else :func:`global_norm` of ``grads``.
     Returns (state, {"grad_norm": the unclipped norm, "lr"})."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     lr = _schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -39,6 +39,10 @@ class TrainConfig:
     save_every: int = 50
     ckpt_dir: str = "artifacts/ckpt"
     grad_compression: bool = False
+    # SP only useful on real meshes. As in the reference, train() reads
+    # nothing of it: a mesh run hands it to launch.steps.build_train_step
+    # (seq_shard=), which splits the residual stream over ``model``.
+    seq_shard: bool = False
     opt: opt.AdamWConfig = field(default_factory=opt.AdamWConfig)
 
 

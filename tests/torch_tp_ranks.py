@@ -230,3 +230,53 @@ def _batch_shard(t: torch.Tensor, mesh) -> torch.Tensor:
     b = t.shape[0] // n
     i = axis_rank(mesh, "data")
     return t[i * b:(i + 1) * b]
+
+
+# ------------------------------------------------ open loop over the mesh --
+
+OPEN_LOOP = {"poisson": dict(kind="poisson", rate=400.0, seed=3),
+             "burst": dict(kind="burst", rate=400.0, seed=4)}
+OPEN_LOOP_STEP = 1e-3           # virtual seconds a tick (FakeClock)
+
+
+def open_loop_workload(cfg, kind: str, rate: float, seed: int):
+    """Eight seeded prompts, every other one low priority, arriving on the
+    seeded ``kind`` schedule: with two lanes and a small pool the high
+    arrivals defer and preempt."""
+    from repro_torch.serving.ingress import arrival_times
+    from repro_torch.serving.ingress import open_loop_workload as workload
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(5, 30, size=8)]
+    return workload(prompts, [N_NEW] * 8, arrival_times(kind, rate, 8, seed),
+                    [i % 2 for i in range(8)])
+
+
+def open_loop(cfg, params, mesh=None, *, kind, rate, seed) -> dict:
+    """One open-loop run through ``AsyncServer`` on a FakeClock over the
+    paged batcher (two lanes, 14 blocks), with one admission for the
+    mesh's model group: (rid -> tokens, stats(), report())."""
+    from repro_torch.serving.ingress import AsyncServer, TickBroadcast
+    from repro_torch.serving.telemetry import FakeClock
+    pool = dict(POOL, num_blocks=14, decode_width=2)
+    b = PagedBatcher(cfg, params, mesh=mesh, device="cpu", sync="device",
+                     window=3, **pool)
+    sync = None if mesh is None else TickBroadcast(mesh.get_group("model"))
+    server = AsyncServer(b, clock=FakeClock(), step_time_s=OPEN_LOOP_STEP,
+                         admit_watermark=1, tick_sync=sync)
+    handles = server.run_sync(open_loop_workload(cfg, kind, rate, seed))
+    b.kv.assert_drained()
+    # the mesh's own keys aside ("tp", and "captured": gloo runs eager)
+    stats = {k: v for k, v in server.stats().items()
+             if k not in ("tp", "captured")}
+    return {"tokens": {h.rid: tuple(h.tokens) for h in handles},
+            "stats": stats, "report": server.report(slo_ms=20.0)}
+
+
+def open_loop_rank(rank: int, params: dict) -> dict:
+    """Both schedules at TP = 2 on a data 2 x model 2 mesh: each replica's
+    model-rank 0 admits, its partner applies the broadcast decisions."""
+    torch.set_num_threads(1)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    return {name: open_loop(smoke_cfg(), params, mesh, **kw)
+            for name, kw in OPEN_LOOP.items()}
