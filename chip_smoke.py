@@ -203,7 +203,7 @@ Among them run the phases of the solver's cost model and its two streams:
      plain versions under autograd (H2 in bf16: loss 1e-3 relative, cosine
      >= 0.999 a leaf; H3 on the same model in fp32, loss 1e-5, cosine >=
      0.99999: in bf16 its gradient's floor under any perturbation is near
-     0.9985), then 1 warm-up and 4 timed steps (H4: 2) (step time,
+     0.9985), then 1 warm-up and 4 timed steps (H4: 1) (step time,
      tokens/s, model-FLOP share, peak memory, the kernels' launches equal
      to ``train_launches``) and, for H2 and H3, a profiled step (busy
      share, device time a call of each backward). (``[train]`` lines.)
@@ -232,19 +232,47 @@ Among them run the phases of the solver's cost model and its two streams:
      collectives are not captured), host tick and device window, each rank
      building the seeded full model and keeping its slices: first-token
      cosine >= 0.999 against T1's ``DeviceLayout``, the two ranks' streams
-     equal, tokens compared with T1's (a difference logged with its first
-     step and the host tick's logit margin there), and the fp32 smoke
-     model's host and device arms equal T0's tokens. Its times are the
-     gloo transport's. (``[tp]`` lines.) No port kernel lies on this path
-     (TP excludes ``engine_mode``; the pool's attention is plain torch):
-     the kernels' launches on the earlier paths are unchanged.
+     equal, tokens compared with T1's (where a stream first differs, T1's
+     top-2 logit margin there must be within 4 bf16 ulps of its top
+     logit: A2's one-ulp column-split rounding compounded over 32 layers;
+     ``_tp_token_gate``), and the fp32 smoke model's host and device arms
+     equal T0's tokens. Its times are the gloo transport's. (``[tp]``
+     lines.) No port kernel lies on this path (TP excludes
+     ``engine_mode``; the pool's attention is plain torch): the kernels'
+     launches on the earlier paths are unchanged.
+
+  P. (after T2) ``phase_pipeline``: llama3-8b at full width and depth,
+     bf16, through ``distributed/pipeline.py``'s ``make_pipeline_forward``
+     as two stages of 16 layers in two gloo processes sharing the card
+     (each builds the seeded model, keeps its stage and frees the rest),
+     4 microbatches of 1 x 1024 tokens (a causal prefill, no cache); this
+     process then runs the 32 layers serially on the same microbatches.
+     Both ranks' outputs bitwise equal to the serial forward, flash
+     attention launched 64 times on each; tick times and the measured
+     bubble beside ``pipeline_stats(4, 2)``'s 0.2. (``[pipeline]``
+     lines.)
+
+  R. ``phase_dryrun_serve`` (right after T, the llama3 weights still on
+     the card: T4's prefill, 8 x 1024 into 4096, KV "head") and
+     ``phase_dryrun_train`` (phase H, after H5: qwen3-1.7b's train step at
+     4096 x 2): ``launch/dryrun.py``'s trace of the step on fake CUDA
+     tensors over a one-rank fake process group against the same step on
+     the card under the same count (``roofline/count.py``): FLOPs and
+     bytes accessed equal exactly, calls per kernel operator equal the
+     wrappers' launches (flash attention, and its backward in the train
+     cell, nonzero), the predicted per-rank peak within 25 % of the
+     card's; ``roofline/analysis.py``'s H100 bound beside the measured
+     step time. (``[dryrun]`` lines.)
 
 The line before the last is the kernels JSON line (each kernel launched
 on a phase E arm also carries ``serving_arms_launches``, on phase F's
 F1 / F2 ``front_end_launches``, and on phase G's G1 / G3
 ``families_launches``; the flash entry carries hubert's row as
 ``encoder_row``; the flash and SSD entries carry their launches in H2's
-and H3's timed steps as ``training_launches``; the seventh row is the
+and H3's timed steps as ``training_launches``; the flash entry its
+launches on each pipeline rank as ``pipeline_launches``, the flash and
+flash backward entries their launches in phase R's steps as
+``dryrun_launches``; the seventh row is the
 flash backward, the eighth the SSD backward, neither a TPU kernel, their
 launches H2's and H3's); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -422,6 +450,7 @@ def phase_kernels() -> dict:
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.core.characteristics import mxu_matmul_time_us
+    from repro_torch.kernels import work
     from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.kernels.hetero_matmul.ref import matmul_ref
 
@@ -496,12 +525,7 @@ def phase_kernels() -> dict:
             "library_ms": cuda_time_ms(lambda: torch.matmul(x, w)),
             "library_device_ms": device_ms(lambda: torch.matmul(x, w)),
         }
-        nbytes = (M * K + K * N + M * N) * 2
-        flops = 2 * M * K * N
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row.update(work.bound(*work.gemm(M, K, N, 2), "bfloat16"))
         timings.append(row)
         log(f"[kernels] time {json.dumps(row)}")
     return {"timings": timings, "worst": worst}
@@ -605,6 +629,7 @@ def phase_quant_kernels() -> dict:
     import torch
     from repro_torch.configs import dtype_of
     from repro_torch.core.partition import HeteroCtx, QuantWeight
+    from repro_torch.kernels import work
     from repro_torch.kernels.hetero_matmul import ops
     from repro_torch.kernels.hetero_matmul.ref import matmul_ref
 
@@ -684,12 +709,8 @@ def phase_quant_kernels() -> dict:
                 row["library_note"] = (
                     "none: torch._weight_int4pack_mm takes grouped scales "
                     "with zero points in its own packing, another function")
-            w_bytes = K * N * (1.0 if fmt == "int8" else 0.5)
-            nbytes = (M * K + M * N) * 2 + w_bytes + N * 4
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 2 * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3
-            row["bound_ms"] = max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row.update(work.bound(*work.quant_gemm(
+                M, K, N, 2, 1.0 if fmt == "int8" else 0.5), "bfloat16"))
             timings[fmt].append(row)
             log(f"[kernels] time {json.dumps(row)}")
     return {"timings": timings, "worst": worst}
@@ -705,6 +726,7 @@ def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_split_plan,
                                                           max_decode_split)
+    from repro_torch.kernels import work
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -715,8 +737,6 @@ def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
         Sq, Sk = q.shape[1], k.shape[1]
         run = lambda: flash_attention(q, k, v, causal=causal)    # noqa: E731
         plain = lambda: attention_ref(q, k, v, causal=causal)    # noqa: E731
-        pairs = (sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq)) if causal
-                 else Sq * Sk)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = (torch.arange(Sk, device=q.device)[None, :]
                 <= torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
@@ -727,7 +747,6 @@ def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
         n = torch.full((1,), length, dtype=torch.int32, device=q.device)
         run = lambda: decode_attention(q, k, v, n)               # noqa: E731
         plain = lambda: decode_attention_ref(q, k, v, n)         # noqa: E731
-        pairs = length
         qt = q[:, :, None, :].contiguous()
         kt, vt = (t[:, :length].transpose(1, 2).contiguous() for t in (k, v))
         mask = None
@@ -768,12 +787,9 @@ def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
             row[f"{label}_device_ms"] = device_ms(split_run)
             row[f"{label}"] = n_split
     el = q.element_size()
-    nbytes = (2 * q.numel() + 2 * B * n_keys * Hkv * D) * el
-    flops = 4 * B * Hq * D * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[row["dtype"]] * 1e3
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row.update(work.bound(*(
+        work.flash(B, Sq, Sk, Hq, Hkv, D, el, causal) if kind == "flash"
+        else work.decode(B, Hq, Hkv, D, length, el)), row["dtype"]))
     return row
 
 
@@ -934,19 +950,12 @@ def _ssd_bound(Bb, L, nh, hd, N) -> dict:
     beside it the same operations as the kernel runs them, three TF32
     products each (split fp32), over the TF32 tensor-core rate
     (``bound_split_tf32_ms``, ``bound_split_tf32_by``)."""
-    pairs = L * (L + 1) // 2
-    nbytes = 4 * (2 * Bb * L * nh * hd + 2 * Bb * L * N + Bb * L * nh
-                  + 2 * Bb * nh * hd * N)
-    flops = 2 * Bb * N * pairs + Bb * nh * (2 * hd * pairs + pairs
-                                            + 4 * hd * N * L)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    t_split = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_split_tf32_ms": max(t_bytes, t_split),
-            "bound_split_tf32_by": "bytes" if t_bytes >= t_split
-            else "operations"}
+    from repro_torch.kernels import work
+    flops, nbytes = work.ssd_chunk(Bb, L, nh, hd, N)
+    split = work.bound(3 * flops, nbytes, "tf32")
+    return {**work.bound(flops, nbytes, "float32"),
+            "bound_split_tf32_ms": split["bound_ms"],
+            "bound_split_tf32_by": split["bound_by"]}
 
 
 def phase_ssd_kernel() -> dict:
@@ -1736,17 +1745,11 @@ LSE_TOL = 1e-5   # the forward's fp32 row statistics against logsumexp
 def _flash_bwd_bound(B, Sq, Sk, Hq, Hkv, D, el, causal) -> dict:
     """Bytes (q, k, v, o, dO, lse read once, dq, dk, dv written once) and
     the five products of the backward over the visible pairs."""
-    pairs = (sum(min(i + Sk - Sq + 1, Sk) for i in range(Sq)) if causal
-             else Sq * Sk)
-    nq, nk = B * Sq * Hq * D, B * Sk * Hkv * D
-    nbytes = el * (4 * nq + 4 * nk) + 4 * B * Hq * Sq
-    flops = 10 * B * Hq * D * pairs
+    from repro_torch.kernels import work
+    flops, nbytes = work.flash_bwd(B, Sq, Sk, Hq, Hkv, D, el, causal)
     dname = {4: "float32", 2: "bfloat16"}[el]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes}
+    return {**work.bound(flops, nbytes, dname), "flops": flops,
+            "bytes": nbytes}
 
 
 def _flash_bwd_case(g, B, Sq, Sk, Hkv, G, D, dt, causal, *, label: str,
@@ -1914,19 +1917,13 @@ def _ssd_bwd_bound(Bb, L, nh, hd, N) -> dict:
     state products a head, over the CUDA-core fp32 rate (``bound_ms``);
     and the same operations as three TF32 products each on the tensor
     cores (``bound_split_tf32_ms``)."""
-    pairs = L * (L + 1) // 2
-    n_x, n_bc, n_s = Bb * L * nh * hd, Bb * L * N, Bb * nh * hd * N
-    nbytes = 4 * (3 * n_x + 4 * n_bc + 2 * Bb * L * nh + 3 * n_s)
-    flops = 2 * Bb * N * pairs + Bb * nh * (
-        4 * (hd + N) * pairs + 5 * pairs + 10 * L * hd * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    t_split = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_split_tf32_ms": max(t_bytes, t_split),
-            "bound_split_tf32_by": "bytes" if t_bytes >= t_split
-            else "operations", "flops": flops, "bytes": nbytes}
+    from repro_torch.kernels import work
+    flops, nbytes = work.ssd_chunk_bwd(Bb, L, nh, hd, N)
+    split = work.bound(3 * flops, nbytes, "tf32")
+    return {**work.bound(flops, nbytes, "float32"),
+            "bound_split_tf32_ms": split["bound_ms"],
+            "bound_split_tf32_by": split["bound_by"], "flops": flops,
+            "bytes": nbytes}
 
 
 def _ssd_bwd_inputs(g, Bb, L, nh, hd, N, *, state: bool, steep: bool):
@@ -2764,13 +2761,16 @@ def phase_training() -> dict:
     for key, phase in (
             ("H0", phase_flash_bwd), ("H0 ssd", phase_ssd_bwd),
             ("H1", phase_train_smoke), ("H2", phase_train_full),
-            ("H5", phase_train_sharded), ("H6", phase_train_gloo),
+            ("H5", phase_train_sharded), ("R", phase_dryrun_train),
+            ("H6", phase_train_gloo),
             ("H3", lambda: phase_train_full("zamba2-2.7b", label="H3",
                                             parity_dtype="float32")),
             # H4 unprofiled: its ~250k-kernel step took 80-98 s under the
             # profiler, the room phase T needs inside the time limit
+            # one timed step: its ~16 s steps are the room phases P and R
+            # take inside the time limit
             ("H4", lambda: phase_train_full(
-                "rwkv6-3b", steps=2, label="H4", parity=False,
+                "rwkv6-3b", steps=1, label="H4", parity=False,
                 profile=False))):
         t0 = time.perf_counter()
         out[key] = phase()
@@ -3211,7 +3211,9 @@ def phase_graph_decode(cfg, params, paged, engine) -> dict:
     of each paged pair; ``paged`` None skips them) and phase_engine_full
     (its hetero-tensor/fast arm), against an eager arm run now on the same
     weights and prompts, in the same call: tok/s, decode and prefill
-    seconds and the profiled busy share of each, the captured arm's graphs
+    seconds and the profiled busy share of each (the quantized paged
+    cells' eager arms unprofiled since PR 27, to fit phases P and R in the
+    time limit), the captured arm's graphs
     (count, capture seconds, pool bytes, replays) and each kernel's
     launches, which must be equal, as must the greedy tokens."""
     rows = {}
@@ -3220,7 +3222,8 @@ def phase_graph_decode(cfg, params, paged, engine) -> dict:
         with _eager_loops():
             eager = _paged_arm(cfg, params, cap["prompts"], cap["new_tokens"],
                                label=f"{label} eager", mode="hetero-tensor",
-                               weight_quant=wq, kv_quant=kvq, profile=True)
+                               weight_quant=wq, kv_quant=kvq,
+                               profile=wq is None)
         rows[f"paged {label}"] = _pair_line(f"paged {label}", cap, eager)
     cap = engine["hetero-tensor/fast"]
     with _eager_loops():
@@ -5107,18 +5110,21 @@ def _tp_instrument(cb) -> dict:
 def _tp_full_batcher(cfg, params, prompts, mesh, kw, device="cuda"):
     """A T1 batcher (block 32, width 8, window 8, 16 new tokens) after its
     first run over ``prompts``, which captures its loops; with its timers
-    (``_instrument``, the tick timed too) and first run's tokens."""
+    (``_instrument``, the tick timed too), first run's tokens and, on host
+    ticks, each step's top-2 logit margin (``_tp_margins``)."""
     from repro_torch.core.sync import fence
     t0 = time.perf_counter()
     cb, reqs = _serve(cfg, params, prompts, device=device, engine_mode=None,
                       window=8, decode_width=8, new_tokens=16, mesh=mesh,
                       **kw)
     timers = _tp_instrument(cb)
+    margins = _tp_margins(cb)
     cb.run(reqs)
     fence(cb.kv.pool["k"])
     return {"cb": cb, "timers": timers, "setup_s": time.perf_counter() - t0,
             "first": [r.output for r in reqs],
-            "first_logits": dict(timers["first_logits"])}
+            "first_logits": dict(timers["first_logits"]),
+            "margins": dict(margins)}
 
 
 def _tp_timed_run(arm, prompts) -> dict:
@@ -5193,6 +5199,8 @@ def _tp_t1(cfg, params, mesh1, device="cuda") -> dict:
             raise AssertionError(f"[tp] T1 {label}: mesh loops not captured")
         if label == "fp window":
             row["first_logits"] = arms["device"]["first_logits"]
+        if label == "host tick":
+            row["margins"] = arms["device"]["margins"]
         log(f"[tp] T1 {label}: tokens bitwise equal, DeviceLayout and "
             "MeshLayout(1-rank NCCL), first and timed runs")
         out[label] = row
@@ -5485,9 +5493,9 @@ def phase_tp(cfg, params, device="cuda") -> dict:
 
 
 def _tp_margins(cb) -> dict:
-    """Per (rid, step), the gap between the two largest logits of the step
-    that chose the request's token ``step`` (host ticks): recorded by
-    wrapping the batcher's tick loop."""
+    """Per (rid, step), (the gap between the two largest logits, the
+    largest) of the step that chose the request's token ``step`` (host
+    ticks): recorded by wrapping the batcher's tick loop."""
     margins = {}
     make = cb._loop
 
@@ -5501,8 +5509,8 @@ def _tp_margins(cb) -> dict:
             top = logits[:, -1].float().topk(2, dim=-1).values.cpu()
             for i, lane in enumerate(cb.lanes):
                 if lane is not None:
-                    margins[lane.req.rid, len(lane.req.output)] = float(
-                        top[i, 0] - top[i, 1])
+                    margins[lane.req.rid, len(lane.req.output)] = (
+                        float(top[i, 0] - top[i, 1]), float(top[i, 0]))
             return logits
         return run
 
@@ -5579,14 +5587,63 @@ def _tp_gloo_rank(rank: int, t0_tokens: dict, t1: dict, device: str,
     return out
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+# T2's token gate: where a TP = 2 stream first differs from T1's, T1's top-2
+# margin there is at most this many bf16 ulps of the top logit: A2's
+# column-split rounding (one ulp at wq, wo, w_down, PERF.md §6, PR 26)
+# compounded over the 32 layers
+TP_MARGIN_ULPS = 4
+
+
+def _tp_token_gate(ranks: list, t1: dict) -> list:
+    """Each rank's first differing (request, step) against T1's
+    DeviceLayout with T1's margin there (the rank's own where T1 has none);
+    raises where a margin exceeds TP_MARGIN_ULPS ulps of the top logit, or
+    is unknown."""
+    t1_margins = dict(t1["host tick"].get("margins", {}))
+    for rid, lg in t1["fp window"].get("first_logits", {}).items():
+        top = lg.float().reshape(-1).topk(2).values      # the prefill's token
+        t1_margins.setdefault((rid, 0), (float(top[0] - top[1]),
+                                         float(top[0])))
+    checked = []
+    for rank, res in enumerate(ranks):
+        for label in ("host tick", "fp window"):
+            for rid, step, own in res[label]["first_diff"]:
+                margin = t1_margins.get((rid, step)) or own
+                if margin is None:
+                    raise AssertionError(f"[tp] T2 rank {rank} {label}: "
+                                         f"tokens differ at request {rid} "
+                                         f"step {step}, no margin known")
+                gap, top = margin
+                limit = TP_MARGIN_ULPS * bf16_ulp(top)
+                checked.append({"rank": rank, "label": label, "rid": rid,
+                                "step": step, "margin": gap, "top": top,
+                                "limit": limit})
+                if gap > limit:
+                    raise AssertionError(
+                        f"[tp] T2 rank {rank} {label}: tokens differ at "
+                        f"request {rid} step {step} where T1's top-2 margin "
+                        f"{gap:.6f} (top logit {top:.4f}) exceeds "
+                        f"{TP_MARGIN_ULPS} bf16 ulps ({limit:.6f})")
+    log(f"[tp] T2 token gate: {len(checked)} first differences, each "
+        f"within {TP_MARGIN_ULPS} bf16 ulps of its top logit: "
+        + json.dumps(checked))
+    return checked
+
+
 def phase_tp_gloo(t0: dict, t1: dict, device="cuda",
                   make_model=None) -> dict:
     """T2: llama3-8b at full width, TP = 2 as two processes sharing the card
     over gloo (eager: gloo's collectives are not captured), host tick and
     device window; first-token cosine >= TP_COS against T1's DeviceLayout,
     tokens compared (a difference is logged with its first step and the
-    host tick's logit margin there), and the fp32 smoke model's tokens
-    equal. Its times are the gloo transport's, not TP's speed."""
+    host tick's logit margin there, and held to ``_tp_token_gate``), and the
+    fp32 smoke model's tokens equal. Its times are the gloo transport's,
+    not TP's speed."""
     import torch
     from repro_torch.launch.mesh import spawn_ranks
     t0_tokens = {arm: t0[arm]["tokens"] for arm in ("host", "device")}
@@ -5622,7 +5679,329 @@ def phase_tp_gloo(t0: dict, t1: dict, device="cuda",
         if ranks[0][label]["outputs"] != ranks[1][label]["outputs"]:
             raise AssertionError(f"[tp] T2 {label}: the two ranks' streams "
                                  "differ")
-    return {"ranks": ranks}
+    return {"ranks": ranks, "token_gate": _tp_token_gate(ranks, t1)}
+
+
+# --------------------------------------------------------- phases P and R --
+
+# P: llama3-8b through a two-stage pipeline, 4 microbatches of one
+# 1024-token sequence (a causal prefill through every layer, no cache)
+P_STAGES, P_MICRO, P_MB, P_SEQ = 2, 4, 1, 1024
+
+
+def _pipeline_tokens(vocab: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(21)
+    return torch.from_numpy(rng.integers(0, vocab, (P_MICRO, P_MB, P_SEQ)))
+
+
+def _pipeline_rank(rank: int, device: str, make_model) -> dict:
+    """P on one of two ranks sharing the card over gloo: the seeded full
+    model (``make_model``, ``full_model`` on the card), this stage's 16
+    layers kept and the rest freed, the microbatches' embeddings made on
+    every rank; a warm-up forward, then a timed one with each tick's
+    ``layer_fn`` fenced and timed, and its kernel launches."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.sync import fence
+    from repro_torch.distributed.pipeline import make_pipeline_forward
+    from repro_torch.models import transformer
+    from repro_torch.training.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh(device, (P_STAGES,), mesh_dim_names=("stage",))
+    cfg, params = make_model()
+    per = cfg.n_layers // P_STAGES
+    mine = tree_map(lambda a: a[rank * per:(rank + 1) * per].clone()[None],
+                    params["layers"])
+    with torch.no_grad():
+        x = transformer._embed(params, _pipeline_tokens(
+            cfg.vocab_size).to(device), cfg)
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    busy = []
+
+    def layer_fn(lp, h):
+        fence(h)
+        t = time.perf_counter()
+        y = transformer.stage_forward(lp, h, cfg)
+        fence(y)
+        busy.append((t, time.perf_counter() - t))
+        return y
+
+    fwd = make_pipeline_forward(layer_fn, P_STAGES, P_MICRO, mesh)
+    with torch.no_grad():
+        fwd(mine, x)                                     # warm-up
+        busy.clear()
+        _zero_counts()
+        fence(x)
+        t0 = time.perf_counter()
+        out = fwd(mine, x)
+        fence(out)
+        wall = time.perf_counter() - t0
+    return {"out": out.cpu(), "launches": _read_counts(), "wall_s": wall,
+            "ticks": [(t - t0, d) for t, d in busy],
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if device == "cuda" else 0.0)}
+
+
+def phase_pipeline(device="cuda", make_model=None) -> dict:
+    """P: llama3-8b at full width and depth, bf16, through
+    ``make_pipeline_forward`` as two stages of 16 layers in two gloo
+    processes sharing the card (``_pipeline_rank``), 4 microbatches of 1 x
+    1024 tokens; then this process runs the same 32 layers serially on the
+    same microbatches (``transformer.stage_forward``, one microbatch at a
+    time). Gates: both ranks' outputs bitwise equal to the serial forward,
+    finite, and flash attention launched on each rank (16 layers x 4
+    microbatches). Logs each rank's tick times and its measured bubble
+    (the share of the timed forward outside ``layer_fn``: the pipeline's
+    idle ticks and the gloo hand-offs) beside ``pipeline_stats``'."""
+    import torch
+    from repro_torch.distributed.pipeline import pipeline_stats
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer
+    make_model = make_model or full_model
+    ranks = spawn_ranks(_pipeline_rank, P_STAGES, device, make_model,
+                        device=device, backend="gloo")
+    cfg, params = make_model()
+    with torch.no_grad():
+        x = transformer._embed(params, _pipeline_tokens(
+            cfg.vocab_size).to(device), cfg)
+        serial = torch.stack([transformer.stage_forward(params["layers"],
+                                                        x[m], cfg)
+                              for m in range(P_MICRO)]).cpu()
+    del params, x
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    stats = pipeline_stats(P_MICRO, P_STAGES)
+    want_flash = cfg.n_layers // P_STAGES * P_MICRO
+    rows = []
+    for rank, res in enumerate(ranks):
+        same = torch.equal(res["out"], serial)
+        busy = sum(d for _, d in res["ticks"])
+        row = {"rank": rank, "bitwise": same, "wall_s": res["wall_s"],
+               "busy_s": busy, "bubble": 1.0 - busy / res["wall_s"],
+               "ticks": res["ticks"], "peak_gb": res["peak_gb"],
+               "launches": {k: n for k, n in res["launches"].items() if n}}
+        rows.append(row)
+        log(f"[pipeline] P rank {rank} (stage {rank}, layers "
+            f"{rank * cfg.n_layers // P_STAGES}.."
+            f"{(rank + 1) * cfg.n_layers // P_STAGES - 1}): outputs bitwise "
+            f"equal to the serial {cfg.n_layers}-layer forward: {same}; forward "
+            f"{res['wall_s']:.4f}s, layer_fn {busy:.4f}s, measured bubble "
+            f"{row['bubble']:.3f} (GPipe's {stats['bubble_fraction']:.3f} "
+            f"over {stats['ticks']} ticks); ticks (start s, layer_fn s) "
+            + ", ".join(f"({t:.4f}, {d:.4f})" for t, d in res["ticks"])
+            + f"; launches {row['launches']}; peak {res['peak_gb']:.2f} GB")
+        if not (same and torch.isfinite(res["out"]).all()):
+            raise AssertionError(f"[pipeline] P rank {rank}: outputs differ "
+                                 "from the serial forward")
+        if device == "cuda" and res["launches"]["flash_attention"] \
+                != want_flash:
+            raise AssertionError(f"[pipeline] P rank {rank}: flash "
+                                 f"launches {res['launches']}, want "
+                                 f"{want_flash}")
+    return {"ranks": rows, "stats": stats,
+            "launches": [r["launches"].get("flash_attention", 0)
+                         for r in rows]}
+
+
+# R: the dry run against the card. The predicted per-rank peak (arguments
+# plus the trace's temp) within this share of the card's
+R_PEAK_TOL = 0.25
+
+
+def _real_args(example_args, values: dict):
+    """``example_args``' tree with each leaf taken from ``values`` (a
+    tree of the same keys; a rank of a one-rank mesh holds whole
+    tensors), checked against its local shape and dtype."""
+    from repro_torch.launch.steps import ExampleArg
+    if isinstance(example_args, ExampleArg):
+        if tuple(values.shape) != tuple(example_args.local_shape) \
+                or values.dtype != example_args.dtype:
+            raise AssertionError(f"[dryrun] R: argument {tuple(values.shape)}"
+                                 f" {values.dtype} for {example_args}")
+        return values
+    if isinstance(example_args, dict):
+        return {k: _real_args(v, values[k]) for k, v in example_args.items()}
+    return type(example_args)(_real_args(a, v)
+                              for a, v in zip(example_args, values))
+
+
+def phase_dryrun_cell(label: str, arch: str, shape_name: str, shape_spec,
+                      step, example_args, real_args, *, need=()) -> dict:
+    """R, one cell over a one-rank fake process group: ``launch/dryrun.py``
+    traces ``step`` on fake CUDA tensors of ``example_args``, then the
+    same step runs once on the card on ``real_args`` under the same count
+    (``roofline/count.py``), then once more uncounted and timed. Gates:
+    FLOPs and bytes accessed equal exactly, each kernel operator's calls
+    equal its wrapper's real launches (nonzero for each of ``need``), the
+    predicted per-rank peak (arguments + temp) within R_PEAK_TOL of the
+    card's (arguments + ``max_memory_allocated`` beyond what was allocated
+    before the call). Logs ``analyze_cell``'s H100 bound beside the
+    measured step time."""
+    import tempfile
+    import torch
+    from repro_torch.core.characteristics import H100
+    from repro_torch.kernels.build import COUNTED
+    from repro_torch.launch.dryrun import trace_call
+    from repro_torch.roofline.analysis import analyze_cell
+    from repro_torch.roofline.count import count_call
+    t0 = time.perf_counter()
+    rec = trace_call(step, example_args, device="cuda")
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _zero_counts()
+    out, real = count_call(step, *real_args)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in COUNTED if w.launches}
+    peak_step = torch.cuda.max_memory_allocated() - base
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*real_args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del out
+    gc.collect()
+    mem = rec["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = real["memory"]["argument_size_in_bytes"] + peak_step
+    rec.update(arch=arch, shape=shape_name, mesh="rank1", ok=True,
+               n_devices=1, counted_by="trace", shape_spec=shape_spec)
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, f"{arch}__{shape_name}__rank1.json").write_text(
+            json.dumps(rec))
+        cell = analyze_cell(arch, shape_name, mesh="rank1", out_dir=tmp,
+                            spec=H100)
+    row = {"label": label, "flops": rec["cost"]["flops"],
+           "real_flops": real["cost"]["flops"],
+           "bytes": rec["cost"]["bytes accessed"],
+           "real_bytes": real["cost"]["bytes accessed"],
+           "kernel_calls": rec["kernel_calls"],
+           "real_kernel_calls": real["kernel_calls"], "launches": launches,
+           "kernel_flops": rec["kernel_flops"],
+           "predicted_peak_gb": predicted / 1e9,
+           "measured_peak_gb": measured / 1e9,
+           "predicted_temp_gb": mem["temp_size_in_bytes"] / 1e9,
+           "measured_temp_gb": peak_step / 1e9,
+           "trace_s": trace_s, "step_s": step_s,
+           "bound_s": cell.bound_time_s, "dominant": cell.dominant,
+           "compute_s": cell.compute_s, "memory_s": cell.memory_s,
+           "collective_s": cell.collective_s,
+           "useful_ratio": cell.useful_ratio,
+           "roofline_fraction": cell.roofline_fraction,
+           "bound_over_measured": cell.bound_time_s / step_s}
+    log(f"[dryrun] R {label}: trace {trace_s:.1f}s on fake CUDA tensors; "
+        f"FLOPs trace / card {row['flops']:.6e} / {row['real_flops']:.6e}, "
+        f"bytes accessed {row['bytes']:.6e} / {row['real_bytes']:.6e}; "
+        f"kernel calls {rec['kernel_calls']}, card launches {launches}; "
+        f"peak predicted {row['predicted_peak_gb']:.3f} GB (temp "
+        f"{row['predicted_temp_gb']:.3f}) vs card {row['measured_peak_gb']:.3f}"
+        f" GB (temp {row['measured_temp_gb']:.3f})")
+    log(f"[dryrun] R {label}: H100 roofline {cell.dominant}-bound, bound "
+        f"{cell.bound_time_s:.6f}s (compute {cell.compute_s:.6f}, memory "
+        f"{cell.memory_s:.6f}, collective {cell.collective_s:.6f}) vs "
+        f"measured step {step_s:.6f}s: bound / measured "
+        f"{row['bound_over_measured']:.4f}; analyze_cell roofline fraction "
+        f"{cell.roofline_fraction:.4f}, useful ratio "
+        f"{cell.useful_ratio:.4f}")
+    if rec["cost"] != real["cost"]:
+        raise AssertionError(f"[dryrun] R {label}: cost {rec['cost']} "
+                             f"traced, {real['cost']} on the card")
+    if not (rec["kernel_calls"] == real["kernel_calls"] == launches) \
+            or any(not launches.get(k) for k in need):
+        raise AssertionError(f"[dryrun] R {label}: kernel calls "
+                             f"{rec['kernel_calls']} traced, "
+                             f"{real['kernel_calls']} counted, launches "
+                             f"{launches}")
+    if abs(predicted - measured) > R_PEAK_TOL * measured:
+        raise AssertionError(f"[dryrun] R {label}: peak predicted "
+                             f"{predicted / 1e9:.3f} GB, card "
+                             f"{measured / 1e9:.3f} GB")
+    return row
+
+
+def phase_dryrun_serve(cfg, params) -> dict:
+    """R's serve cell (phase T's weights on the card): T4's llama3-8b
+    prefill step, 8 prompts of 1024 tokens into a 4096-token cache, KV
+    "head", over a one-rank fake process group."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_step_and_specs
+    from repro_torch.models import build_model
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=T4_CACHE,
+                                global_batch=T4_BATCH, kind="prefill")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (T4_BATCH, T4_PROMPT))).to("cuda")
+    cache = build_model(cfg).init_cache(batch=T4_BATCH, max_len=T4_CACHE,
+                                        device="cuda")
+    with fake_group(1):
+        mesh = make_host_mesh(1, 1, device="cpu")
+        step, (pargs, tok_arg, cargs), _ = make_step_and_specs(
+            cfg, mesh, shape, kv_mode="head")
+        tok_arg = tok_arg._replace(shape=(T4_BATCH, T4_PROMPT),
+                                   local_shape=(T4_BATCH, T4_PROMPT),
+                                   dtype=toks.dtype)
+        args = (pargs, tok_arg, cargs)
+        row = phase_dryrun_cell(
+            "serve llama3-8b prefill 8 x 1024 into 4096", "llama3-8b",
+            "prefill_1k_into_4k",
+            {"seq_len": T4_PROMPT, "global_batch": T4_BATCH,
+             "kind": "prefill"}, step, args,
+            _real_args(args, (params, toks, cache)),
+            need=("flash_attention",))
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dryrun_train(arch: str = "qwen3-1.7b", seq: int = 4096,
+                       batch: int = 2) -> dict:
+    """R's train cell beside H5: qwen3-1.7b's ``make_step_and_specs``
+    train step at 4096 x 2 (H5's seeded weights and first batch, AdamW
+    state) over a one-rank fake process group."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_step_and_specs
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    cfg = get_config(arch)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                                global_batch=batch)
+    batch0 = {k: torch.from_numpy(v).to("cuda") for k, v in
+              SyntheticLM(cfg.vocab_size, seq, batch, seed=0).next().items()}
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = opt.init_state(params)
+    with fake_group(1):
+        mesh = make_host_mesh(1, 1, device="cpu")
+        step, args, _ = make_step_and_specs(cfg, mesh, shape)
+        row = phase_dryrun_cell(
+            f"train {arch} {seq} x {batch}", arch, "train_4k",
+            {"seq_len": seq, "global_batch": batch, "kind": "train"}, step,
+            args, _real_args(args, (state, batch0)),
+            need=("flash_attention", "flash_attention_bwd"))
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -5668,10 +6047,12 @@ def main() -> int:
     arms = timed(phase_serving_arms, cfg, params, full)
     front = timed(phase_front_end, cfg, params, full)
     tp = timed(phase_tp, cfg, params)
+    tp["R"] = timed(phase_dryrun_serve, cfg, params)
     del cfg, params                  # the llama3 weights leave the card
     gc.collect()                     # (each graph went with its owner)
     torch.cuda.empty_cache()
     tp["T2"] = timed(phase_tp_gloo, tp["T0"], tp["T1"])
+    pipe = timed(phase_pipeline)
     hcfg, hparams = hybrid_model()
     hybrid = timed(phase_engine_hybrid, hcfg, hparams,
                    tables[("zamba2-2.7b", None)])
@@ -5784,6 +6165,8 @@ def main() -> int:
             raise AssertionError(f"{name} never launched in a sharded step")
     kernels["kernels"][3]["training_launches"] = train_launches_of(
         "flash_attention")
+    kernels["kernels"][3]["pipeline_launches"] = {
+        f"P rank {r}": n for r, n in enumerate(pipe["launches"])}
     kernels["kernels"][5]["training_launches"] = train_launches_of(
         "ssd_chunk")
     kernels["kernels"].append({
@@ -5822,6 +6205,11 @@ def main() -> int:
                                    "bound_split_tf32_by", "rel_err")},
         "kernel_ms": ssd_bwd["ms"],
         "device_ms": training["H3"]["ssd_bwd_step_device_ms"]})
+    dryrun = {"R serve": tp["R"], "R train": training["R"]}
+    for i, name in ((3, "flash_attention"), (6, "flash_attention_bwd")):
+        kernels["kernels"][i]["dryrun_launches"] = {
+            k: r["launches"][name] for k, r in dryrun.items()
+            if r["launches"].get(name)}
     kernels["kernels"][3]["encoder_row"] = {
         k: hubert_row[k] for k in ("shape", "causal", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -5905,6 +6293,14 @@ def main() -> int:
         + f"{training['H5']['bitwise']}); H6 TP = 2 gloo gradient cosine "
         + f"{training['H6']['grad_cos']:.6f}, two-step update cosine "
         + f"{training['H6']['update']['tree_cos']:.6f}"
+        + "; pipeline P (2 gloo stages) forward s "
+        + " / ".join(f"{r['wall_s']:.4f}" for r in pipe["ranks"])
+        + ", bubble " + " / ".join(f"{r['bubble']:.3f}"
+                                   for r in pipe["ranks"])
+        + f" (GPipe {pipe['stats']['bubble_fraction']:.3f}); dry run R "
+        + ", ".join(f"{k} bound / measured {r['bound_over_measured']:.4f}"
+                    f" ({r['dominant']})" for k, r in
+                    (("serve", tp["R"]), ("train", training["R"])))
         + f"; total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

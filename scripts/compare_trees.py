@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card, in the order given.
 
-    python3 scripts/compare_trees.py TREE [TREE ...]
+    python3 scripts/compare_trees.py [--host-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``);
@@ -17,12 +17,17 @@ that tree's ``chip_smoke`` and ``repro_torch``, and prints one JSON line:
 - llama3-8b's single-request engine, hetero-tensor and xla with fast sync;
 - the host's cost per wrapper call (a loop of calls timed with
   ``time.perf_counter``, the card left to run behind; the best of three)
-  of decode attention, flash attention, the int8 and W4A16 GEMMs and the
-  SSD chunk at path shapes (the SSD loop kept short enough that the
-  launch queue never fills and makes the host wait for the card);
+  of decode attention, flash attention, the int8 and W4A16 GEMMs, the SSD
+  chunk at path shapes and the fp GEMM at w_gate's (256, 4096, 7168) (the
+  SSD and fp GEMM loops kept short enough that the launch queue never
+  fills and makes the host wait for the card);
 - the device time (torch.profiler) and CUDA-events time per call of the
   int8 and W4A16 GEMMs at w_gate's (256, 4096, 8960) block and of the SSD
   chunk at zamba2-2.7b's L = 256.
+
+With ``--host-only``, each tree measures the host's cost per wrapper
+call and llama3-8b's single-request engine (hetero-tensor and xla, fast
+sync) only (a few minutes for four trees).
 
 Needs one CUDA card and nvcc.
 """
@@ -51,7 +56,7 @@ def _host_us(fn, iters: int = 2000) -> float:
     return best
 
 
-def one(tree: str) -> dict:
+def one(tree: str, host_only: bool = False) -> dict:
     tree = os.path.abspath(tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import torch
@@ -82,6 +87,17 @@ def one(tree: str) -> dict:
             "w4a16": _host_us(lambda: ops.mxu_q4_matmul(x, wq4, s4)),
             "ssd": _host_us(lambda: ssd_chunk(*ssd), iters=200)}
     xg = torch.randn((256, 4096), generator=g, device="cuda").bfloat16()
+    wg = torch.randn((4096, 7168), generator=g, device="cuda").bfloat16()
+    host["fp_wgate"] = _host_us(lambda: ops.mxu_matmul(xg, wg), iters=200)
+    keep = ("tok_per_s", "prefill_s", "decode_s")
+    if host_only:
+        cfg, params = c.full_model()
+        engine = c.phase_engine_full(cfg, params, None,
+                                     arms=(("hetero-tensor", True),
+                                           ("xla", True)), gates=())
+        return {"tree": tree, "host_us_per_call": host,
+                "engine": {label: {key: arm[key] for key in keep}
+                           for label, arm in engine.items()}}
     w_full = torch.randn((4096, 14336), generator=g, device="cuda")
     q8, s8 = ops.quantize_weight(w_full)
     q4, s4g = ops.quantize_weight_int4(w_full)
@@ -95,10 +111,9 @@ def one(tree: str) -> dict:
     c.FULL_PAIRS = (("int8+kv8", "int8", "int8"), ("w4a16", "w4a16", None))
     cfg, params = c.full_model()
     paged = c.phase_full(cfg, params)
-    engine = c.phase_engine_full(cfg, params,
+    engine = c.phase_engine_full(cfg, params, None,
                                  arms=(("hetero-tensor", True),
                                        ("xla", True)), gates=())
-    keep = ("tok_per_s", "prefill_s", "decode_s")
     return {"tree": tree, "host_us_per_call": host, "kernels": kernels,
             **{f"paged_{label}": {key: arm[key]
                                   for key in (*keep, "gemm_launches")}
@@ -109,16 +124,18 @@ def one(tree: str) -> dict:
 
 def main() -> int:
     if sys.argv[1:2] == ["--one"]:
-        print("[compare] " + json.dumps(one(sys.argv[2])), flush=True)
+        print("[compare] " + json.dumps(one(sys.argv[2], sys.argv[3:] == [
+            "--host-only"])), flush=True)
         return 0
-    trees = sys.argv[1:]
+    flags = [a for a in sys.argv[1:] if a == "--host-only"]
+    trees = [a for a in sys.argv[1:] if a != "--host-only"]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
     for tree in trees:
-        proc = subprocess.run([sys.executable, __file__, "--one", tree],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", tree,
+                               *flags], capture_output=True, text=True)
         sys.stderr.write(proc.stdout + proc.stderr)
         for line in proc.stdout.splitlines():
             if line.startswith("[compare] "):

@@ -58,11 +58,18 @@ V5E = TPUSpec()
 class GPUSpec(TPUSpec):
     """A card in ``TPUSpec``'s fields, so every cost function takes either.
     ``mxu_tile`` is the aligned kernel's 128-row tile and ``vmem_bytes`` the
-    on-chip working set (L2). One field more: ``mxu_eff``, the aligned
+    on-chip working set (L2). Fields more: ``mxu_eff``, the aligned
     path's effective share of ``peak_flops_bf16`` in the stage model of
     :func:`mxu_matmul_parts`, which sets its tile rate (``clock_hz``; the
-    TPU's systolic model has no such share, and ``n_mxu`` cancels there)."""
+    TPU's systolic model has no such share, and ``n_mxu`` cancels there);
+    ``node_size``, the cards that one node joins by ``ici_bw x
+    ici_links`` (NVLink), and ``net_bw``, each card's share of the network
+    between nodes (bytes a second; 0: none), which the roofline charges a
+    collective over a group larger than a node
+    (``roofline/analysis.py``)."""
     mxu_eff: float = 1.0
+    node_size: int = 8
+    net_bw: float = 0.0
 
     @property
     def clock_hz(self) -> float:
@@ -93,6 +100,8 @@ H100 = GPUSpec(
     xla_eff=0.623,                # torch.matmul at the llama3-8b sites, M = 256
     xla_kernel_overhead_us=20.91,  # fenced torch.matmul at M = 1, beyond its bytes
     mxu_eff=0.738,                # HeteroCtx._mxu at those sites / the stage model
+    node_size=8,                  # datasheet, HGX H100 8-GPU board
+    net_bw=50e9,                  # datasheet, one ConnectX-7 (400 Gb/s) a GPU
 )
 
 

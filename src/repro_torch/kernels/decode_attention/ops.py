@@ -9,9 +9,11 @@ read by the kernel itself, so a decode loop that keeps its position on
 the device never reads it on the host. The kernel splits the cache over
 :func:`decode_split_plan`'s number of blocks per (batch, kv head), a count
 taken from host-known sizes only, and combines the splits in a second pass
-of the same launch. A CUDA tensor launches the kernel or raises; only
-tensors that lie on the CPU take the plain version (``ref.py``).
-``decode_attention.launches`` counts launches.
+of the same launch. The wrapper calls its ``repro_torch`` operator
+(``kernels/library.py``), the length as one int32 on the query's device:
+a CUDA tensor launches the kernel or raises; only tensors that lie on the
+CPU take the plain version (``ref.py``); fake tensors get an output of
+the right shape. ``decode_attention.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ from functools import lru_cache
 
 import torch
 
+from .. import work
 from ..build import counted, entry
 from ..flash_attention.ops import DTYPE_CODE, MAX_D, head_strides
 from ..hetero_matmul.ops import H100_SMS, sm_count
+from ..library import kernel_op, routed
 from .ref import decode_attention_ref
 
 MAX_G = 8
@@ -96,18 +100,33 @@ def _launch(q, k_cache, v_cache, length, n_split) -> torch.Tensor:
                    *[ctypes.c_longlong] * 6, ctypes.c_int)
     n_split = n_split or decode_split_plan(B, Hkv, Smax,
                                            sm_count(q.device.index))
-    n = _device_length(length, q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     # per (batch, kv head, split, query head): (m, l), then acc[D]
     scratch = torch.empty(B * Hkv * n_split * G * (D + 2),
                           dtype=torch.float32, device=q.device)
     (k_b, k_s), (v_b, v_s) = head_strides(k_cache), head_strides(v_cache)
     launch(q.device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           o.data_ptr(), n.data_ptr(), scratch.data_ptr(), B, Smax, Hkv, G,
-           D, n_split, q.stride(0), k_b, k_s, v_b, v_s, o.stride(0),
+           o.data_ptr(), length.data_ptr(), scratch.data_ptr(), B, Smax,
+           Hkv, G, D, n_split, q.stride(0), k_b, k_s, v_b, v_s, o.stride(0),
            DTYPE_CODE[q.dtype])
     decode_attention.launches += 1
     return o
+
+
+def _work(q, k_cache, v_cache, length, n_split) -> tuple[int, int]:
+    B, Hq, D = q.shape
+    return work.decode(B, Hq, k_cache.shape[2], D, k_cache.shape[1],
+                       q.element_size())
+
+
+_decode = kernel_op(
+    "decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
+    "Tensor length, int? n_split) -> Tensor",
+    cpu=lambda q, k, v, length, n_split: decode_attention_ref(q, k, v,
+                                                              length),
+    cuda=_launch,
+    fake=lambda q, k, v, length, n_split: q.new_empty(q.shape),
+    work=_work)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -122,11 +141,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             k_cache.shape[1]):
         raise ValueError(f"n_split {n_split} outside 1.."
                          f"{max_decode_split(k_cache.shape[1])}")
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, length)
-    if q.device.type == "cuda":
-        return _launch(q, k_cache, v_cache, length, n_split)
-    raise ValueError(f"unsupported device {q.device}")
+    if not routed(q):
+        raise ValueError(f"unsupported device {q.device}")
+    return _decode(q, k_cache, v_cache, _device_length(length, q.device),
+                   n_split)
 
 
 counted(decode_attention)

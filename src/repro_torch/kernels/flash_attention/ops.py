@@ -7,18 +7,21 @@ so a chunk at cache position ``Sk - Sq`` sees its prefix) or not. The
 kernel takes any D <= 128 as it is, so nothing is padded here. bf16 / fp16
 run on the tensor cores and round the probabilities to the input type
 before the P V product (``ref.attention_rounded_p_ref``); fp32 stays true
-fp32. A CUDA tensor launches the kernel or raises; only tensors that lie on
-the CPU take the plain version (``ref.py``), whose gradient is torch's
-autograd. ``flash_attention.launches`` counts launches.
+fp32. Each wrapper calls its ``repro_torch`` operator
+(``kernels/library.py``): a CUDA tensor launches the kernel or raises;
+only tensors that lie on the CPU take the plain version (``ref.py``);
+fake tensors get outputs of the right shape.
+``flash_attention.launches`` counts launches.
 
 The gradient (``csrc/flash_attention_bwd.cu``): where grad is enabled and
-an input requires it, a CUDA call goes through ``_FlashAttention``, whose
-forward launch also writes each row's log-sum-exp (fp32 ``[B, Hq, Sq]``)
-and whose backward launches the backward kernel through
-``flash_attention_bwd`` (``flash_attention_bwd.launches`` counts its
-launches). Every other call launches the forward alone, with no
-log-sum-exp, as before. ``torch.utils.checkpoint`` recomputing a layer in
-backward reruns that forward, log-sum-exp included.
+an input requires it, a call goes through ``_FlashAttention``, whose
+forward also writes each row's log-sum-exp (fp32 ``[B, Hq, Sq]``) and
+whose backward runs the backward kernel through ``flash_attention_bwd``
+(``flash_attention_bwd.launches`` counts its launches); on CPU tensors
+the plain versions of both (``attention_ref`` with ``lse_ref``, and
+``attention_bwd_ref``). Every other call runs the forward alone, with no
+log-sum-exp. ``torch.utils.checkpoint`` recomputing a layer in backward
+reruns that forward, log-sum-exp included.
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import ctypes
 
 import torch
 
+from .. import work
 from ..build import counted, entry
-from .ref import attention_bwd_ref, attention_ref
+from ..library import kernel_op, routed
+from .ref import attention_bwd_ref, attention_ref, lse_ref
 
 MAX_D = 128                    # both attention kernels' largest head dim
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -82,14 +87,50 @@ def _launch(q, k, v, causal: bool, lse: torch.Tensor | None = None
     return o
 
 
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _lse_shape(q: torch.Tensor) -> tuple:
+    B, Sq, Hq, _ = q.shape
+    return (B, Hq, Sq)
+
+
+def _cuda_fwd(q, k, v, causal: bool, with_lse: bool):
+    lse = (torch.empty(_lse_shape(q), dtype=torch.float32, device=q.device)
+           if with_lse else _no_lse(q))
+    return _launch(q, k, v, causal, lse if with_lse else None), lse
+
+
+def _cpu_fwd(q, k, v, causal: bool, with_lse: bool):
+    return (attention_ref(q, k, v, causal=causal),
+            lse_ref(q, k, causal=causal) if with_lse else _no_lse(q))
+
+
+def _fake_fwd(q, k, v, causal: bool, with_lse: bool):
+    return (q.new_empty(q.shape),
+            q.new_empty(_lse_shape(q) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _fwd_work(q, k, v, causal: bool, with_lse: bool) -> tuple[int, int]:
+    B, Sq, Hq, D = q.shape
+    return work.flash(B, Sq, k.shape[1], Hq, k.shape[2], D, q.element_size(),
+                      causal, with_lse)
+
+
+_flash_fwd = kernel_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+    "bool with_lse) -> (Tensor, Tensor)",
+    cpu=_cpu_fwd, cuda=_cuda_fwd, fake=_fake_fwd, work=_fwd_work)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's forward with its log-sum-exp, and the backward kernel."""
+    """The forward with its log-sum-exp, and the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        B, Sq, Hq, _ = q.shape
-        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-        o = _launch(q, k, v, causal, lse)
+        o, lse = _flash_fwd(q, k, v, causal, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -106,14 +147,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """GQA attention, output in ``q.dtype``; fp32 softmax statistics."""
     _check(q, k, v, causal)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    if q.device.type == "cuda":
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            return _FlashAttention.apply(q, k, v, causal)
-        return _launch(q, k, v, causal)
-    raise ValueError(f"unsupported device {q.device}")
+    if not routed(q):
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_fwd(q, k, v, causal, False)[0]
 
 
 counted(flash_attention)
@@ -137,6 +176,23 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool):
     return dq, dk, dv
 
 
+def _bwd_work(q, k, v, o, lse, do, causal: bool) -> tuple[int, int]:
+    B, Sq, Hq, D = q.shape
+    return work.flash_bwd(B, Sq, k.shape[1], Hq, k.shape[2], D,
+                          q.element_size(), causal)
+
+
+_flash_bwd = kernel_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+    "Tensor dout, bool causal) -> (Tensor, Tensor, Tensor)",
+    cpu=lambda q, k, v, o, lse, do, causal: attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal),
+    cuda=_launch_bwd,
+    fake=lambda q, k, v, o, lse, do, causal: (
+        q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)),
+    work=_bwd_work)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=)`` given its
     output ``o``, its rows' log-sum-exp ``lse`` (fp32 ``[B, Hq, Sq]``) and
@@ -153,11 +209,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
             lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, do {do.dtype}, lse {lse.dtype}: o "
                         "and do in q's type, lse float32")
-    if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
-    if q.device.type == "cuda":
-        return _launch_bwd(q, k, v, o, lse, do, causal)
-    raise ValueError(f"unsupported device {q.device}")
+    if not routed(q):
+        raise ValueError(f"unsupported device {q.device}")
+    return _flash_bwd(q, k, v, o, lse, do, causal)
 
 
 counted(flash_attention_bwd)

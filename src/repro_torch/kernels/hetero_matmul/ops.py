@@ -11,9 +11,11 @@ and split of K); its operands go through TMA, so they must pass
 (int8 codes ``[K, N]``, packed int4 codes ``[K/2, N]``, fp32 scale ``[N]``);
 with bf16 / fp16 activations both run a tensor-core kernel on the same
 launch plan, their codes through TMA under :func:`int8_operand`.
-A CUDA tensor launches the kernel or raises; only tensors that lie on the
-CPU take the plain version (``ref.py``). Each wrapper's ``.launches``
-counts its kernel's launches.
+Each wrapper calls its ``repro_torch`` operator (``kernels/library.py``):
+a CUDA tensor launches the kernel or raises; only tensors that lie on the
+CPU take the plain version (``ref.py``); fake tensors get outputs of the
+right shape, and the work of ``kernels/work.py``. Each wrapper's
+``.launches`` counts its kernel's launches.
 
 ``quantize_weight`` / ``quantize_weight_int4`` give the reference's codes
 and scales byte for byte (``repro.kernels.hetero_matmul.ops``).
@@ -22,10 +24,13 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Callable
 
 import torch
 
+from .. import work
 from ..build import counted, entry
+from ..library import kernel_op, routed
 from .ref import matmul_ref, q4_matmul_ref, quant_matmul_ref, unpack_int4
 
 ALIGN = 128
@@ -169,6 +174,19 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stationary: str,
     return y
 
 
+def _gemm_work(x, w, *args) -> tuple[int, int]:
+    return work.gemm(x.shape[0], x.shape[1], w.shape[1], x.element_size())
+
+
+_mxu_matmul = kernel_op(
+    "mxu_matmul(Tensor x, Tensor w, str stationary, int[]? plan) -> Tensor",
+    cpu=lambda x, w, stationary, plan: matmul_ref(x, w),
+    cuda=_launch,
+    fake=lambda x, w, stationary, plan: x.new_empty((x.shape[0],
+                                                      w.shape[1])),
+    work=_gemm_work)
+
+
 def mxu_matmul(x: torch.Tensor, w: torch.Tensor, *,
                stationary: str = "output", plan=None) -> torch.Tensor:
     """``[..., K] @ [K, N]`` on the aligned path, output in ``x.dtype``.
@@ -183,12 +201,9 @@ def mxu_matmul(x: torch.Tensor, w: torch.Tensor, *,
             raise ValueError("a plan applies to the bf16 / fp16 "
                              "output-stationary kernel only")
         check_plan(plan, x2.shape[0], w.shape[1], x2.shape[1])
-    if x2.device.type == "cpu":
-        y = matmul_ref(x2, w)
-    elif x2.device.type == "cuda":
-        y = _launch(x2, w, stationary, plan)
-    else:
+    if not routed(x2):
         raise ValueError(f"unsupported device {x2.device}")
+    y = _mxu_matmul(x2, w, stationary, None if plan is None else list(plan))
     return y.reshape(*lead, w.shape[1])
 
 
@@ -289,12 +304,14 @@ def int8_operand(t: torch.Tensor) -> int:
     return ld
 
 
-def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
+def _launch_quant(symbol: str, counter, x: torch.Tensor, wq: torch.Tensor,
                   scale: torch.Tensor, plan) -> torch.Tensor:
     """One launch of ``csrc/quant_matmul.cu``'s ``symbol`` (int8 or packed
     int4 codes): bf16 / fp16 x runs the tensor-core kernel on ``plan`` (or
     :func:`gemm_plan`'s), its operands under TMA's rules; fp32 x the FMA
     body."""
+    if scale.stride(0) != 1:
+        raise ValueError(f"scale stride {scale.stride()} is not unit")
     launch = entry("quant_matmul", symbol, *[ctypes.c_void_p] * 5,
                    *[ctypes.c_int] * 3, *[ctypes.c_longlong] * 2,
                    *[ctypes.c_int] * 3)
@@ -315,22 +332,33 @@ def _launch_quant(symbol: str, x: torch.Tensor, wq: torch.Tensor,
     launch(x.device, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
            y.data_ptr(), scratch.data_ptr() if scratch is not None else None,
            M, N, K, ldx, ldw, _DTYPE_CODE[x.dtype], bn, split)
+    counter.launches += 1
     return y
 
 
-def _quant_dispatch(x, wq, scale, rows_per_k, plain, launch, counter):
+def _quant_op(name: str, symbol: str, plain, w_bytes_per_el: float,
+              counter: Callable):
+    """The ``repro_torch::<name>`` operator of a quantized GEMM whose
+    launches ``counter.launches`` counts."""
+    return kernel_op(
+        f"{name}(Tensor x, Tensor wq, Tensor scale, int[]? plan) -> Tensor",
+        cpu=lambda x, wq, scale, plan: plain(x, wq, scale),
+        cuda=lambda x, wq, scale, plan: _launch_quant(symbol, counter(), x,
+                                                      wq, scale, plan),
+        fake=lambda x, wq, scale, plan: x.new_empty((x.shape[0],
+                                                     wq.shape[1])),
+        work=lambda x, wq, scale, plan: work.quant_gemm(
+            x.shape[0], x.shape[1], wq.shape[1], x.element_size(),
+            w_bytes_per_el))
+
+
+def _quant_dispatch(x, wq, scale, rows_per_k, op, plan):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
     _check_quant(x2, wq, scale, rows_per_k)
-    if x2.device.type == "cpu":
-        y = plain(x2, wq, scale)
-    elif x2.device.type == "cuda":
-        if scale.stride(0) != 1:
-            raise ValueError(f"scale stride {scale.stride()} is not unit")
-        y = launch(x2, wq, scale)
-        counter.launches += 1
-    else:
+    if not routed(x2):
         raise ValueError(f"unsupported device {x2.device}")
+    y = op(x2, wq, scale, None if plan is None else list(plan))
     return y.reshape(*lead, wq.shape[1])
 
 
@@ -341,6 +369,13 @@ def _check_quant_plan(x: torch.Tensor, wq: torch.Tensor, plan) -> None:
         check_plan(plan, x.numel() // x.shape[-1], wq.shape[1], x.shape[-1])
 
 
+_mxu_quant_matmul = _quant_op("mxu_quant_matmul", "quant_matmul_int8",
+                              quant_matmul_ref, 1.0,
+                              lambda: mxu_quant_matmul)
+_mxu_q4_matmul = _quant_op("mxu_q4_matmul", "quant_matmul_q4",
+                           q4_matmul_ref, 0.5, lambda: mxu_q4_matmul)
+
+
 def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                      *, plan=None) -> torch.Tensor:
     """``[..., K] @ (wq * scale)`` on the aligned path: wq int8 ``[K, N]``
@@ -348,10 +383,7 @@ def mxu_quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     ``x.dtype``. Shapes must be aligned. ``plan`` overrides
     :func:`gemm_plan`'s (BM, BN, split) for bf16 / fp16 ``x``."""
     _check_quant_plan(x, wq, plan)
-    return _quant_dispatch(
-        x, wq, scale, 1, quant_matmul_ref,
-        lambda *a: _launch_quant("quant_matmul_int8", *a, plan),
-        mxu_quant_matmul)
+    return _quant_dispatch(x, wq, scale, 1, _mxu_quant_matmul, plan)
 
 
 def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor, scale: torch.Tensor,
@@ -361,10 +393,7 @@ def mxu_q4_matmul(x: torch.Tensor, wq4: torch.Tensor, scale: torch.Tensor,
     runs the same tensor-core kernel and plan, the packed codes through TMA
     under :func:`int8_operand`."""
     _check_quant_plan(x, wq4, plan)
-    return _quant_dispatch(
-        x, wq4, scale, 2, q4_matmul_ref,
-        lambda *a: _launch_quant("quant_matmul_q4", *a, plan),
-        mxu_q4_matmul)
+    return _quant_dispatch(x, wq4, scale, 2, _mxu_q4_matmul, plan)
 
 
 counted(mxu_quant_matmul)

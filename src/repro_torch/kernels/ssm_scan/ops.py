@@ -3,19 +3,20 @@
 ``ssd_chunk(xb, B_, C_, seg, S_prev)`` has the contract of
 ``repro.kernels.ssm_scan.kernel.ssd_chunk_pallas``: one Mamba2 chunk step,
 all operands fp32, returning fp32 (y ``[B,L,nh,hd]``, S_new
-``[B,nh,hd,N]``). A CUDA tensor launches the kernel or raises; only tensors
-that lie on the CPU take the plain version (``ref.py``). On the card one
-call is two launches (C.B^T once per batch into a scratch the wrapper
-allocates, then the chunk step); ``ssd_chunk.launches`` counts calls.
+``[B,nh,hd,N]``). The wrapper calls its ``repro_torch`` operator
+(``kernels/library.py``): a CUDA tensor launches the kernel or raises;
+only tensors that lie on the CPU take the plain version (``ref.py``); fake
+tensors get outputs of the right shape. On the card one call is two
+launches (C.B^T once per batch into a scratch the wrapper allocates, then
+the chunk step); ``ssd_chunk.launches`` counts calls.
 
-The gradient: where grad is enabled and an input requires it, a CUDA call
-goes through ``_SSDChunk``, which saves its inputs and whose backward
-launches the backward kernel through ``ssd_chunk_bwd`` (three launches a
-call: C.B^T, the per-head jobs, the sums over heads;
-``ssd_chunk_bwd.launches`` counts calls). Every other call launches the
-forward alone, as before; on CPU tensors the gradient is autograd of the
-plain version. ``torch.utils.checkpoint`` recomputing a layer in backward
-reruns the forward.
+The gradient: where grad is enabled and an input requires it, a call goes
+through ``_SSDChunk``, which saves its inputs and whose backward runs the
+backward kernel through ``ssd_chunk_bwd`` (three launches a call: C.B^T,
+the per-head jobs, the sums over heads; ``ssd_chunk_bwd.launches`` counts
+calls); on CPU tensors its plain version, ``ssd_chunk_bwd_ref``. Every
+other call runs the forward alone. ``torch.utils.checkpoint`` recomputing
+a layer in backward reruns the forward.
 
 ``ssd_scan`` is the port of ``repro.kernels.ssm_scan.ops.ssd_scan``: the
 whole scan as a host loop of ``ssd_chunk`` calls, the state passed from one
@@ -28,7 +29,9 @@ import ctypes
 
 import torch
 
+from .. import work
 from ..build import counted, entry
+from ..library import kernel_op, routed
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 MAX_DIM = 64                   # the kernel's largest head dim and state size
@@ -91,12 +94,27 @@ def _launch(xb, B_, C_, seg, S_prev):
     return y, S_new
 
 
+def _chunk_work(xb, B_, *args) -> tuple[int, int]:
+    Bb, L, nh, hd = xb.shape
+    return work.ssd_chunk(Bb, L, nh, hd, B_.shape[-1])
+
+
+_ssd_fwd = kernel_op(
+    "ssd_chunk(Tensor xb, Tensor b, Tensor c, Tensor seg, Tensor s_prev) "
+    "-> (Tensor, Tensor)",
+    cpu=ssd_chunk_ref, cuda=_launch,
+    fake=lambda xb, B_, C_, seg, S_prev: (
+        xb.new_empty(xb.shape, dtype=torch.float32),
+        xb.new_empty(S_prev.shape, dtype=torch.float32)),
+    work=_chunk_work)
+
+
 class _SSDChunk(torch.autograd.Function):
-    """The chunk kernel's forward, and the backward kernel."""
+    """The chunk step's forward, and its backward."""
 
     @staticmethod
     def forward(ctx, xb, B_, C_, seg, S_prev):
-        y, S_new = _launch(xb, B_, C_, seg, S_prev)
+        y, S_new = _ssd_fwd(xb, B_, C_, seg, S_prev)
         ctx.save_for_backward(xb, B_, C_, seg, S_prev)
         return y, S_new
 
@@ -109,14 +127,12 @@ def ssd_chunk(xb: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
               seg: torch.Tensor, S_prev: torch.Tensor):
     """One SSD chunk step: (y ``[B,L,nh,hd]``, S_new ``[B,nh,hd,N]``)."""
     _check(xb, B_, C_, seg, S_prev)
-    if xb.device.type == "cpu":
-        return ssd_chunk_ref(xb, B_, C_, seg, S_prev)
-    if xb.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (xb, B_, C_, seg, S_prev)):
-            return _SSDChunk.apply(xb, B_, C_, seg, S_prev)
-        return _launch(xb, B_, C_, seg, S_prev)
-    raise ValueError(f"unsupported device {xb.device}")
+    if not routed(xb):
+        raise ValueError(f"unsupported device {xb.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xb, B_, C_, seg, S_prev)):
+        return _SSDChunk.apply(xb, B_, C_, seg, S_prev)
+    return _ssd_fwd(xb, B_, C_, seg, S_prev)
 
 
 counted(ssd_chunk)
@@ -149,6 +165,17 @@ def _launch_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):
     return dxb, dB, dC, dseg, dS_prev
 
 
+_ssd_bwd = kernel_op(
+    "ssd_chunk_bwd(Tensor xb, Tensor b, Tensor c, Tensor seg, "
+    "Tensor s_prev, Tensor dy, Tensor ds_new) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=ssd_chunk_bwd_ref, cuda=_launch_bwd,
+    fake=lambda xb, B_, C_, seg, S_prev, dy, dS_new: tuple(
+        t.new_empty(t.shape, dtype=torch.float32)
+        for t in (xb, B_, C_, seg, S_prev)),
+    work=lambda xb, B_, *args: work.ssd_chunk_bwd(*xb.shape, B_.shape[-1]))
+
+
 def ssd_chunk_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):
     """The gradient of ``ssd_chunk(xb, B_, C_, seg, S_prev)`` given dy
     ``[B,L,nh,hd]`` and dS_new ``[B,nh,hd,N]``: (dxb, dB_, dC_, dseg,
@@ -164,11 +191,9 @@ def ssd_chunk_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):
     if dy.device != xb.device or dS_new.device != xb.device:
         raise ValueError(f"operands on different devices: {xb.device}, "
                          f"{dy.device}, {dS_new.device}")
-    if xb.device.type == "cpu":
-        return ssd_chunk_bwd_ref(xb, B_, C_, seg, S_prev, dy, dS_new)
-    if xb.device.type == "cuda":
-        return _launch_bwd(xb, B_, C_, seg, S_prev, dy, dS_new)
-    raise ValueError(f"unsupported device {xb.device}")
+    if not routed(xb):
+        raise ValueError(f"unsupported device {xb.device}")
+    return _ssd_bwd(xb, B_, C_, seg, S_prev, dy, dS_new)
 
 
 counted(ssd_chunk_bwd)

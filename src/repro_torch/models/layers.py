@@ -21,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
+from torch.utils._python_dispatch import _disable_current_modes
 import torch.distributed as dist
 import torch.nn.functional as F
 
@@ -83,11 +85,16 @@ def rope_table(cfg, device) -> torch.Tensor:
     copy, which a decode loop with no host sync cannot afford."""
     key = (cfg.head_dim, cfg.rope_theta, torch.device(device))
     table = _ROPE_TABLES.get(key)
-    if table is None:
-        table = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)
-                                 ).to(device)
+    if table is None:                   # made outside any mode: real, uncounted
+        with _disable_current_modes():
+            table = torch.from_numpy(rope_freqs(cfg.head_dim, cfg.rope_theta)
+                                     ).to(device)
         _ROPE_TABLES[key] = table
-    return table
+    # under a fake-tensor trace (launch/dryrun.py) the real table's fake
+    # twin: the cache holds real tensors only, and a trace reads it as a
+    # real run does, dispatching nothing
+    fake_mode = detect_fake_mode()
+    return fake_mode.from_tensor(table) if fake_mode is not None else table
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..distributed.sharding import (data_mean, gather_layer, hidden_constraint,
                                     hidden_enter, hidden_gather,
                                     logits_constraint)
+from ..training.tree import tree_leaves
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
                      normal_stack, paged_attention, remat, rms_norm,
                      rope_table, slot_attention, swiglu, tp_all_gather)
@@ -188,6 +189,18 @@ def forward_hidden(params, inputs, cfg):
                            cache=None, cache_index=None, freqs=freqs),
                    None)[0]
     return rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
+
+
+def stage_forward(layers: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """A run of layers (stacked ``[n, ...]`` as ``params["layers"]``) over
+    hidden states ``x`` [B, S, D] with no cache, causal from position 0:
+    a pipeline stage's ``layer_fn`` (distributed/pipeline.py); running
+    the stages in order is running all their layers at once."""
+    positions = torch.arange(x.shape[1], dtype=torch.long, device=x.device)
+    freqs = rope_table(cfg, x.device)
+    for lp in unstack_layers(layers, tree_leaves(layers)[0].shape[0]):
+        x = _train_layer(x, lp, cfg, positions, freqs)[0]
+    return x
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
