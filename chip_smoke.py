@@ -12,6 +12,10 @@ on failure:
      kernel's registers, stack and spills from ``-Xptxas -v`` (a spill in a
      tensor-core kernel, the SSD chunk's included, or a split-KV decode
      kernel fails);
+  L. the port's linter (``repro_torch.analysis``, what
+     ``scripts/repolint_torch.py --check`` runs) over this checkout, its
+     summary on a ``[lint]`` line: a new finding or a stale baseline entry
+     fails;
   2. each kernel against its plain PyTorch version on the card, over the
      conformance shapes and the serving path's own shapes, in fp32, bf16
      and fp16, within the reference's DTYPE_TOL: the fp GEMM in both
@@ -413,6 +417,31 @@ def phase_card_and_build() -> str:
     if spilled:
         raise AssertionError(f"tensor-core kernels spill: {spilled}")
     return card
+
+
+def phase_lint(card: str) -> dict:
+    """Phase L: the port's linter (``scripts/repolint_torch.py --check``'s
+    rules, ``repro_torch.analysis``) over the checkout this script sits in.
+    Raises on any finding the baseline does not cover and on any stale
+    baseline entry: a checkout that breaks the port's disciplines (a CUDA
+    graph's outputs copied before the next replay, loops captured once per
+    key, no host pull in a captured body, ``fence`` the one sync site)
+    stops here, before the card runs it."""
+    from repro_torch.analysis.core import run_repolint
+    t0 = time.perf_counter()
+    report = run_repolint(ROOT)
+    seconds = time.perf_counter() - t0
+    for f in report.new:
+        log(f"[lint] {f.render()}")
+    for fp in report.stale:
+        log(f"[lint] stale baseline entry (no longer fires): {fp}")
+    log(f"[lint] {report.summary()}; {seconds:.1f}s on the host ({card})")
+    if not report.ok:
+        raise AssertionError(f"repolint-torch: {len(report.new)} new "
+                             f"finding(s), {len(report.stale)} stale "
+                             f"baseline entries")
+    return {"files": report.n_files, "findings": len(report.findings),
+            "suppressed": report.suppressed, "s": seconds}
 
 
 def _ptxas_report(out: str):
@@ -3335,8 +3364,8 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     with torch.cuda.stream(side):
         fn()                                  # first-use costs, uncaptured
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    graph = torch.cuda.CUDAGraph()  # repolint-torch: disable=capture-hygiene -- times a kernel's launches without the host's cost; no loop of the port, so not core.sync's CapturedLoop
+    with torch.cuda.graph(graph):  # repolint-torch: disable=capture-hygiene -- the capture of the same timing graph
         for _ in range(iters):
             fn()
     graph.replay()
@@ -6028,6 +6057,9 @@ def main() -> int:
         return out
 
     card = timed(phase_card_and_build)
+    t0 = time.perf_counter()
+    phase_lint(card)
+    log(f"[time] phase_lint: {time.perf_counter() - t0:.1f}s ({card})")
     kern = timed(phase_kernels)
     qkern = timed(phase_quant_kernels)
     attn = timed(phase_attention_kernels)

@@ -129,8 +129,9 @@ def test_combine_matches_reference_split_softmax(seed):
 
 def test_combine_weights_empty_partials_out():
     """Empty partials (m = -inf, l = 0) weigh nothing; all empty gives 0."""
-    s = torch.randn(1, 1, 2, 9)
-    v = torch.randn(1, 9, 1, 4)
+    g = torch.Generator().manual_seed(0)
+    s = torch.randn(1, 1, 2, 9, generator=g)
+    v = torch.randn(1, 9, 1, 4, generator=g)
     full = combine_partials(*split_partials(s, v, [(0, 9)]))
     padded = combine_partials(*split_partials(s, v, [(0, 5), (5, 9), (9, 9),
                                                      (9, 9)]))
