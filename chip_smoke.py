@@ -85,7 +85,23 @@ on failure:
      logits, and on the first mamba layer's scan output and state within
      the chunk's 1e-4; ``scripts/ssd_gate_mutants.py`` shows that wrong SSD
      steps, one pass of TF32 among them, fail it), ``attention_gate`` on
-     this model, and its engine's ``phase_graph_decode`` pair.
+     this model, and its engine's ``phase_graph_decode`` pair. Prefill and
+     verify are CUDA graphs too, one per chunk length (M2b):
+     ``phase_graph_prefill``, after each model's ``phase_graph_decode``,
+     holds every replay bitwise to the model's own entry point run eagerly
+     on a copy of the pool or cache (logits, and the pool or cache after):
+     llama3-8b paged (fp, int8 + int8 KV, W4A16: the V5E hetero-tensor
+     arms of phase 4, their prompts again in reverse order so the chunk
+     lengths replay in another order than their capture's, tokens equal,
+     then prefill-only runs alternating captured and eager), the spec arm
+     (self-draft, k = 4: every verify round), the engine on prompts 428
+     and 300 over one cache (the 44-token chunk's graph replays at starts
+     384 and 256; no host sync in a replay; ``n_compiles`` = chunk lengths
+     + decode graphs; eager prefill's tokens; timed alternating), and
+     zamba2-2.7b's engine on prompt 600 (the SSD chunk kernel and the flash
+     kernel's device-start entry replayed). Phase 2 holds that entry
+     bitwise to the host-start launch and within DTYPE_TOL of its plain
+     version over the conformance grid and at the engine's shapes.
 
 Among them run the phases of the solver's cost model and its two streams:
 
@@ -822,6 +838,59 @@ def _attention_timing(kind: str, q, k, v, length=None, causal=True) -> dict:
     return row
 
 
+def _flash_at_timing(q, k, v, start: int) -> dict:
+    """The flash kernel's device-start entry at a path shape: a chunk q
+    ``[B, Sq, Hq, D]`` at ``start`` over the whole cache k/v ``[B, Smax,
+    Hkv, D]``, held bitwise to the host-start launch on the cache prefix
+    ``[0, start + Sq)`` and within DTYPE_TOL to its plain version
+    (``attention_at_ref``); kernel and plain times (CUDA events), the
+    kernel's device time (torch.profiler), the bound of this start's work
+    (``work.flash_at``) and SDPA's time on the sliced prefix."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import work
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_at_ref
+
+    B, Sq, Hq, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    end = start + Sq
+    at = torch.tensor(start, dtype=torch.int32, device=q.device)
+    run = lambda: flash_attention(q, k, v, start=at)               # noqa: E731
+    host = lambda: flash_attention(q, k[:, :end], v[:, :end])      # noqa: E731
+    plain = lambda: attention_at_ref(q, k, v, at)                  # noqa: E731
+    before = flash_attention.launches
+    out, want, ref = run(), host(), plain()
+    torch.cuda.synchronize()
+    if flash_attention.launches != before + 2:
+        raise AssertionError("[attention] the device-start entry did not "
+                             "launch the kernel")
+    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                  for t in (q, k[:, :end], v[:, :end]))
+    mask = (torch.arange(end, device=q.device)[None, :]
+            <= torch.arange(Sq, device=q.device)[:, None] + start)
+    lib = lambda: F.scaled_dot_product_attention(                  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dname = str(q.dtype).split(".")[-1]
+    row = {"kind": "flash_at", "shape": [B, Sq, Smax, Hq, Hkv, D],
+           "start": start, "dtype": dname,
+           "bitwise_host_start": bool(torch.equal(out, want)),
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "rel_err": rel_err(out, ref),
+           "ms": cuda_time_ms(run), "host_start_ms": cuda_time_ms(host),
+           "plain_ms": cuda_time_ms(plain), "device_ms": device_ms(run),
+           "library_ms": cuda_time_ms(lib),
+           "library_device_ms": device_ms(lib),
+           "library_note": "scaled_dot_product_attention(enable_gqa=True, "
+                           "explicit bottom-right mask) on k[:, :start + Sq]"}
+    row.update(work.bound(*work.flash_at(B, Sq, Smax, Hq, Hkv, D,
+                                         q.element_size(), start), dname))
+    if not (row["bitwise_host_start"]
+            and row["rel_err"] <= DTYPE_TOL[dname]):
+        raise AssertionError(f"[attention] device start {row}")
+    return row
+
+
 def phase_attention_kernels() -> dict:
     """The flash- and decode-attention kernels against their plain versions
     on the card: the conformance grid (M the sequence, K the head dim, plus
@@ -839,7 +908,8 @@ def phase_attention_kernels() -> dict:
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, decode_attention_split_ref)
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_at_ref,
+                                                         attention_ref)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -898,10 +968,37 @@ def phase_attention_kernels() -> dict:
                             check(f"decode {name} G={G} Smax={Smax} "
                                   f"len={length} split={n_split}",
                                   decode_attention, out, ref, dname, before)
+    # the device-start entry over a cache 37 rows longer than the chunk:
+    # bitwise the host-start launch on the prefix, within DTYPE_TOL of its
+    # plain version
+    n_at = 0
+    for name, M, K, _ in cases:
+        D, Hkv, Smax = min(K, 128), 2, M + 37
+        for G in (1, 2, 4):
+            for dname in DTYPE_TOL:
+                dt = dtype_of(dname)
+                q = randn(2, M, Hkv * G, D, dt=dt)
+                k, v = randn(2, Smax, Hkv, D, dt=dt), randn(2, Smax, Hkv, D,
+                                                           dt=dt)
+                for start in (0, 19, 37):
+                    at = torch.tensor(start, dtype=torch.int32, device="cuda")
+                    before = flash_attention.launches
+                    out = flash_attention(q, k, v, start=at)
+                    check(f"flash device start {name} G={G} start={start}",
+                          flash_attention, out,
+                          attention_at_ref(q, k, v, at), dname, before)
+                    host = flash_attention(q, k[:, :start + M],
+                                           v[:, :start + M])
+                    if not torch.equal(out, host):
+                        raise AssertionError(
+                            f"flash device start {name} G={G} start={start}"
+                            f" {dname}: not bitwise the host-start launch")
+                    n_at += 1
     for (kname, dname), e in sorted(worst.items()):
         log(f"[attention] {kname:16s} {dname:8s}: worst rel_err {e:.3g} <= "
             f"{DTYPE_TOL[dname]}")
-    log(f"[attention] {n_checks} checks passed")
+    log(f"[attention] {n_checks} checks passed; the device-start entry "
+        f"bitwise the host-start launch in all {n_at} of its")
 
     # the engine's shapes at llama3-8b (B = 1, prompt 300, 16 new tokens,
     # hetero strategy: chunk 256 over 256 keys, chunk 44 over 300; decode
@@ -940,7 +1037,19 @@ def phase_attention_kernels() -> dict:
             raise AssertionError(f"[attention] path shape {row['shape']}: "
                                  f"rel_err {row['rel_err']:.3g}")
         log(f"[attention] time {json.dumps(row)}")
-    return {"timings": timings, "worst": worst}
+    # the device-start entry at the captured engine prefill's shapes:
+    # llama3-8b's 44-token chunk at 256 and 256 at 0 over the 324-row
+    # cache; zamba2-2.7b's 88 at 512 over 616 rows
+    device_start = []
+    for (Hq, Hkv, D), Sq, start, Smax in (((32, 8, 128), 44, 256, 324),
+                                          ((32, 8, 128), 256, 0, 324),
+                                          ((32, 32, 80), 88, 512, 616)):
+        q = randn(1, Sq, Hq, D, dt=bf16)
+        k, v = randn(1, Smax, Hkv, D, dt=bf16), randn(1, Smax, Hkv, D,
+                                                     dt=bf16)
+        device_start.append(_flash_at_timing(q, k, v, start))
+        log(f"[attention] device start {json.dumps(device_start[-1])}")
+    return {"timings": timings, "worst": worst, "device_start": device_start}
 
 
 SSD_TOL = 1e-4     # the reference's bound for the SSD chunk, every dtype row
@@ -1114,26 +1223,56 @@ def _requests(prompts, new_tokens: int) -> list:
             for i, p in enumerate(prompts)]
 
 
+class _EagerCalls(dict):
+    """An owner's ``_calls`` (an engine's, a batcher's) under which every
+    call it makes runs eagerly: a captured call stored in it is replaced by
+    its body run on each call's inputs copied to the card: the eager side
+    of a comparison, a gate's runs (hooks on the model's entry points see
+    every call) and an arm whose routing a ``RouteTape`` pins (the tape
+    sees eager calls only)."""
+
+    def __setitem__(self, key, call):
+        from repro_torch.core.sync import CapturedCall, make_call
+        if isinstance(call, CapturedCall):
+            call = make_call(call.body, call.device, capture=False)
+        super().__setitem__(key, call)
+
+
 class _eager_loops:
     """Inside this block the port's decode loops are made eager: each loop
     that ``core.sync`` makes copies its inputs to the card and runs its
-    body step by step instead of a CUDA graph (for the eager arms held
-    against the captured ones; the port itself has no such switch)."""
+    body step by step instead of a CUDA graph; and so are the prefill and
+    verify calls that the engine, the batcher and the spec decoder make
+    (``make_call`` as under a layout whose collectives a graph cannot
+    record) (for the eager arms held against the captured ones; the port
+    itself has no such switch)."""
+
+    OWNERS = ("repro_torch.core.engine", "repro_torch.serving.scheduler",
+              "repro_torch.serving.spec")
 
     def __enter__(self):
+        import importlib
         from repro_torch.core import sync
-        self.made = sync.make_loop
+        self.made_loop = sync.make_loop
+        self.owners = [importlib.import_module(m) for m in self.OWNERS]
 
         def eager(body, inputs, **_):
             device = inputs[0].device
             return lambda *xs: body(*(x.to(device, non_blocking=True)
                                       for x in xs))
 
+        def eager_call(body, device, **_):
+            return sync.make_call(body, device, capture=False)
+
         sync.make_loop = eager
+        for mod in self.owners:
+            mod.make_call = eager_call
 
     def __exit__(self, *exc):
         from repro_torch.core import sync
-        sync.make_loop = self.made
+        sync.make_loop = self.made_loop
+        for mod in self.owners:
+            mod.make_call = sync.make_call
 
 
 def _time_captures() -> None:
@@ -1152,10 +1291,14 @@ def _time_captures() -> None:
 
 def _graph_info(owner) -> dict:
     """A batcher's or an engine's decode graphs: count, replays, pool bytes
-    and the seconds their captures took."""
+    and the seconds their captures took; the same of its prefill and
+    verify graphs under ``calls`` (capture seconds: warm-up, which is the
+    first call, and capture)."""
     info = owner.graph_stats()
     info["capture_s"] = sum(getattr(lp, "capture_s", 0.0)
                             for lp in owner._loops.values())
+    info["calls"]["capture_s"] = sum(getattr(c, "capture_s", 0.0)
+                                     for c in owner._calls.values())
     return info
 
 
@@ -1613,14 +1756,17 @@ class RouteTape:
 
 def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
                weight_quant, kv_quant, profile: bool = False,
-               table=None, pin=None) -> dict:
+               table=None, pin=None, then=None) -> dict:
     """One full-width PagedBatcher (sync device, window 8, width 8; its
     plan solved from ``table`` where given): a first run over the prompts
-    (which captures its decode graph), then a timed run and, with
-    ``profile``, a profiled run, each over new requests for the same
-    prompts. ``pin``, where given, is entered around the timed run (a
-    ``RouteTape``'s record or replay); the first run's first-token logits
-    are kept as ``free_first_logits``. Returns the timed run's numbers."""
+    (which captures its decode graph and its prefill calls), then a timed
+    run and, with ``profile``, a profiled run, each over new requests for
+    the same prompts. ``pin``, where given, is entered around the timed
+    run (a ``RouteTape``'s record or replay; the arm's prefill then runs
+    eagerly); the first run's first-token logits are kept as
+    ``free_first_logits``. ``then(cb, arm)``, where given, runs last on the
+    batcher, its result kept as ``arm["graph_prefill"]``. Returns the timed
+    run's numbers."""
     import torch
     from repro_torch.core.sync import fence
 
@@ -1629,6 +1775,8 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
                       sync="device", window=8, decode_width=8,
                       new_tokens=new_tokens, weight_quant=weight_quant,
                       kv_quant=kv_quant, table=table)
+    if pin is not None:       # the tape sees eager calls only: prefill too
+        cb._calls = _EagerCalls()
     fence(params["embed"])
     setup = time.perf_counter() - t0
     timers, undo = _instrument(cb)
@@ -1689,6 +1837,8 @@ def _paged_arm(cfg, params, prompts, new_tokens: int, *, label: str, mode,
         more = _requests(prompts, new_tokens)
         arm["profile"] = _profiled(label, lambda: cb.run(more),
                                    params["embed"])
+    if then is not None:
+        arm["graph_prefill"] = then(cb, arm)
     del cb, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1712,10 +1862,15 @@ def phase_full(cfg, params, tables: dict, prompt_len: int = 300,
         f"{new_tokens} new tokens each")
     hetero, fp_logits = {}, None
     for label, wq, kvq in FULL_PAIRS:
+        def check(cb, arm, label=label):   # phase_graph_prefill's cell
+            return _paged_prefill_check(cb, prompts, new_tokens,
+                                       arm["outputs"], f"paged {label}")
+
         arms = {mode: _paged_arm(cfg, params, prompts, new_tokens,
                                  label=label, mode=mode, weight_quant=wq,
                                  kv_quant=kvq,
-                                 profile=mode == "hetero-tensor")
+                                 profile=mode == "hetero-tensor",
+                                 then=check if mode else None)
                 for mode in ("hetero-tensor", None)}
         het, base = arms["hetero-tensor"], arms[None]
         het["measured"] = _paged_arm(
@@ -2934,6 +3089,7 @@ def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
 
     eng = InferenceEngine(cfg, params, mode="hetero-tensor",
                           prefill_strategy="hetero")
+    eng._calls = _EagerCalls()   # the model's own prefill, chunk by chunk
     launches = predict(eng._bucket_chunks(prompt.shape[1]))
 
     def run() -> dict:
@@ -2985,13 +3141,27 @@ def _kernel_gate(label, cfg, params, prompt, module, plain: dict, predict,
     return out
 
 
+def _host_start(flash):
+    """``flash``, a plain attention of a chunk over its cache prefix
+    (``attention_ref``'s signature), behind the wrapper's: a device start
+    is read on the host and the cache cut to ``[0, start + Sq)`` (the
+    gates' plain side runs eagerly)."""
+    def run(q, k, v, *, causal=True, start=None):
+        if start is None:
+            return flash(q, k, v, causal=causal)
+        end = int(start.reshape(())) + q.shape[1]
+        return flash(q, k[:, :end], v[:, :end], causal=True)
+    return run
+
+
 def attention_gate(cfg, params, prompt, plain=None, *, check: bool = True
                    ) -> dict:
     """``_kernel_gate`` of the attention kernels: ``models.layers``' two
     attention calls swapped for ``plain`` (flash, decode; the plain versions
     unless given). This runs the kernels on the path's own operands:
-    strided per-layer cache views, the model's head dim and the device
-    length ``index + 1``."""
+    strided per-layer cache views, the model's head dim, the chunk's
+    device start (flash's device-start entry over the whole cache layer)
+    and the device length ``index + 1``."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers
@@ -2999,7 +3169,7 @@ def attention_gate(cfg, params, prompt, plain=None, *, check: bool = True
     flash, decode = plain or (attention_ref, decode_attention_ref)
     return _kernel_gate(
         "attention-gate", cfg, params, prompt, layers,
-        {"flash_attention": flash, "decode_attention": decode},
+        {"flash_attention": _host_start(flash), "decode_attention": decode},
         lambda chunks: attention_launches(chunks, n_attention_layers(cfg), 2),
         check)
 
@@ -3066,14 +3236,16 @@ def _engine_arm(cfg, params, prompt, new_tokens: int, *, mode: str,
 
     eng = InferenceEngine(cfg, params, mode=mode, prefill_strategy="hetero",
                           fast_sync=fast, table=table)
-    prefill, first = eng._prefill, {}
+    chunk, first = eng.prefill_chunk, {}
 
-    def keep_logits(*a, **k):
-        logits, cache = prefill(*a, **k)
+    def keep_logits(*a):
+        logits = chunk(*a)
         first["logits"] = logits[0, -1].float()
-        return logits, cache
+        return logits
 
-    eng._prefill = keep_logits
+    eng.prefill_chunk = keep_logits
+    if pin is not None:       # the tape sees eager calls only: prefill too
+        eng._calls = _EagerCalls()
     first_tokens = eng.generate(prompt, new_tokens)[0].tolist()
     free_logits = first["logits"]
     warm = eng.stats
@@ -3263,6 +3435,326 @@ def phase_graph_decode(cfg, params, paged, engine) -> dict:
     return rows
 
 
+# ---------------------------------------- phase_graph_prefill (ROADMAP M2b) --
+
+def _same_state(a: dict, b: dict) -> bool:
+    """Whether two pools or caches hold bitwise the same tensors (a cache's
+    ``index`` aside)."""
+    import torch
+    return all(torch.equal(a[k], b[k]) for k in a if k != "index")
+
+
+class _CallCheck:
+    """Each call a batcher makes (``cb._call``: a prefill chunk, a verify
+    round) first runs the model's own entry point (the batcher's paged
+    prefill or verify) eagerly on a copy of the pool, on the same
+    tokens, block table and start (a prefill's as the int it was before
+    the calls), then the call on the pool: the logits and the pool after
+    must be bitwise equal. The null block is left out: inactive lanes and
+    the rows past a lane's budget write its slots together, in whichever
+    order the scatter takes, and only such rows read it, so a verify's
+    logits are compared on the rows whose position lies in a block of the
+    lane's own. ``rows`` keeps (kind, length, replayed, logits equal, pool
+    equal, argmax tokens equal) per call."""
+
+    def __init__(self, cb):
+        self.cb, self.inner, self.rows = cb, cb._call, []
+        cb._call = self._call
+
+    def _call(self, kind, length):
+        import torch
+        cb, call = self.cb, self.inner(kind, length)
+        fn = cb._prefill if kind == "prefill" else cb._verify
+
+        def run(tokens, table, start):
+            copy = {k: t.clone() for k, t in cb.kv.pool.items()}
+            dev = [t.to(cb.device) for t in (tokens, table, start)]
+            at = int(start) if kind == "prefill" else dev[2]
+            want = fn(cb.params, dev[0], copy, block_table=dev[1],
+                      start_index=at)[0]
+            replayed = call.graph is not None
+            got = call(tokens, table, start)
+            if kind == "verify":            # the rows in the lanes' blocks
+                pos = start[:, None] + torch.arange(tokens.shape[1])
+                own = table.gather(1, (pos // cb.block_size).clamp(
+                    max=table.shape[1] - 1)) != 0
+                own = own.to(cb.device)
+                got_rows, want_rows = got[own], want[own]
+            else:
+                got_rows, want_rows = got, want
+            self.rows.append((
+                kind, length, replayed,
+                bool(torch.equal(got_rows, want_rows)),
+                _same_state({k: t[:, 1:] for k, t in copy.items()},
+                            {k: t[:, 1:] for k, t in cb.kv.pool.items()}),
+                bool(torch.equal(got_rows.argmax(-1),
+                                 want_rows.argmax(-1)))))
+            return got
+        return run
+
+    def undo(self):
+        self.cb._call = self.inner
+
+    def summary(self, label: str) -> dict:
+        rows = self.rows
+        out = {"calls": len(rows), "replays": sum(r[2] for r in rows),
+               "logits_bitwise": sum(r[3] for r in rows),
+               "pool_bitwise": sum(r[4] for r in rows),
+               "tokens_equal": sum(r[5] for r in rows),
+               "order": [(r[0], r[1]) for r in rows]}
+        if not rows or not all(r[2] and r[3] and r[4] and r[5]
+                               for r in rows):
+            raise AssertionError(f"[graph-prefill] {label}: a call was no "
+                                 f"replay or differs from the eager entry "
+                                 f"point: {rows}")
+        return out
+
+
+def _order_differs(captured: list, replayed: list) -> list:
+    """Pairs of lengths replayed in the other order than captured."""
+    first = {c: i for i, c in reversed(list(enumerate(replayed)))}
+    return [(a, b) for i, a in enumerate(captured) for b in captured[i + 1:]
+            if a in first and b in first and first[b] < first[a]]
+
+
+def _paged_prefill_check(cb, prompts, new_tokens: int, outputs: list,
+                        label: str) -> dict:
+    """phase_graph_prefill's paged cell on a batcher whose runs over
+    ``prompts`` (timed tokens ``outputs``) captured its prefill calls: the
+    prompts again in reverse order, so the chunk lengths replay in another
+    order than their capture's (the shared pool), each call held bitwise
+    to the eager entry point on a copy of the pool (``_CallCheck``), the
+    tokens to ``outputs``; then prefill-only runs (one new token: no
+    decode) alternating captured, eager, eager, captured, first tokens
+    equal. Returns its record."""
+    from repro_torch.core.sync import fence
+
+    captured = [key[-1] for key in cb._calls if key[0] == "prefill"]
+    check = _CallCheck(cb)
+    reqs = _requests(prompts[::-1], new_tokens)
+    try:
+        cb.run(reqs)
+    finally:
+        check.undo()
+    rec = check.summary(label)
+    replayed = [n for kind, n in rec["order"] if kind == "prefill"]
+    swapped = _order_differs(captured, replayed)
+    tokens = [r.output for r in reqs][::-1]
+    if tokens != outputs or not swapped:
+        raise AssertionError(f"[graph-prefill] {label}: reversed prompts' "
+                             f"tokens equal {tokens == outputs}; capture "
+                             f"order {captured}, replay order {replayed}")
+    walls, firsts = {"captured": [], "eager": []}, set()
+    anchor = cb.kv.pool["k"]
+    for arm in ("captured", "eager", "eager", "captured"):
+        calls = cb._calls
+        if arm == "eager":
+            cb._calls = _EagerCalls()
+        reqs = _requests(prompts, 1)
+        fence(anchor)
+        t0 = time.perf_counter()
+        cb.run(reqs)
+        fence(anchor)
+        walls[arm].append(time.perf_counter() - t0)
+        cb._calls = calls
+        firsts.add(str([r.output for r in reqs]))
+    if firsts != {str([o[:1] for o in outputs])}:
+        raise AssertionError(f"[graph-prefill] {label}: first tokens of the "
+                             f"alternating runs {firsts}")
+    calls = _graph_info(cb)["calls"]
+    rec.update(capture_order=captured, replay_order=replayed,
+               swapped=swapped[:3], prefill_only_s=walls, graphs=calls)
+    log(f"[graph-prefill] {label}: {rec['calls']} calls replayed, logits "
+        f"and pool bitwise the eager entry point's, tokens equal; chunk "
+        f"lengths captured {captured}, replayed {replayed} (e.g. "
+        f"{swapped[:2]} swapped); graphs {calls['graphs']}, replays "
+        f"{calls['replays']}, pool {calls['pool_bytes'] / 2 ** 20:.1f} MB, "
+        f"capture {calls['capture_s']:.2f}s; prefill-only runs captured "
+        f"{[round(w, 4) for w in walls['captured']]} s, eager "
+        f"{[round(w, 4) for w in walls['eager']]} s")
+    return rec
+
+
+def _spec_prefill_check(cfg, params, prompts, new_tokens: int,
+                        device="cuda") -> dict:
+    """The spec arm (self-draft, k = 4, hetero-tensor, sync device) at full
+    width: a first run captures its prefill and verify calls, a second
+    holds every call bitwise to the eager entry point on a copy of the
+    pool (the verify's logits, its argmax tokens and the pool) and its
+    tokens to the first run's."""
+    from repro_torch.serving.spec import SpecConfig
+
+    cb, reqs = _serve(cfg, params, prompts, device=device,
+                      engine_mode="hetero-tensor", sync="device", window=8,
+                      decode_width=8, new_tokens=new_tokens,
+                      spec=SpecConfig(k=4))
+    cb.run(reqs)
+    first = [r.output for r in reqs]
+    check = _CallCheck(cb)
+    reqs = _requests(prompts, new_tokens)
+    try:
+        cb.run(reqs)
+    finally:
+        check.undo()
+    rec = check.summary("spec")
+    verify = [r for r in check.rows if r[0] == "verify"]
+    calls = _graph_info(cb)["calls"]
+    if [r.output for r in reqs] != first or not verify:
+        raise AssertionError(f"[graph-prefill] spec: tokens "
+                             f"{[r.output for r in reqs]} against the first "
+                             f"run's {first}, {len(verify)} verify calls")
+    rec.update(verify_calls=len(verify), graphs=calls, stats=cb.stats())
+    log(f"[graph-prefill] spec k=4 self-draft: {len(verify)} verify and "
+        f"{rec['calls'] - len(verify)} prefill replays, logits, argmax tokens "
+        f"and pool bitwise the eager entry point's, tokens equal to the "
+        f"first run's; graphs {calls['graphs']}, pool "
+        f"{calls['pool_bytes'] / 2 ** 20:.1f} MB, capture "
+        f"{calls['capture_s']:.2f}s; stats {cb.stats()}")
+    del cb
+    gc.collect()
+    return rec
+
+
+def _engine_prefill_check(cfg, params, runs, label: str,
+                          two_starts: bool = False, device="cuda") -> dict:
+    """phase_graph_prefill's engine cell: one engine (hetero-tensor, fast
+    sync, hetero strategy) over ``runs`` ((prompt, new tokens), sharing one
+    cache), first to capture, then in reverse order with each chunk held
+    bitwise to the model's own prefill on a copy of the cache (logits and
+    cache), then with eager calls (tokens equal), then timed alternating
+    captured, eager, eager, captured. ``n_compiles`` must be the distinct
+    chunk lengths plus the captured decode loops; with ``two_starts`` a
+    chunk length must replay at two starts."""
+    import torch
+    from repro_torch.core.engine import EngineStats, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, mode="hetero-tensor",
+                          prefill_strategy="hetero", fast_sync=True,
+                          device=device)
+    lengths = {c for p, _ in runs for c, _ in eng._bucket_chunks(p.shape[1])}
+    captured = [eng.generate(p, n)[0].tolist() for p, n in runs]
+    compiles, compile_s = eng.stats.n_compiles, eng.stats.compile_s
+    decode_graphs = eng.graph_stats()["graphs"]
+    if compiles != len(lengths) + decode_graphs:
+        raise AssertionError(f"[graph-prefill] {label}: n_compiles "
+                             f"{compiles}, chunk lengths {sorted(lengths)}, "
+                             f"decode graphs {decode_graphs}")
+    inner, rows = eng.prefill_chunk, []
+
+    def checked(cache, max_len, piece, start):
+        copy = {k: t.clone() for k, t in cache.items()}
+        want = eng._prefill(eng.params, piece, copy, start_index=start)[0]
+        key = eng.call_key(piece.shape[1], piece.shape[0], max_len,
+                           start == 0)
+        replayed = eng._calls[key].graph is not None
+        strict = eng.device.type == "cuda"    # no host sync in a replay
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = inner(cache, max_len, piece, start)
+        finally:
+            if strict:
+                torch.cuda.set_sync_debug_mode("default")
+        rows.append((piece.shape[1], start, replayed,
+                     bool(torch.equal(got, want)), _same_state(copy, cache)))
+        return got
+
+    eng.prefill_chunk = checked
+    try:
+        checked_tokens = [eng.generate(p, n)[0].tolist()
+                          for p, n in reversed(runs)][::-1]
+    finally:
+        eng.prefill_chunk = inner
+    calls, eager_tokens = eng._calls, []
+    eng._calls = _EagerCalls()
+    try:
+        eager_tokens = [eng.generate(p, n)[0].tolist() for p, n in runs]
+    finally:
+        eng._calls = calls
+    if not all(r[2] and r[3] and r[4] for r in rows) \
+            or not captured == checked_tokens == eager_tokens:
+        raise AssertionError(f"[graph-prefill] {label}: chunks (length, "
+                             f"start, replayed, logits, cache) {rows}; "
+                             f"tokens captured {captured}, checked "
+                             f"{checked_tokens}, eager {eager_tokens}")
+    starts = {}
+    for c, start, *_ in rows:
+        starts.setdefault(c, set()).add(start)
+    if two_starts and max(len(s) for s in starts.values()) < 2:
+        raise AssertionError(f"[graph-prefill] {label}: no chunk length "
+                             f"replayed at two starts: {starts}")
+    prefill_s, launches = {"captured": [], "eager": []}, None
+    for arm in ("captured", "eager", "eager", "captured"):
+        eng.stats = EngineStats()
+        if arm == "eager":
+            eng._calls = _EagerCalls()
+        _zero_counts()
+        try:
+            for p, n in runs:
+                eng.generate(p, n)
+        finally:
+            eng._calls = calls
+        prefill_s[arm].append(eng.stats.prefill_s)
+        launches = launches or _read_counts()    # the first captured pass
+    info = _graph_info(eng)["calls"]
+    rec = {"chunks": rows, "starts": {c: sorted(s) for c, s in
+                                      starts.items()},
+           "n_compiles": compiles, "chunk_lengths": sorted(lengths),
+           "decode_graphs": decode_graphs, "compile_s": compile_s,
+           "prefill_s": prefill_s, "graphs": info, "tokens": captured,
+           "launches": launches}
+    log(f"[graph-prefill] {label}: {len(rows)} chunks replayed (length: "
+        f"starts {rec['starts']}) with no host sync, logits and cache "
+        f"bitwise the model's own prefill, tokens equal to eager prefill's; "
+        f"n_compiles {compiles} = {len(lengths)} chunk lengths + "
+        f"{decode_graphs} decode graph(s) (first calls and captures "
+        f"{compile_s:.2f}s); graphs {info['graphs']}, replays "
+        f"{info['replays']}, pool {info['pool_bytes'] / 2 ** 20:.1f} MB, "
+        f"capture {info['capture_s']:.2f}s; prefill s captured "
+        f"{[round(t, 4) for t in prefill_s['captured']]}, eager "
+        f"{[round(t, 4) for t in prefill_s['eager']]}; launches a captured "
+        f"pass {launches}")
+    if device == "cuda" and not launches["flash_attention"]:
+        raise AssertionError(f"[graph-prefill] {label}: no flash launch")
+    del eng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_graph_prefill(cfg, params, paged=None, seed: int = 4) -> dict:
+    """M2b on the card at full width, bf16, seeded weights: the prefill and
+    verify dispatches as CUDA graphs, one per chunk length, each held to
+    the model's own entry point run eagerly on a copy of the pool or cache.
+    For llama3-8b: the paged cells' records that phase_full's V5E
+    hetero-tensor arms made with ``_paged_prefill_check`` (fp, int8 + int8
+    KV, W4A16: ``paged``), the spec arm (``_spec_prefill_check``) and the
+    engine on prompts 428 (one new token) and 300 (129), one cache, so the
+    44-token chunk's graph serves starts 384 and 256; for zamba2-2.7b
+    (``paged`` None) the engine on prompt 600 twice (chunks 512 and 88:
+    the SSD chunk kernel and the flash kernel's device-start entry
+    replayed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    if paged is not None:
+        for label, *_ in FULL_PAIRS:
+            out[f"paged {label}"] = paged[label]["graph_prefill"]
+        out["spec"] = _spec_prefill_check(
+            cfg, params, paged["fp"]["prompts"], 16)
+        p428, p300 = (rng.integers(0, cfg.vocab_size, (1, n))
+                      for n in (428, 300))
+        runs = [(p428, 1), (p300, 129)]
+    else:
+        p600 = rng.integers(0, cfg.vocab_size, (1, 600))
+        runs = [(p600, 16), (p600, 16)]
+    out[f"engine {cfg.name}"] = _engine_prefill_check(
+        cfg, params, runs, f"engine {cfg.name}", two_starts=paged is not None)
+    return out
+
+
 def full_width_model(arch: str, tag: str):
     """``arch`` at full width, bf16, seeded random weights on the card."""
     import torch
@@ -3327,11 +3819,10 @@ def _instrument(cb):
             return out
         return run
 
-    prefill, place = cb._prefill, cb._place
+    chunk, place = cb._prefill_chunk, cb._place
 
-    def keep_logits(*a, **k):
-        out = prefill(*a, **k)
-        last["logits"] = out[0]
+    def keep_logits(*a):
+        last["logits"] = out = chunk(*a)
         return out
 
     def place_and_record(req, seq, first):
@@ -3339,13 +3830,13 @@ def _instrument(cb):
         return place(req, seq, first)
 
     admit, window = cb._admit, cb._decode_window
-    cb._prefill = keep_logits
+    cb._prefill_chunk = keep_logits
     cb._place = place_and_record
     cb._admit = timed(admit, "prefill")
     cb._decode_window = timed(window, "decode")
 
     def undo():
-        cb._prefill, cb._place = prefill, place
+        cb._prefill_chunk, cb._place = chunk, place
         cb._admit, cb._decode_window = admit, window
 
     return timers, undo
@@ -3816,6 +4307,7 @@ def phase_two_streams(cfg, params, prompt_len: int = 300,
     for arm in ("two streams", "one stream"):
         with _one_stream() if arm == "one stream" else nullcontext():
             eng = _split_engine(cfg, params, None)
+            eng._calls = _EagerCalls()     # the eager prefill's overlap
             eng.plan = eng.ctx.plan = split_plan(
                 cfg, [c for c, _ in eng._bucket_chunks(prompt_len)])
             _zero_counts()
@@ -3910,19 +4402,20 @@ def _instrument_arms(cb):
             return out
         return run
 
-    prefill, place, finish = cb._prefill, cb._place, cb._finish_admission
+    chunk, place, finish = (cb._prefill_chunk, cb._place,
+                            cb._finish_admission)
 
-    def keep_logits(params, tokens, *a, **k):
+    def keep_logits(piece, *a):
         fence(anchor)
         t0 = time.perf_counter()
-        out = prefill(params, tokens, *a, **k)
+        out = chunk(piece, *a)
         fence(anchor)
         dt = time.perf_counter() - t0
         rec["prefill"] += dt
-        n_s = rec["prefill_by_len"].setdefault(int(tokens.shape[1]), [0, 0.0])
+        n_s = rec["prefill_by_len"].setdefault(int(piece.shape[1]), [0, 0.0])
         n_s[0] += 1
         n_s[1] += dt
-        last["logits"] = out[0]
+        last["logits"] = out
         return out
 
     def keep_chunk_logits(pre_logits):
@@ -3939,7 +4432,7 @@ def _instrument_arms(cb):
             return True
         return False
 
-    cb._prefill = keep_logits
+    cb._prefill_chunk = keep_logits
     cb._finish_admission = keep_chunk_logits
     cb._place = place_and_record
     cb._decode_window = timed(cb._decode_window, "decode", "mixed_launches",
@@ -6075,6 +6568,7 @@ def main() -> int:
     engine = timed(phase_engine_full, cfg, params,
                    tables[("llama3-8b", None)])
     graphs = timed(phase_graph_decode, cfg, params, full, engine)
+    prefill_graphs = timed(phase_graph_prefill, cfg, params, full)
     streams = timed(phase_two_streams, cfg, params)
     arms = timed(phase_serving_arms, cfg, params, full)
     front = timed(phase_front_end, cfg, params, full)
@@ -6089,6 +6583,7 @@ def main() -> int:
     hybrid = timed(phase_engine_hybrid, hcfg, hparams,
                    tables[("zamba2-2.7b", None)])
     graphs.update(timed(phase_graph_decode, hcfg, hparams, None, hybrid))
+    prefill_graphs.update(timed(phase_graph_prefill, hcfg, hparams))
     del hcfg, hparams                # the zamba2 weights leave the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -6242,6 +6737,11 @@ def main() -> int:
         kernels["kernels"][i]["dryrun_launches"] = {
             k: r["launches"][name] for k, r in dryrun.items()
             if r["launches"].get(name)}
+    kernels["kernels"][3]["device_start_rows"] = attn["device_start"]
+    # the device-start entry's launches in the captured engine passes
+    kernels["kernels"][3]["device_start_launches"] = {
+        cell: rec["launches"]["flash_attention"]
+        for cell, rec in prefill_graphs.items() if cell.startswith("engine")}
     kernels["kernels"][3]["encoder_row"] = {
         k: hubert_row[k] for k in ("shape", "causal", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -6265,6 +6765,13 @@ def main() -> int:
         + ", ".join(f"{k} {v['captured']['tok_per_s']:.2f} / "
                     f"{v['eager']['tok_per_s']:.2f}"
                     for k, v in graphs.items())
+        + "; captured / eager prefill s (alternating) "
+        + ", ".join(f"{k} {min(r['prefill_only_s']['captured']):.4f} / "
+                    f"{min(r['prefill_only_s']['eager']):.4f}"
+                    if "prefill_only_s" in r else
+                    f"{k} {min(r['prefill_s']['captured']):.4f} / "
+                    f"{min(r['prefill_s']['eager']):.4f}"
+                    for k, r in prefill_graphs.items() if k != "spec")
         + "; measured plan tok/s paged "
         + ", ".join(f"{k} {v['measured']['tok_per_s']:.2f}"
                     for k, v in full.items())

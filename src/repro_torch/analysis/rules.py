@@ -160,15 +160,16 @@ def check_determinism(mod: Module) -> list:
 # ================================================================= loops ====
 #
 # Shared by capture-hygiene and use-after-replay: which expressions of a
-# module are decode loops (``make_loop`` / ``CapturedLoop`` results, which
-# on the card replay one CUDA graph per call).
+# module are decode loops or captured calls (``make_loop`` / ``CapturedLoop``
+# / ``make_call`` results, which on the card replay one CUDA graph per
+# call).
 
 #: core/sync.py's loop constructors and factories (each returns make_loop's
 #: result); ``generate_host_loop`` only runs a loop
 LOOP_FACTORIES = ("make_loop", "CapturedLoop", "decode_loop",
                   "paged_window_loop", "paged_step_loop",
                   "paged_mixed_window_loop", "paged_mixed_step_loop",
-                  "slot_decode_loop")
+                  "slot_decode_loop", "make_call", "CapturedCall")
 #: core/sync.py's functions that call their first argument, a loop, and
 #: return its outputs as they are (the caller copies them)
 REPLAY_FORWARDERS = ("window_replay",)
@@ -477,7 +478,7 @@ def check_capture_hygiene(mod: Module) -> list:
                     findings.append(mod.finding(
                         "capture-hygiene", node,
                         f"{name} outside core/sync.py — capture through "
-                        f"core.sync.make_loop / CapturedLoop, which keep "
+                        f"core.sync.make_loop / make_call, which keep "
                         f"capture's rules (warm-up, private pool, no GC)"))
     lb = collect_loop_bindings(mod)
 
@@ -523,7 +524,7 @@ def check_capture_hygiene(mod: Module) -> list:
 _SYNC_ALLOWED = (SYNC_RELPATH, "chip_smoke.py", "scripts/")
 _NP_SINKS = {"numpy.asarray", "numpy.array", "numpy.asanyarray"}
 _PULL_METHODS = ("item", "cpu", "tolist", "numpy")
-_CAPTURE_MAKERS = ("make_loop", "CapturedLoop")
+_CAPTURE_MAKERS = ("make_loop", "CapturedLoop", "make_call", "CapturedCall")
 
 
 class _TaintChecker:

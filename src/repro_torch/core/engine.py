@@ -38,7 +38,8 @@ from .partition import HeteroCtx
 from .profiler import STANDARD_BUCKETS, LatencyTable, profile_analytic
 from .solver import PartitionPlan, PartitionSolver
 from .sync import (CapturedLoop, decode_loop, fence, generate_host_loop,
-                   generate_on_device, loop_stats)
+                   generate_on_device, graph_pool, loop_stats, make_call,
+                   stage)
 
 PREFILL_STRATEGIES = ("online-prepare", "padding", "pipe", "hetero")
 
@@ -139,7 +140,11 @@ class InferenceEngine:
     captured decode loop per cache and step count (``core/sync.py``): a
     graph bakes in the addresses of the weights and the cache, so both live
     on this instance and a later request of the same shape prefills into
-    the same cache and replays the same graph. Prefill is eager.
+    the same cache and replays the same graph. Each prefill chunk is one
+    captured call too (``core/sync.py::make_call``), one per chunk length
+    over that cache (and, for the recurrent families, whether the chunk
+    starts the prompt), its start a device scalar, so one graph serves a
+    chunk length at any start; the calls share one memory pool.
     ``stats.n_compiles`` counts what the reference's jit cache counts: the
     distinct chunk lengths seen, and each capture of a decode loop;
     ``stats.compile_s`` is the time of those first calls and captures
@@ -177,9 +182,13 @@ class InferenceEngine:
         self.ctx = HeteroCtx(mode=mode, plan=self.plan)
         self.stats = EngineStats()
         self._prefill = partial(self.model.prefill, hetero_ctx=self.ctx)
+        # a Mamba2 or RWKV chunk from position 0 starts from zero states
+        self._recurrent = cfg.ssm is not None or cfg.rwkv is not None
         self._seen_lengths: set[int] = set()
         self._caches: dict[tuple, dict] = {}      # (B, max_len, dtype)
         self._loops: dict[tuple, object] = {}     # loop_key -> decode loop
+        self._calls: dict[tuple, object] = {}     # call_key -> prefill call
+        self._pool = graph_pool(self.device)      # the prefill calls' pool
 
     def _bucket_chunks(self, S: int) -> list[tuple[int, int]]:
         """Split S into (chunk length, true tokens) pieces."""
@@ -209,8 +218,8 @@ class InferenceEngine:
         pad_headroom = (min(self.buckets) if self.prefill_strategy == "pipe"
                         else 0)
         n_steps = max_new_tokens - 1
-        cache, loop = self._decoder(B, S + max_new_tokens + pad_headroom,
-                                    n_steps)
+        max_len = S + max_new_tokens + pad_headroom
+        cache, loop = self._decoder(B, max_len, n_steps)
 
         t0 = self.clock.now()
         idx, logits = 0, None
@@ -223,8 +232,7 @@ class InferenceEngine:
                 self._seen_lengths.add(c)
                 self.stats.n_compiles += 1
             tc = self.clock.now()
-            logits, cache = self._prefill(self.params, piece, cache,
-                                          start_index=idx)
+            logits = self.prefill_chunk(cache, max_len, piece, idx)
             if new:                     # the first call of a chunk length
                 fence(logits)
                 self.stats.compile_s += self.clock.now() - tc
@@ -249,6 +257,35 @@ class InferenceEngine:
         self.stats.decode_s += self.clock.now() - t0
         self.stats.decode_tokens += B * max_new_tokens
         return out
+
+    def prefill_chunk(self, cache, max_len: int, piece,
+                      start: int) -> torch.Tensor:
+        """One prompt chunk ``piece`` ([B, C] on the engine's device) into
+        the (B, ``max_len``) ``cache`` at ``start``: the captured call of its
+        key (made at the key's first chunk) on the chunk and its start,
+        staged as a device scalar. Returns a copy of the last-token logits
+        [B, 1, V]."""
+        B, C = piece.shape
+        fresh = start == 0
+        key = self.call_key(C, B, max_len, fresh)
+        if key not in self._calls:
+            kw = {"fresh": fresh} if self._recurrent else {}
+
+            def body(tokens, at):
+                return self._prefill(self.params, tokens, cache,
+                                     start_index=at, **kw)[0]
+
+            self._calls[key] = make_call(body, self.device, pool=self._pool)
+        return self._calls[key](piece, *stage(start,
+                                              device=self.device)).clone()
+
+    def call_key(self, C: int, B: int, max_len: int, fresh: bool) -> tuple:
+        """The key of the captured prefill call of a ``C``-token chunk over
+        the (B, max_len) cache: all that its graph bakes in beyond this
+        instance's weights; for the recurrent families whether the chunk
+        starts the prompt (their states then start from zero)."""
+        key = ("prefill", C, B, max_len, dtype_of(self.cfg.compute_dtype))
+        return key + (fresh,) if self._recurrent else key
 
     def loop_key(self, B: int, max_len: int, n_steps: int) -> tuple:
         """The key of the decode loop over the (B, max_len) cache: all that
@@ -282,9 +319,11 @@ class InferenceEngine:
         return cache, self._loops[key]
 
     def graph_stats(self) -> dict:
-        """Decode graphs captured, their replays and pool bytes (none on the
-        CPU, where the loops run eagerly)."""
-        return loop_stats(self._loops.values())
+        """Decode graphs captured, their replays and pool bytes, and under
+        ``calls`` the same of the prefill graphs (pool bytes: their one
+        shared pool's); none on the CPU, where both run eagerly."""
+        return {**loop_stats(self._loops.values()),
+                "calls": loop_stats(self._calls.values())}
 
     def predicted_prefill_us(self, S: int) -> float:
         """Solver-predicted prefill matmul latency for length S over all

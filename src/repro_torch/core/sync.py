@@ -15,6 +15,13 @@ runs every launch of the loop, with no Python between them.
     also the body itself where the caller says the body cannot be captured
     (a tensor-parallel layout over gloo, whose collectives a graph cannot
     record).
+  * ``make_call`` / ``CapturedCall`` — a one-shot dispatch (a prefill
+    chunk, a verify round: the reference's other jitted calls, one graph
+    per chunk length) captured at its first call on that call's inputs,
+    whose warm-up is that first call, and replayed on every later one;
+    all of one owner's calls share one private memory pool
+    (``graph_pool``). On the CPU the body itself; eager on the card where
+    the caller's backend cannot be captured.
   * ``decode_loop`` — the single-request engine's loops over its dense
     cache. ``generate_on_device`` (fast sync) runs all ``n_steps`` greedy
     steps in one replay, the position and the tokens kept on the device;
@@ -51,7 +58,7 @@ from __future__ import annotations
 import gc
 import time
 from contextlib import contextmanager
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -127,13 +134,21 @@ class CapturedLoop:
     replays, and returns the static outputs, which the next replay
     overwrites. The wrappers count launches in Python, which a replay does
     not run: the launches the capture recorded are taken off the counters
-    (nothing ran) and added back on every replay (``launches``)."""
+    (nothing ran) and added back on every replay (``launches``).
 
-    def __init__(self, body, inputs, *, generator=None):
+    ``pool``: the private memory pool to capture into (a
+    ``torch.cuda.graph_pool_handle`` shared with other graphs), else the
+    graph's own; ``keep_warm``: keep the warm-up's outputs as
+    ``warm_outputs`` (a :class:`CapturedCall`'s first call)."""
+
+    def __init__(self, body, inputs, *, generator=None, pool=None,
+                 keep_warm: bool = False):
         self.inputs = tuple(t.clone() for t in inputs)
         self.replays = 0
+        self.pool = pool
         state = generator.get_state() if generator is not None else None
-        self._warm_up(body)
+        warm = self._warm_up(body)
+        self.warm_outputs = warm if keep_warm else None
         if state is not None:
             generator.set_state(state)
         before = launch_counts()
@@ -145,36 +160,59 @@ class CapturedLoop:
         for w, n in self.launches.items():
             w.launches -= n
 
-    def _warm_up(self, body) -> None:
+    def _warm_up(self, body):
+        """``body`` run once on the static inputs on the device's graph
+        stream; its outputs, marked as used on the current stream (the
+        caller's)."""
         device = self.inputs[0].device
         main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        side = graph_stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            body(*self.inputs)
+            out = body(*self.inputs)
         main.wait_stream(side)
+        for t in out if isinstance(out, tuple) else (out,):
+            t.record_stream(main)
+        return out
 
     def _record(self, body, generator):
-        """(static outputs, graph, pool bytes) of one capture of ``body``.
-        The garbage collector runs first and not during the capture: a
-        graph that it destroyed there (one dropped in a reference cycle)
-        would invalidate the capture."""
+        """(static outputs, graph, pool bytes) of one capture of ``body`` on
+        the device's graph stream, into ``self.pool`` where given, else a
+        pool of its own. One stream for every capture: a pool's free blocks
+        are kept by stream, so graphs that share a pool reuse each other's
+        temporaries only when captured on one stream. The garbage collector
+        does not run during the capture: a graph that it destroyed there
+        (one dropped in a reference cycle) would invalidate the capture. Nor
+        does it run before it, as
+        ``torch.cuda.graph`` may have it do: a full collection costs a
+        large process a tenth of a second or more, and every request shape
+        of an engine or a batcher captures its own calls; the allocator's
+        cache is emptied first, so the pool's bytes are what the capture
+        reserved."""
         device = self.inputs[0].device
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        gc.collect()
         fence(self.inputs[0])
         torch.cuda.empty_cache()          # what capture reserves shows alone
         reserved = torch.cuda.memory_reserved(device)
+        main = torch.cuda.current_stream(device)
+        stream = graph_stream(device)
+        stream.wait_stream(main)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
-                outputs = body(*self.inputs)
+            with torch.cuda.stream(stream):
+                graph.capture_begin(*(() if self.pool is None
+                                      else (self.pool,)))
+                try:
+                    outputs = body(*self.inputs)
+                finally:
+                    graph.capture_end()
         finally:
             if collecting:
                 gc.enable()
+        main.wait_stream(stream)
         return outputs, graph, torch.cuda.memory_reserved(device) - reserved
 
     def __call__(self, *inputs):
@@ -204,6 +242,70 @@ def _eager_on(body, device, *inputs):
     return body(*(t.to(device, non_blocking=True) for t in inputs))
 
 
+class CapturedCall(CapturedLoop):
+    """A one-shot dispatch (a prefill chunk, a verify round) as a CUDA
+    graph, captured at its first call on that call's inputs: the
+    :class:`CapturedLoop` set up then warms up on them, so its warm-up IS
+    the first call (its outputs are that call's, and the cache or pool it
+    writes ends as after one eager call: the capture runs nothing), and
+    every later call copies its inputs into the static buffers and replays.
+    The capture goes into ``pool``, the private memory pool that all of
+    one owner's calls share (``graph_pool``): a call's static outputs stay
+    referenced by its graph, its temporaries are reused by the others, so
+    a call's outputs hold only until the next call of ANY graph of the
+    pool; copy what must outlive it."""
+
+    def __init__(self, body, device, pool):
+        self.body, self.device, self.pool = body, device, pool
+        self.graph, self.replays, self.pool_bytes = None, 0, 0
+
+    def __call__(self, *inputs):
+        if self.graph is not None:
+            return super().__call__(*inputs)
+        super().__init__(self.body, tuple(t.to(self.device) for t in inputs),
+                         pool=self.pool, keep_warm=True)
+        out, self.warm_outputs = self.warm_outputs, None
+        return out
+
+
+def graph_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream on which every graph of CUDA ``device`` is warmed up and
+    captured: one per device, made at its first use."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _graph_stream(index)
+
+
+@lru_cache(maxsize=None)
+def _graph_stream(index: int) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device=index)
+
+
+def graph_pool(device):
+    """One private memory pool for an owner's captured calls on ``device``
+    (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.graph_pool_handle()
+
+
+def make_call(body, device, *, pool=None, capture: bool = True):
+    """``body``, a one-shot dispatch on staged inputs (tokens, a 0-dim
+    start or ``[B]`` starts, a block table: ``stage``'s host tensors), as
+    a :class:`CapturedCall` on the card, captured into ``pool`` at its
+    first call; on the CPU ``body`` itself, called eagerly with each
+    call's inputs; on the card with ``capture`` False (a layout whose
+    collectives a graph cannot record), ``body`` called eagerly on each
+    call's inputs copied to the card. The caller's backend decides
+    ``capture``: a capture that fails raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return body
+    if capture:
+        return CapturedCall(body, device, pool)
+    return partial(_eager_on, body, device)
+
+
 def stage(*arrays, device) -> list:
     """Host arrays as int64 tensors for a loop's inputs: page-locked when
     ``device`` is the card, so that copying them into a graph's buffers
@@ -215,8 +317,10 @@ def stage(*arrays, device) -> list:
 
 
 def loop_stats(loops) -> dict:
-    """Graphs captured among ``loops``, their replays and pool bytes."""
-    graphs = [lp for lp in loops if isinstance(lp, CapturedLoop)]
+    """Graphs captured among ``loops`` (decode loops, or captured calls:
+    then their shared pool's bytes), their replays and pool bytes."""
+    graphs = [lp for lp in loops
+              if isinstance(lp, CapturedLoop) and lp.graph is not None]
     return {"graphs": len(graphs),
             "replays": sum(lp.replays for lp in graphs),
             "pool_bytes": sum(lp.pool_bytes for lp in graphs)}

@@ -13,6 +13,14 @@
 // cache prefix [0, Sk). With Sq == Sk it is the Pallas kernel's mask.
 // Any D <= 128; the scale is 1 / sqrt(D) of the true D.
 //
+// The device-start entry: with `start` (an int32 on the card) the chunk's
+// queries sit at [*start, *start + Sq) of a cache of Sk rows, so k/v are
+// the whole cache layer and the kernel reads only [0, *start + Sq): every
+// bound that the host-start launch takes from Sk it takes from
+// kv_len = min(Sk, *start + Sq), so the output is bitwise that of the
+// host-start launch on the prefix k[:, :*start + Sq]. The grid does not
+// depend on the start, so one CUDA graph serves a chunk at any start.
+//
 // What bounds it on the H100. At the engine's prefill chunks (llama3-8b:
 // 256 queries over 256 keys, 44 over 300, 32 / 8 heads, D = 128; zamba2-2.7b:
 // 512 over 512, 88 over 600, 32 / 32 heads, D = 80; bf16) the function is
@@ -78,8 +86,9 @@ template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int Sq, int Sk, int Hkv, int G, int D,
-          Strides st, int causal, float scale) {
+          float* __restrict__ lse, const int* __restrict__ start, int Sq,
+          int Sk, int Hkv, int G, int D, Strides st, int causal,
+          float scale) {
   extern __shared__ float smem[];
   float* Qt = smem;
   float* Kt = Qt + DMAX * R;
@@ -90,7 +99,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = blockIdx.y * R;
   const int n_rows = Sq * G;
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int shift = Sk - Sq;   // bottom-right alignment of the causal mask
+  const int kv_len = start != nullptr ? min(Sk, *start + Sq) : Sk;
+  const int shift = kv_len - Sq;  // bottom-right alignment of the causal mask
   const float* qb = q + b * st.q_b;
   const float* kb = k + b * st.k_b + (long long)h * D;
   const float* vb = v + b * st.v_b + (long long)h * D;
@@ -110,10 +120,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = row0 + rg + 16 * i;
-    lim[i] = row >= n_rows ? -1 : (causal ? row / G + shift : Sk - 1);
+    lim[i] = row >= n_rows ? -1 : (causal ? row / G + shift : kv_len - 1);
   }
   const int last_row = min(row0 + R, n_rows) - 1;
-  const int kv_end = causal ? min(Sk, last_row / G + shift + 1) : Sk;
+  const int kv_end =
+      causal ? min(kv_len, last_row / G + shift + 1) : kv_len;
 
   float m[RI], l[RI], acc[RI][DMAX / 16];
 #pragma unroll
@@ -128,8 +139,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // the previous tile's reads are done (Qt staged)
     for (int idx = tid; idx < BK * DMAX; idx += THREADS) {
       const int c = idx / DMAX, d = idx % DMAX, key = k0 + c;
-      float kv = 0.f, vv = 0.f;   // zeros past Sk: 0 * garbage would be NaN
-      if (key < Sk && d < D) {
+      float kv = 0.f, vv = 0.f;   // zeros past kv_len: 0 * garbage is NaN
+      if (key < kv_len && d < D) {
         kv = kb[key * st.k_s + d];
         vv = vb[key * st.v_s + d];
       }
@@ -221,8 +232,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DMAX>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
-               const Strides& st, int causal, cudaStream_t s) {
+               float* lse, const int* start, int B, int Sq, int Sk, int Hkv,
+               int G, int D, const Strides& st, int causal, cudaStream_t s) {
   const size_t smem = smem_bytes<DMAX>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -230,8 +241,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * Hkv, (Sq * G + R - 1) / R);
   flash_fwd<DMAX><<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, Hkv,
-      G, D, st, causal, 1.0f / sqrtf((float)D));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, start, Sq,
+      Sk, Hkv, G, D, st, causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -285,8 +296,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-         int Sq, int Sk, int Hkv, int G, int D, Strides st, int causal,
-         float scale, int vec) {
+         const int* __restrict__ start, int Sq, int Sk, int Hkv, int G, int D,
+         Strides st, int causal, float scale, int vec) {
   constexpr int LDS = DP + 8;
   constexpr int KD = DP / 16;   // k-steps of Q K^T, pairs of P V n-tiles
   constexpr bool HALF = std::is_same<T, __half>::value;
@@ -299,14 +310,16 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = blockIdx.y * R;
   const int n_rows = Sq * G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int shift = Sk - Sq;   // bottom-right alignment of the causal mask
+  const int kv_len = start != nullptr ? min(Sk, *start + Sq) : Sk;
+  const int shift = kv_len - Sq;  // bottom-right alignment of the causal mask
   const float scale_log2 = scale * 1.4426950408889634f;
   const T* qb = q + b * st.q_b;
   const T* kb = k + b * st.k_b + (long long)h * D;
   const T* vb = v + b * st.v_b + (long long)h * D;
 
   const int last_row = min(row0 + R, n_rows) - 1;
-  const int kv_end = causal ? min(Sk, last_row / G + shift + 1) : Sk;
+  const int kv_end =
+      causal ? min(kv_len, last_row / G + shift + 1) : kv_len;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   stage_rows<T, DP>(Qs, D, vec, [&](int r) -> const T* {
@@ -316,10 +329,10 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
   });
   auto stage_kv = [&](int buf, int k0) {
     stage_rows<T, DP>(Ks + buf * BK * LDS, D, vec, [&](int r) -> const T* {
-      return k0 + r < Sk ? kb + (k0 + r) * st.k_s : nullptr;
+      return k0 + r < kv_len ? kb + (k0 + r) * st.k_s : nullptr;
     });
     stage_rows<T, DP>(Vs + buf * BK * LDS, D, vec, [&](int r) -> const T* {
-      return k0 + r < Sk ? vb + (k0 + r) * st.v_s : nullptr;
+      return k0 + r < kv_len ? vb + (k0 + r) * st.v_s : nullptr;
     });
   };
   if (n_tiles > 0) stage_kv(0, 0);
@@ -330,7 +343,7 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + warp * 16 + lane / 4 + 8 * i;
-    lim[i] = row >= n_rows ? -1 : (causal ? row / G + shift : Sk - 1);
+    lim[i] = row >= n_rows ? -1 : (causal ? row / G + shift : kv_len - 1);
   }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[DP / 8][4];
@@ -461,8 +474,9 @@ flash_tc(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
-              const Strides& st, int causal, int vec, cudaStream_t s) {
+              float* lse, const int* start, int B, int Sq, int Sk, int Hkv,
+              int G, int D, const Strides& st, int causal, int vec,
+              cudaStream_t s) {
   const size_t smem = tc_smem_bytes<DP>();
   static bool sized = false;   // the attribute once per instantiation
   cudaError_t e;
@@ -476,19 +490,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * Hkv, (Sq * G + R - 1) / R);
   flash_tc<T, DP><<<grid, TC_THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, Hkv, G, D,
-      st, causal, 1.0f / sqrtf((float)D), vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, start, Sq, Sk, Hkv,
+      G, D, st, causal, 1.0f / sqrtf((float)D), vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_tc(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
-                const Strides& st, int causal, int vec, cudaStream_t s) {
+                float* lse, const int* start, int B, int Sq, int Sk, int Hkv,
+                int G, int D, const Strides& st, int causal, int vec,
+                cudaStream_t s) {
 #define FLASH_TC_DP(dp)                                                     \
   case dp / 16:                                                             \
-    return launch_tc<T, dp>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st,      \
-                            causal, vec, s);
+    return launch_tc<T, dp>(q, k, v, o, lse, start, B, Sq, Sk, Hkv, G, D,   \
+                            st, causal, vec, s);
   switch ((D + 15) / 16) {
     FLASH_TC_DP(16) FLASH_TC_DP(32) FLASH_TC_DP(48) FLASH_TC_DP(64)
     FLASH_TC_DP(80) FLASH_TC_DP(96) FLASH_TC_DP(112) FLASH_TC_DP(128)
@@ -498,11 +513,11 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 int dispatch_fma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int Sq, int Sk, int Hkv, int G, int D,
-                 const Strides& st, int causal, cudaStream_t s) {
-  if (D <= 32) return launch_fma<32>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
-  if (D <= 64) return launch_fma<64>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
-  return launch_fma<128>(q, k, v, o, lse, B, Sq, Sk, Hkv, G, D, st, causal, s);
+                 float* lse, const int* start, int B, int Sq, int Sk, int Hkv,
+                 int G, int D, const Strides& st, int causal, cudaStream_t s) {
+  if (D <= 32) return launch_fma<32>(q, k, v, o, lse, start, B, Sq, Sk, Hkv, G, D, st, causal, s);
+  if (D <= 64) return launch_fma<64>(q, k, v, o, lse, start, B, Sq, Sk, Hkv, G, D, st, causal, s);
+  return launch_fma<128>(q, k, v, o, lse, start, B, Sq, Sk, Hkv, G, D, st, causal, s);
 }
 
 }  // namespace
@@ -514,9 +529,13 @@ int dispatch_fma(const void* q, const void* k, const void* v, void* o,
 // 1 bf16, 2 fp16. lse: null, or fp32 [B, Hkv*G, Sq] that receives each
 // row's natural log-sum-exp of the scaled scores (+inf for a row that sees
 // no key), which the backward (flash_attention_bwd.cu) recomputes P from.
+// start: null (the host start Sk - Sq), or an int32 on the card, the
+// chunk's first position in a causal attention over the whole cache (the
+// device-start entry; the caller keeps 0 <= *start <= Sk - Sq).
 // Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int B, int Sq, int Sk,
+                                   void* o, void* lse, const void* start,
+                                   int B, int Sq, int Sk,
                                    int Hkv, int G, int D, long long q_bs,
                                    long long q_ss,
                                    long long k_bs, long long k_ss,
@@ -524,11 +543,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    long long o_bs, long long o_ss, int causal,
                                    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || G <= 0 || D <= 0 ||
-      D > 128 || (causal && Sq > Sk) || (long long)Sq * G > 65535LL * R)
+      D > 128 || (causal && Sq > Sk) || (long long)Sq * G > 65535LL * R ||
+      (start != nullptr && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides st{q_bs, q_ss, k_bs, k_ss, v_bs, v_ss, o_bs, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* L = static_cast<float*>(lse);
+  const int* at = static_cast<const int*>(start);
   // 16-byte copies where every row of q, k and v starts 16-byte aligned
   const bool vec = D % 8 == 0 && q_bs % 8 == 0 && q_ss % 8 == 0 &&
                    k_bs % 8 == 0 && k_ss % 8 == 0 && v_bs % 8 == 0 &&
@@ -536,9 +557,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   switch (dtype) {
-    case 0: return dispatch_fma(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, s);
-    case 1: return dispatch_tc<__nv_bfloat16>(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
-    case 2: return dispatch_tc<__half>(q, k, v, o, L, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
+    case 0: return dispatch_fma(q, k, v, o, L, at, B, Sq, Sk, Hkv, G, D, st, causal, s);
+    case 1: return dispatch_tc<__nv_bfloat16>(q, k, v, o, L, at, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
+    case 2: return dispatch_tc<__half>(q, k, v, o, L, at, B, Sq, Sk, Hkv, G, D, st, causal, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

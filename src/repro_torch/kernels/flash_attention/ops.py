@@ -4,7 +4,18 @@
 ``repro.kernels.flash_attention.ops.flash_attention``: GQA attention of q
 ``[B,Sq,Hq,D]`` over k/v ``[B,Sk,Hkv,D]``, causal (aligned bottom-right,
 so a chunk at cache position ``Sk - Sq`` sees its prefix) or not. The
-kernel takes any D <= 128 as it is, so nothing is padded here. bf16 / fp16
+kernel takes any D <= 128 as it is, so nothing is padded here.
+
+The device-start entry, ``flash_attention(q, k, v, start=)``: ``start``
+is a one-element int tensor on q's device, the chunk's first position,
+and k/v are the whole cache layer ``[B, Smax, Hkv, D]``; query ``i``
+sees keys ``j <= start + i`` and no key past ``start + Sq`` is read. The
+launch does not depend on the start's value, which never comes to the
+host, so one CUDA graph serves a chunk at any start; its output is
+bitwise the host-start launch's on ``k[:, :start + Sq]``. Its operator is
+``repro_torch::flash_attention_at``, its plain version
+``ref.attention_at_ref`` (the causal mask over the whole cache from the
+start), and it counts in ``flash_attention.launches``. bf16 / fp16
 run on the tensor cores and round the probabilities to the input type
 before the P V product (``ref.attention_rounded_p_ref``); fp32 stays true
 fp32. Each wrapper calls its ``repro_torch`` operator
@@ -32,7 +43,7 @@ import torch
 from .. import work
 from ..build import counted, entry
 from ..library import kernel_op, routed
-from .ref import attention_bwd_ref, attention_ref, lse_ref
+from .ref import attention_at_ref, attention_bwd_ref, attention_ref, lse_ref
 
 MAX_D = 128                    # both attention kernels' largest head dim
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -69,10 +80,10 @@ def head_strides(t: torch.Tensor) -> tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
-def _launch(q, k, v, causal: bool, lse: torch.Tensor | None = None
-            ) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, lse: torch.Tensor | None = None,
+            start: torch.Tensor | None = None) -> torch.Tensor:
     launch = entry("flash_attention", "flash_attention_fwd",
-                   *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 6,
+                   *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6,
                    *[ctypes.c_longlong] * 8, *[ctypes.c_int] * 2)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -81,7 +92,8 @@ def _launch(q, k, v, causal: bool, lse: torch.Tensor | None = None
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, o) for s in head_strides(t)]
     launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           None if lse is None else lse.data_ptr(), B, Sq, Sk, Hkv,
+           None if lse is None else lse.data_ptr(),
+           None if start is None else start.data_ptr(), B, Sq, Sk, Hkv,
            Hq // Hkv, D, *strides, int(causal), DTYPE_CODE[q.dtype])
     flash_attention.launches += 1
     return o
@@ -125,6 +137,21 @@ _flash_fwd = kernel_op(
     cpu=_cpu_fwd, cuda=_cuda_fwd, fake=_fake_fwd, work=_fwd_work)
 
 
+def _at_work(q, k, v, start) -> tuple[int, int]:
+    """At the start's upper bound (``work.flash_at``): a trace cannot read
+    it."""
+    B, Sq, Hq, D = q.shape
+    return work.flash_at(B, Sq, k.shape[1], Hq, k.shape[2], D,
+                         q.element_size())
+
+
+_flash_at = kernel_op(
+    "flash_attention_at(Tensor q, Tensor k, Tensor v, Tensor start) -> Tensor",
+    cpu=lambda q, k, v, start: attention_at_ref(q, k, v, start),
+    cuda=lambda q, k, v, start: _launch(q, k, v, True, start=start),
+    fake=lambda q, k, v, start: q.new_empty(q.shape), work=_at_work)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward with its log-sum-exp, and the backward."""
 
@@ -144,11 +171,20 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """GQA attention, output in ``q.dtype``; fp32 softmax statistics."""
+                    causal: bool = True,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention, output in ``q.dtype``; fp32 softmax statistics.
+    With ``start`` (causal only, no gradient) the device-start entry over
+    the whole cache ``k``/``v``."""
     _check(q, k, v, causal)
     if not routed(q):
         raise ValueError(f"unsupported device {q.device}")
+    if start is not None:
+        if not causal or start.numel() != 1 or start.device != q.device:
+            raise ValueError("a device start takes causal attention and one "
+                             f"start on {q.device}; got causal={causal}, "
+                             f"{start.numel()} on {start.device}")
+        return _flash_at(q, k, v, start.reshape(()).to(torch.int32))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal)

@@ -1,15 +1,18 @@
 """Plain PyTorch versions of the flash-attention kernel (its oracles): dense
 GQA attention in fp32, the reference's ``attention_ref``, and the same with
-the tensor-core kernel's rounding of the probabilities; the rows'
-log-sum-exp that the forward writes for the backward, and the backward
-itself step by step (``attention_bwd_ref``)."""
+the tensor-core kernel's rounding of the probabilities; the device-start
+entry's ``attention_at_ref`` (a chunk at a start tensor over the whole
+cache); the rows' log-sum-exp that the forward writes for the backward,
+and the backward itself step by step (``attention_bwd_ref``)."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+BK = 256           # keys a tile of the plain versions' sums
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:
@@ -18,9 +21,11 @@ def _acc(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, causal: bool) -> torch.Tensor:
+def _scores(q, k, causal: bool, shift=None) -> torch.Tensor:
     """fp32 (fp64 for fp64 operands) scores ``[B, Sq, Hkv, G, Sk]`` scaled
-    by 1/sqrt(D), the causal future (aligned bottom-right) at NEG_INF."""
+    by 1/sqrt(D), the causal future at NEG_INF: key ``j`` is visible to
+    query ``i`` when ``j <= i + shift``, ``shift`` an int or a 0-dim
+    tensor (None: ``Sk - Sq``, aligned bottom-right)."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     acc = _acc(q)
@@ -29,9 +34,32 @@ def _scores(q, k, causal: bool) -> torch.Tensor:
     if causal:
         kpos = torch.arange(Sk, device=q.device)
         qpos = torch.arange(Sq, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None] + (Sk - Sq)
+        mask = kpos[None, :] <= qpos[:, None] + (Sk - Sq if shift is None
+                                                 else shift)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     return s
+
+
+def _attend(q, s, v) -> torch.Tensor:
+    """softmax(s) v over masked scores ``s`` ``[B, Sq, Hkv, G, Sk]``, summed
+    over tiles of ``BK`` keys, as a kernel sweeps them: the row max, then
+    each tile's exp(s - max) sum and P V product in order, a last short
+    tile padded with zero probabilities. Every sum runs over a whole tile
+    and masked keys add exact zeros, so the output is the same bitwise
+    whatever number of masked keys (or zero tiles) follows the visible
+    ones."""
+    Sk = s.shape[-1]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    v = v.to(p.dtype)
+    l = o = 0.0
+    for t in range(0, Sk, BK):
+        pt, vt = p[..., t:t + BK], v[:, t:t + BK]
+        if pt.shape[-1] < BK:
+            pad = BK - pt.shape[-1]
+            pt, vt = F.pad(pt, (0, pad)), F.pad(vt, (0, 0, 0, 0, 0, pad))
+        l = l + pt.sum(dim=-1, keepdim=True)
+        o = o + torch.einsum("bqhgk,bkhd->bqhgd", pt, vt)
+    return (o / l).reshape(q.shape).to(q.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,9 +67,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B,Sq,Hq,D]``, k/v ``[B,Sk,Hkv,D]`` -> ``[B,Sq,Hq,D]``. The
     causal mask is aligned bottom-right: key ``j`` is visible to query
     ``i`` when ``j <= i + (Sk - Sq)``."""
-    p = torch.softmax(_scores(q, k, causal), dim=-1)
-    o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
-    return o.reshape(q.shape).to(q.dtype)
+    return _attend(q, _scores(q, k, causal), v)
+
+
+def attention_at_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     start: torch.Tensor) -> torch.Tensor:
+    """The device-start entry's plain version: a chunk q ``[B,Sq,Hq,D]``
+    at positions ``[start, start + Sq)`` attending causally over the whole
+    cache k/v ``[B,Smax,Hkv,D]`` (key ``j`` visible to query ``i`` when
+    ``j <= start + i``); ``start`` a one-element tensor, never read on the
+    host. The keys past the chunk are masked, not sliced off: their
+    probabilities are exact zeros and ``_attend``'s sums do not depend on
+    how many there are, so the output is bitwise ``attention_ref`` on
+    ``k[:, :start + Sq]``."""
+    return _attend(q, _scores(q, k, True, start.reshape(())), v)
 
 
 def attention_rounded_p_ref(q: torch.Tensor, k: torch.Tensor,

@@ -62,6 +62,18 @@ def flash(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, el: int,
     return flops, nbytes + (4 * B * Hq * Sq if lse else 0)
 
 
+def flash_at(B: int, Sq: int, Smax: int, Hq: int, Hkv: int, D: int, el: int,
+             start: int | None = None) -> tuple[int, int]:
+    """The device-start entry: a causal chunk of ``Sq`` queries at
+    ``start`` over a cache of ``Smax`` rows, which reads keys
+    ``[0, start + Sq)`` only. The start lives on the card, where a trace
+    cannot read it: without one it is counted at its upper bound, the
+    chunk at the cache's end (``start = Smax - Sq``, every row read); a
+    timed call passes its own."""
+    start = Smax - Sq if start is None else start
+    return flash(B, Sq, start + Sq, Hq, Hkv, D, el, True)
+
+
 def flash_bwd(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, el: int,
               causal: bool) -> tuple[int, int]:
     """The backward: five products over the visible pairs; q, k, v, o, dO

@@ -236,12 +236,16 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
     cache: {"k","v": [B, Smax, Hkv, D]}; new K/V are written at
     ``cache_index`` IN PLACE (the reference's functional
     ``dynamic_update_slice``). ``cache_index`` is an int (a prompt chunk's
-    start) or a one-element device tensor (the decode position, never read
-    on the host: the write is an ``index_copy_`` at that position). One
-    token (decode, or the pipe strategy's last 1-token chunk) attends over
-    the whole cache masked at ``cache_index + 1`` with the decode kernel; a
-    chunk of S > 1 tokens at an int start attends over the prefix
-    ``[0, start + S)`` with the causal flash kernel, aligned bottom-right.
+    start) or a one-element device tensor (the decode position, or a
+    captured prefill chunk's start; never read on the host: the write is an
+    ``index_copy_`` at ``cache_index + arange(S)``). One token (decode, or
+    the pipe strategy's last 1-token chunk) attends over the whole cache
+    masked at ``cache_index + 1`` with the decode kernel; a chunk of S > 1
+    tokens at an int start attends over the prefix ``[0, start + S)`` with
+    the causal flash kernel, aligned bottom-right, and at a device start
+    over the whole cache layer through the flash kernel's device-start
+    entry (row ``i`` sees keys ``j <= start + i``), whose launch does not
+    depend on the start.
 
     Under ``distributed.sharding.split_kv_enabled`` a one-token step
     takes the split-KV path instead (``distributed/split_kv.py``): the
@@ -267,11 +271,11 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
         o = _seq_sharded_prefill(q, k, v, ck, cv, cache_index, plan)
         return _out_proj(o.reshape(B, S, cfg.n_heads * hd), p, mm,
                          tp_group), cache
-    if isinstance(cache_index, torch.Tensor):
-        if S != 1:
-            raise ValueError("a device cache index takes one token, got "
-                             f"{S}")
+    device_start = isinstance(cache_index, torch.Tensor)
+    if device_start:
         at = cache_index.reshape(1).long()
+        if S > 1:
+            at = at + torch.arange(S, dtype=torch.long, device=at.device)
         ck.index_copy_(1, at, k.to(ck.dtype))
         cv.index_copy_(1, at, v.to(cv.dtype))
     else:
@@ -284,6 +288,9 @@ def attention(p: dict, x, cfg, *, positions, cache: dict | None,
     if S == 1:
         o = decode_attention(q[:, 0], ck.to(q.dtype), cv.to(q.dtype),
                              cache_index + 1)[:, None]
+    elif device_start:
+        o = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype),
+                            start=cache_index)
     else:
         end = cache_index + S
         o = flash_attention(q, ck[:, :end].to(q.dtype),

@@ -33,7 +33,8 @@ from ..distributed.sharding import (gather_layer, hidden_constraint,
 from ..kernels.ssm_scan.ops import chunk_inputs, scan_chunks
 from .layers import (attention, chunked_ce_loss, init_attention, init_swiglu,
                      normal_stack, remat, rms_norm, rope_table, swiglu)
-from .transformer import layer_params, unstack_layers
+from .transformer import (chunk_end, chunk_positions, layer_params,
+                          starts_prompt, unstack_layers)
 
 
 # ------------------------------------------------------------- mamba2 block --
@@ -255,14 +256,13 @@ def _shared_block(sp, x, cfg, *, positions, kv, cache_index, freqs,
 
 
 def _run(params, x, cfg, *, positions, cache, cache_index, decode=False,
-         hetero_ctx=None):
+         fresh=False, hetero_ctx=None):
     """Period structure: ``attn_every`` mamba layers then the shared block,
-    over the cache, which is updated in place. A prefill from position 0
-    starts from zero conv and SSM states, whatever the cache held (the
-    state of a fresh cache, so a reused cache carries nothing of an earlier
-    request)."""
+    over the cache, which is updated in place. A ``fresh`` prefill (from
+    position 0) starts from zero conv and SSM states, whatever the cache
+    held (the state of a fresh cache, so a reused cache carries nothing of
+    an earlier request)."""
     ae = cfg.ssm.attn_every
-    fresh = not decode and isinstance(cache_index, int) and cache_index == 0
     freqs = rope_table(cfg, x.device)
     for i in range(_n_attn(cfg)):
         for j in range(ae):
@@ -321,24 +321,25 @@ def loss_fn(params, inputs, targets, cfg):
                                              device=x.device)}
 
 
-def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
+def prefill(params, tokens, cache, cfg, *, start_index=0, fresh=None,
             hetero_ctx=None):
-    """Process a prompt chunk at ``start_index`` (a host int): conv and SSM
-    states and the shared block's cache are updated in place. Returns
-    (last-token logits ``[B, 1, V]``, cache with ``index = start + S``).
-    The LM head is a plain matmul, as in the reference."""
+    """Process a prompt chunk at ``start_index`` (a host int, or a 0-dim
+    device tensor: a captured prefill): conv and SSM states and the shared
+    block's cache are updated in place. ``fresh`` (the chunk starts the
+    prompt, so the states start from zero) is ``start_index == 0`` for an
+    int and must be given with a tensor, which is never read on the host.
+    Returns (last-token logits ``[B, 1, V]``, cache with ``index = start +
+    S``). The LM head is a plain matmul, as in the reference."""
     S = tokens.shape[1]
+    fresh = starts_prompt(start_index, fresh)
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(start_index, start_index + S, dtype=torch.long,
-                             device=x.device)
+    positions = chunk_positions(start_index, S, x.device)
     x = _run(params, hidden_enter(x), cfg, positions=positions, cache=cache,
-             cache_index=start_index, hetero_ctx=hetero_ctx)
+             cache_index=start_index, fresh=fresh, hetero_ctx=hetero_ctx)
     x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     logits = logits_constraint(matmul_any(x[:, -1:, :],
                                           params["head"]).float())
-    index = torch.full((), start_index + S, dtype=torch.int32,
-                       device=x.device)
-    return logits, {**cache, "index": index}
+    return logits, {**cache, "index": chunk_end(start_index, S, x.device)}
 
 
 def decode_step(params, token, cache, cfg, *, hetero_ctx=None):

@@ -35,7 +35,8 @@ from ..distributed.sharding import (gather_layer, hidden_constraint,
                                     hidden_enter, hidden_gather,
                                     logits_constraint, tp_gather, tp_slice)
 from .layers import chunked_ce_loss, normal_stack, remat, rms_norm
-from .transformer import layer_params, unstack_layers
+from .transformer import (chunk_end, layer_params, starts_prompt,
+                          unstack_layers)
 
 
 def _heads(cfg):
@@ -282,18 +283,20 @@ def loss_fn(params, inputs, targets, cfg):
                                              device=x.device)}
 
 
-def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
+def prefill(params, tokens, cache, cfg, *, start_index=0, fresh=None,
             hetero_ctx=None):
-    """Process a prompt chunk (``start_index`` a host int): the states are
-    updated in place, from zero at ``start_index == 0``. Returns
-    (last-token logits ``[B, 1, V]``, cache with ``index = start + S``)."""
+    """Process a prompt chunk (``start_index`` a host int, or a 0-dim
+    device tensor with ``fresh`` given, as ``mamba2.prefill``): the states
+    are updated in place, from zero when the chunk starts the prompt.
+    Returns (last-token logits ``[B, 1, V]``, cache with ``index = start +
+    S``)."""
     x = hidden_enter(_embed(params, tokens, cfg))
-    x = _run(params, x, cfg, cache=cache, fresh=start_index == 0)
+    x = _run(params, x, cfg, cache=cache,
+             fresh=starts_prompt(start_index, fresh))
     x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     logits = logits_constraint((x[:, -1:, :] @ params["head"]).float())
-    index = torch.full((), start_index + tokens.shape[1], dtype=torch.int32,
-                       device=x.device)
-    return logits, {**cache, "index": index}
+    return logits, {**cache, "index": chunk_end(start_index, tokens.shape[1],
+                                                 x.device)}
 
 
 def decode_step(params, token, cache, cfg, *, hetero_ctx=None):

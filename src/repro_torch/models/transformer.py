@@ -231,24 +231,23 @@ def _run_layers_dense(params, x, cfg, *, cache, hetero_ctx=None,
     return x
 
 
-def prefill(params, tokens, cache, cfg, *, start_index: int = 0,
-            hetero_ctx=None):
+def prefill(params, tokens, cache, cfg, *, start_index=0, hetero_ctx=None):
     """Process a prompt (or a prompt chunk, for chunked prefill): write the
     cache at ``[start_index, start_index + S)`` in place and return
     (last-token logits ``[B, 1, V]``, cache with ``index = start + S``).
-    ``start_index`` is a host int."""
+    ``start_index`` is a host int or a 0-dim device tensor (a captured
+    prefill: the positions, the writes and the attention's mask come from
+    it on the device, ``layers.attention``)."""
     S = tokens.shape[1]
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(start_index, start_index + S, dtype=torch.long,
-                             device=x.device)
+    positions = chunk_positions(start_index, S, x.device)
     x = _run_layers_dense(params, hidden_enter(x), cfg, cache=cache,
                           hetero_ctx=hetero_ctx, positions=positions,
                           cache_index=start_index)
     x = rms_norm(hidden_gather(x), params["final_norm"], cfg.norm_eps)
     logits = _head_logits(params, x[:, -1:, :], cfg, hetero_ctx)
-    index = torch.full((), start_index + S, dtype=torch.int32,
-                       device=x.device)
-    return logits, {"k": cache["k"], "v": cache["v"], "index": index}
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "index": chunk_end(start_index, S, x.device)}
 
 
 def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
@@ -331,7 +330,7 @@ def _run_layers_paged(params, x, cfg, *, positions, pool, block_table,
     return x, pool
 
 
-def _positions(start_index, S: int, device) -> torch.Tensor:
+def chunk_positions(start_index, S: int, device) -> torch.Tensor:
     """Absolute positions of ``S`` tokens from ``start_index``: a host int
     or 0-dim tensor (a uniform batch) -> [S]; a [B] tensor of per-lane
     starts -> [B, S]."""
@@ -343,6 +342,31 @@ def _positions(start_index, S: int, device) -> torch.Tensor:
     return start[:, None] + steps[None, :] if start.ndim == 1 else start + steps
 
 
+def chunk_end(start_index, S: int, device) -> torch.Tensor:
+    """A dense cache's ``index`` after a chunk of ``S`` tokens at
+    ``start_index`` (a host int or a 0-dim device tensor, which stays on
+    the device): ``start + S``, an int32 scalar."""
+    if isinstance(start_index, int):
+        return torch.full((), start_index + S, dtype=torch.int32,
+                          device=device)
+    return (start_index + S).to(torch.int32)
+
+
+def starts_prompt(start_index, fresh) -> bool:
+    """Whether a recurrent family's prefill chunk at ``start_index`` starts
+    the prompt (its states start from zero): an int start says so itself,
+    a device start's caller must (``fresh``), as nothing reads the start on
+    the host."""
+    if isinstance(start_index, int):
+        if fresh is not None and fresh != (start_index == 0):
+            raise ValueError(f"fresh={fresh} at start {start_index}")
+        return start_index == 0
+    if fresh is None:
+        raise ValueError("a device start_index needs fresh= (whether the "
+                         "chunk starts the prompt)")
+    return fresh
+
+
 def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
                   hetero_ctx=None, tp_group=None):
     """Prefill a prompt chunk into the request's pages. tokens: [B, S];
@@ -350,7 +374,7 @@ def paged_prefill(params, tokens, pool, cfg, *, block_table, start_index=0,
     [B] tensor of per-lane starts. Returns (last-token logits [B, 1, V],
     pool)."""
     x = _embed(params, tokens, cfg)
-    positions = _positions(start_index, tokens.shape[1], x.device)
+    positions = chunk_positions(start_index, tokens.shape[1], x.device)
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_table,
                                 hetero_ctx=hetero_ctx, tp_group=tp_group)
@@ -371,7 +395,7 @@ def paged_verify(params, tokens, pool, cfg, *, block_table, start_index,
     matmuls through the solver's VERIFY decisions. Returns (logits, pool).
     """
     x = _embed(params, tokens, cfg)
-    positions = _positions(start_index, tokens.shape[1], x.device)
+    positions = chunk_positions(start_index, tokens.shape[1], x.device)
     x, pool = _run_layers_paged(params, x, cfg, positions=positions,
                                 pool=pool, block_table=block_table,
                                 hetero_ctx=hetero_ctx, tp_group=tp_group)
@@ -395,7 +419,8 @@ def mixed_step(params, decode_tokens, prefill_tokens, pool, cfg, *,
     xd = _embed(params, decode_tokens, cfg)
     xp = _embed(params, prefill_tokens, cfg)
     dec_pos = decode_lengths[:, None].long()
-    pre_pos = _positions(prefill_start, prefill_tokens.shape[1], xp.device)
+    pre_pos = chunk_positions(prefill_start, prefill_tokens.shape[1],
+                              xp.device)
     freqs = rope_table(cfg, xd.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)

@@ -68,10 +68,10 @@ import numpy as np
 import torch
 
 from ..configs import dtype_of
-from ..core.sync import (loop_stats, paged_mixed_step_loop,
-                         paged_mixed_window_loop, paged_step_loop,
-                         paged_window_loop, stage, traced_dispatch,
-                         window_replay)
+from ..core.sync import (graph_pool, loop_stats, make_call,
+                         paged_mixed_step_loop, paged_mixed_window_loop,
+                         paged_step_loop, paged_window_loop, stage,
+                         traced_dispatch, window_replay)
 from ..device import resolve_device
 from ..models import build_model
 from ..models.quant import WEIGHT_FORMATS, quantize_params
@@ -338,8 +338,15 @@ class PagedBatcher:
     rank of the group builds this batcher on the same full ``params`` and
     keeps its column slices; the draft lanes keep the full params (they
     run replicated, with no collective). Excludes ``engine_mode``. Under
-    NCCL the decode loops are CUDA graphs with the collectives inside;
-    under gloo they run eagerly (``stats()["captured"]``).
+    NCCL the decode loops, prefill chunks and verify rounds are CUDA graphs
+    with the collectives inside; under gloo they run eagerly
+    (``stats()["captured"]``).
+
+    On the card a standalone prefill chunk is one captured call per chunk
+    length and a spec round's verify one for the round's (W, K + 1)
+    (``core/sync.py::make_call``; their starts, tables and tokens staged
+    as the loops' inputs), all sharing one memory pool: one replay is one
+    dispatch of ``stats()``.
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
@@ -476,6 +483,9 @@ class PagedBatcher:
         self._prefill = partial(self.steps.paged_prefill, hetero_ctx=self.ctx)
         self._mixed_step = partial(self.steps.mixed_step, hetero_ctx=self.ctx)
         self._loops: dict[tuple, object] = {}      # loop_key -> decode loop
+        # loop_key -> captured prefill or verify call, in one shared pool
+        self._calls: dict[tuple, object] = {}
+        self._pool = graph_pool(self.device)
         self.drafts = None
         if spec is not None:
             self.draft_cfg = draft_cfg = spec.resolve_draft(cfg)
@@ -564,19 +574,22 @@ class PagedBatcher:
 
     def graph_stats(self) -> dict:
         """Decode graphs captured (the draft lanes' included), their
-        replays and pool bytes (none on the CPU, where the loops run
-        eagerly)."""
+        replays and pool bytes, and under ``calls`` the same of the prefill
+        and verify graphs (pool bytes: their one shared pool's); none on
+        the CPU, where all run eagerly."""
         loops = list(self._loops.values())
         if self.drafts is not None:
             loops += list(self.drafts.loops.values())
-        return loop_stats(loops)
+        return {**loop_stats(loops), "calls": loop_stats(self._calls.values())}
 
     def loop_key(self, kind: str, chunk: int | None = None) -> tuple:
-        """The key of this batcher's decode loop of ``kind`` ('window',
-        'tick', 'mixed-window' or 'mixed-tick', the last two per prefill
-        ``chunk`` length): all that its graph bakes in beyond this
-        instance's weights and pool — the lanes' shapes, the pool's and the
-        weights' formats and, for a window, its steps, sampler and EOS."""
+        """The key of this batcher's decode loop or captured call of
+        ``kind`` ('window', 'tick', 'mixed-window' or 'mixed-tick';
+        'prefill' or 'verify'; the mixed ones and 'prefill' per ``chunk``
+        length, 'verify' per K + 1): all that its graph bakes in beyond
+        this instance's weights and pool — the lanes' shapes, the pool's and
+        the weights' formats and, for a window, its steps, sampler and
+        EOS."""
         key = (kind, self.W, self.kv.max_blocks_per_seq,
                self.kv.pool["k"].dtype, self.kv_quant, self.weight_quant)
         if kind in ("window", "mixed-window"):
@@ -605,6 +618,29 @@ class PagedBatcher:
                     capture=capture)
             self._loops[key] = loop
         return self._loops[key]
+
+    def _call(self, kind: str, chunk: int):
+        """The captured call of ``kind`` ('prefill' or 'verify') and
+        ``chunk`` over the pool: this batcher's paged prefill or verify on
+        staged (tokens, block table, start) inputs, returning its logits."""
+        key = self.loop_key(kind, chunk)
+        if key not in self._calls:
+            fn = self._prefill if kind == "prefill" else self._verify
+
+            def body(tokens, table, start):
+                return fn(self.params, tokens, self.kv.pool,
+                          block_table=table, start_index=start)[0]
+
+            self._calls[key] = make_call(body, self.device, pool=self._pool,
+                                         capture=self.layout.capturable)
+        return self._calls[key]
+
+    def _prefill_chunk(self, piece, table, start: int) -> torch.Tensor:
+        """One standalone prefill chunk (host arrays: tokens [1, C], block
+        table [1, NBmax]) at ``start``: its chunk length's captured call.
+        Returns a copy of the last-token logits [1, 1, V]."""
+        call = self._call("prefill", piece.shape[1])
+        return call(*stage(piece, table, start, device=self.device)).clone()
 
     @property
     def busy(self) -> bool:
@@ -668,17 +704,14 @@ class PagedBatcher:
             if seq is None:
                 break                    # FCFS: wait for blocks to free
             req = self.queue.pop(0)
-            bt = self._tensor(seq.table)[None]
             idx, logits = seq.cached_tokens, None
             for c in bucket_chunks(len(req.prompt) - seq.cached_tokens,
                                    self.buckets):
-                piece = self._tensor(req.prompt[idx: idx + c])[None]
+                piece = np.asarray(req.prompt[idx: idx + c])[None]
                 with self._dispatch_span("prefill_chunk", "prefill",
                                          ({"m": c},), rid=req.rid,
                                          chunk=c, start=idx):
-                    logits, self.kv.pool = self._prefill(
-                        self.params, piece, self.kv.pool, block_table=bt,
-                        start_index=idx)
+                    logits = self._prefill_chunk(piece, seq.table[None], idx)
                 self.prefill_dispatches += 1
                 self.tracer.count("prefill_dispatches")
                 idx += c
@@ -802,9 +835,7 @@ class PagedBatcher:
                                          ({"m": c},),
                                          rid=self._admitting.req.rid,
                                          chunk=c, start=start):
-                    pre_logits, self.kv.pool = self._prefill(
-                        self.params, self._tensor(piece), self.kv.pool,
-                        block_table=self._tensor(table), start_index=start)
+                    pre_logits = self._prefill_chunk(piece, table, start)
                 self.prefill_dispatches += 1
                 self.tracer.count("prefill_dispatches")
             elif self.sync == "device":
@@ -877,10 +908,8 @@ class PagedBatcher:
         with self._dispatch_span("paged_verify", "verify",
                                  ({"verify": (k, self.W)},),
                                  k=k, lanes=len(active)):
-            logits, self.kv.pool = self._verify(
-                self.params, self._tensor(tokens), self.kv.pool,
-                block_table=self._tensor(tables),
-                start_index=self._tensor(starts))
+            call = self._call("verify", k + 1)
+            logits = call(*stage(tokens, tables, starts, device=self.device))
         self.verify_dispatches += 1
         self.decode_dispatches += 1      # the round's one TARGET dispatch
         self.tracer.count("verify_dispatches")

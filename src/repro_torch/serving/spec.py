@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..configs import dtype_of
-from ..core.sync import slot_decode_loop, stage, traced_dispatch
+from ..core.sync import (graph_pool, loop_stats, make_call, slot_decode_loop,
+                         stage, traced_dispatch)
 from ..device import resolve_device
 from ..models import build_model
 from .paged_cache import PagedKVCache
@@ -168,7 +169,9 @@ class SpecDecoder:
     rounds of draft → ``paged_verify`` (one target dispatch) →
     ``greedy_verify`` → ``truncate_to`` until the budget (or ``eos_id``).
     The tokens are the target's greedy tokens; drafting only changes how
-    many target dispatches they cost."""
+    many target dispatches they cost. On the card each prefill chunk length
+    and the verify round are captured calls (``core/sync.py::make_call``)
+    sharing one memory pool."""
 
     def __init__(self, cfg, params=None, *, spec: SpecConfig = SpecConfig(),
                  draft_params=None, max_len: int = 512,
@@ -222,6 +225,9 @@ class SpecDecoder:
             self.ctx = vctx = None
         self._prefill = partial(self.model.paged_prefill, hetero_ctx=self.ctx)
         self._verify = partial(self.model.paged_verify, hetero_ctx=vctx)
+        # (kind, length) -> captured prefill or verify call, one shared pool
+        self._calls: dict[tuple, object] = {}
+        self._pool = graph_pool(self.device)
         self.rounds = 0
         self.drafted_tokens = 0
         self.accepted_tokens = 0
@@ -250,6 +256,29 @@ class SpecDecoder:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
+    def graph_stats(self) -> dict:
+        """The draft lanes' decode graphs, and under ``calls`` the prefill
+        and verify graphs (pool bytes: their one shared pool's); none on
+        the CPU."""
+        return {**loop_stats(self.drafts.loops.values()),
+                "calls": loop_stats(self._calls.values())}
+
+    def _call(self, kind: str, length: int):
+        """``kind``'s ('prefill' per chunk length, 'verify' per K + 1)
+        captured call over the pool, on staged tokens [1, length], block
+        table [1, NBmax] and start (a 0-dim one, or [1] for verify); its
+        logits hold until the next call."""
+        key = (kind, length)
+        if key not in self._calls:
+            fn = self._prefill if kind == "prefill" else self._verify
+
+            def body(tokens, table, start):
+                return fn(self.params, tokens, self.kv.pool,
+                          block_table=table, start_index=start)[0]
+
+            self._calls[key] = make_call(body, self.device, pool=self._pool)
+        return self._calls[key]
+
     def generate(self, prompt: np.ndarray, max_new_tokens: int = 16
                  ) -> list[int]:
         """Greedy-generate ``max_new_tokens`` tokens after ``prompt`` ([S]).
@@ -261,12 +290,11 @@ class SpecDecoder:
                              f"max_len {self.max_len}")
         seq = self.kv.open_sequence(prompt_tokens=S,
                                     total_tokens=S + max_new_tokens)
-        bt = self._tensor(seq.table)[None]
         idx, logits = 0, None
         for c in bucket_chunks(S, self.buckets):
-            logits, self.kv.pool = self._prefill(
-                self.params, self._tensor(prompt[idx: idx + c])[None],
-                self.kv.pool, block_table=bt, start_index=idx)
+            logits = self._call("prefill", c)(*stage(
+                np.asarray(prompt[idx: idx + c])[None], seq.table[None], idx,
+                device=self.device))
             self.prefill_dispatches += 1
             idx += c
         seq.length = S
@@ -281,13 +309,12 @@ class SpecDecoder:
             # rows past the remaining budget are never emitted: growth stays
             # inside the reservation, writes past it sink in the null block
             self.kv.grow_to(seq, seq.length + min(k + 1, budget))
-            bt = self._tensor(seq.table)[None]     # the table, every round
             last = np.asarray([[out[-1]]], np.int64)
             drafts = self.drafts.draft(last, k)                  # [1, k]
             tokens = np.concatenate([last, drafts], axis=1)      # [1, k+1]
-            logits, self.kv.pool = self._verify(
-                self.params, self._tensor(tokens), self.kv.pool,
-                block_table=bt, start_index=self._tensor([seq.length]))
+            # the table, every round
+            logits = self._call("verify", k + 1)(*stage(
+                tokens, seq.table[None], [seq.length], device=self.device))
             self.verify_dispatches += 1
             emitted, n_emit = greedy_verify(self._tensor(drafts), logits)
             n = int(n_emit[0])

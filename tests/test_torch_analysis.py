@@ -1312,6 +1312,23 @@ _MUTANTS = {
         "src/repro_torch/serving/scheduler.py", "capture-hygiene",
         "logits = loop(last, tables, lengths)",
         "logits = loop(last, tables, torch.as_tensor(lengths))"),
+    "item_in_captured_prefill_body": (
+        "src/repro_torch/core/engine.py", "host-sync",
+        "            def body(tokens, at):\n",
+        "            def body(tokens, at):\n                at.item()\n"),
+    "verify_logits_read_after_a_later_replay": (
+        "src/repro_torch/serving/scheduler.py", "use-after-replay",
+        "            logits = call(*stage(tokens, tables, starts, "
+        "device=self.device))\n",
+        "            logits = call(*stage(tokens, tables, starts, "
+        "device=self.device))\n"
+        "            call(*stage(tokens, tables, starts, "
+        "device=self.device))\n"),
+    "spec_verify_call_built_per_round": (
+        "src/repro_torch/serving/spec.py", "capture-hygiene",
+        "            last = np.asarray([[out[-1]]], np.int64)\n",
+        "            last = np.asarray([[out[-1]]], np.int64)\n"
+        "            make_call(self._verify, self.device)\n"),
     "unseeded_draw_in_sampler": (
         "src/repro_torch/serving/sampler.py", "determinism",
         '    if cfg.temperature <= 0.0:\n        return torch.argmax(',
