@@ -94,7 +94,13 @@ on failure:
      arms of phase 4, their prompts again in reverse order so the chunk
      lengths replay in another order than their capture's, tokens equal,
      then prefill-only runs alternating captured and eager), the spec arm
-     (self-draft, k = 4: every verify round), the engine on prompts 428
+     (self-draft, k = 4: every verify round and its acceptance, and the
+     draft lanes' prefill chunks), the same arm under host sync (every
+     draft-lane prefill chunk and step replay held to ``prefill_slot`` /
+     ``decode_step`` on a copy of the draft cache, tokens equal; the draft
+     lanes' prefill and rounds timed alternating captured and eager, and
+     a round's acceptance as a captured call against the eager
+     ``greedy_verify``; ``[graph-dense]`` line), the engine on prompts 428
      and 300 over one cache (the 44-token chunk's graph replays at starts
      384 and 256; no host sync in a replay; ``n_compiles`` = chunk lengths
      + decode graphs; eager prefill's tokens; timed alternating), and
@@ -150,7 +156,8 @@ Among them run the phases of the solver's cost model and its two streams:
 
   F. (after E, before the llama3 weights leave the card)
      ``phase_front_end``: the serving front end. F0, on the fp32 llama3
-     smoke model on the card and the CPU: the dense ContinuousBatcher, and
+     smoke model on the card and the CPU: the dense ContinuousBatcher (fp,
+     int8 and W4A16 weights), and
      AsyncServer (open loop on a FakeClock, a priority mix on an 11-block
      pool) over PagedBatcher with host sync and the prefix cache and with
      device sync, each through a preemption and its resume, give the
@@ -170,9 +177,14 @@ Among them run the phases of the solver's cost model and its two streams:
      arriving at 0 s, high at 0.05 s), whose schedule preempts on every
      device (gates: a preemption, every stream complete, no leaked block).
      F2: the dense ContinuousBatcher (4 slots) on phase 4's prompts, closed
-     loop through AsyncServer: first-token cosine >= 0.999 against phase
-     4's engine-less fp arm, kernels 2.4 and 2.5 launched. (``[front-end]``
-     lines.)
+     loop through AsyncServer, its prefill pieces (one graph per chunk
+     length, every slot and start) and its decode step captured (M2c):
+     a first run captures, a second holds every replay bitwise to
+     ``prefill_slot`` / ``decode_step`` run eagerly on a copy of the cache,
+     then runs alternating captured, eager, eager, captured with equal
+     tokens; first-token cosine >= 0.999 against phase 4's engine-less fp
+     arm, kernels 2.4 and 2.5 launched (through replays). (``[front-end]``
+     and ``[graph-dense]`` lines.)
 
   G. (after the zamba2 phases, those weights freed) ``phase_families``:
      the MoE, RWKV6 and encoder-only families. G0, on the fp32 smoke
@@ -307,6 +319,7 @@ import sys
 import time
 from collections import Counter
 from contextlib import contextmanager, nullcontext
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1296,9 +1309,12 @@ def _graph_info(owner) -> dict:
     first call, and capture)."""
     info = owner.graph_stats()
     info["capture_s"] = sum(getattr(lp, "capture_s", 0.0)
-                            for lp in owner._loops.values())
+                            for lp in getattr(owner, "_loops", {}).values())
+    calls = list(owner._calls.values())
+    if getattr(owner, "drafts", None) is not None:
+        calls += list(owner.drafts.calls.values())
     info["calls"]["capture_s"] = sum(getattr(c, "capture_s", 0.0)
-                                     for c in owner._calls.values())
+                                     for c in calls)
     return info
 
 
@@ -3444,12 +3460,22 @@ def _same_state(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k], b[k]) for k in a if k != "index")
 
 
+def _replayed(call, device) -> bool:
+    """Whether ``call`` replays a graph (a captured call after its first
+    use); on the CPU, where a call is its body, True."""
+    from repro_torch.core.sync import CapturedCall
+    if isinstance(call, CapturedCall):
+        return call.graph is not None
+    return device.type != "cuda"
+
+
 class _CallCheck:
     """Each call a batcher makes (``cb._call``: a prefill chunk, a verify
-    round) first runs the model's own entry point (the batcher's paged
-    prefill or verify) eagerly on a copy of the pool, on the same
-    tokens, block table and start (a prefill's as the int it was before
-    the calls), then the call on the pool: the logits and the pool after
+    round, its acceptance) first runs the model's own entry point (the
+    batcher's paged prefill or verify, ``greedy_verify``) eagerly on a
+    copy of the pool, on the same tokens, block table and start (a
+    prefill's as the int it was before the calls), then the call on the
+    pool: the logits (the accepted tokens and counts) and the pool after
     must be bitwise equal. The null block is left out: inactive lanes and
     the rows past a lane's budget write its slots together, in whichever
     order the scatter takes, and only such rows read it, so a verify's
@@ -3464,6 +3490,8 @@ class _CallCheck:
     def _call(self, kind, length):
         import torch
         cb, call = self.cb, self.inner(kind, length)
+        if kind == "accept":
+            return partial(self._accept, call, length)
         fn = cb._prefill if kind == "prefill" else cb._verify
 
         def run(tokens, table, start):
@@ -3472,7 +3500,7 @@ class _CallCheck:
             at = int(start) if kind == "prefill" else dev[2]
             want = fn(cb.params, dev[0], copy, block_table=dev[1],
                       start_index=at)[0]
-            replayed = call.graph is not None
+            replayed = _replayed(call, cb.device)
             got = call(tokens, table, start)
             if kind == "verify":            # the rows in the lanes' blocks
                 pos = start[:, None] + torch.arange(tokens.shape[1])
@@ -3492,6 +3520,16 @@ class _CallCheck:
             return got
         return run
 
+    def _accept(self, call, length, drafts, logits):
+        import torch
+        from repro_torch.serving.sampler import greedy_verify
+        want = greedy_verify(drafts.to(self.cb.device), logits)
+        replayed = _replayed(call, self.cb.device)
+        got = call(drafts, logits)
+        same = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        self.rows.append(("accept", length, replayed, same, True, same))
+        return got
+
     def undo(self):
         self.cb._call = self.inner
 
@@ -3508,6 +3546,63 @@ class _CallCheck:
                                  f"replay or differs from the eager entry "
                                  f"point: {rows}")
         return out
+
+
+class _SlotCheck:
+    """Each call an owner of a dense slot cache makes (``owner._call``: the
+    dense batcher's prefill pieces and decode step, the draft lanes'
+    prefill chunks and host-sync step) first runs the model's own entry
+    point eagerly on a copy of the cache on the same inputs (a piece's
+    slot and start as host ints: ``prefill_slot``'s eager form;
+    ``decode_step`` over the staged positions), then the call on the
+    cache: its outputs (logits; a step's next tokens and positions) and
+    the cache after (its positions included, where a decode step writes
+    them) must be bitwise equal. ``rows`` keeps (kind, chunk, replayed,
+    outputs equal, cache equal) per call."""
+
+    def __init__(self, owner):
+        self.owner, self.inner, self.rows = owner, owner._call, []
+        owner._call = self._call
+
+    def _call(self, kind, chunk=None):
+        call = self.inner(kind, chunk)
+        return partial(self._run, kind, chunk, call)
+
+    def _run(self, kind, chunk, call, *inputs):
+        import torch
+        o = self.owner
+        dev = [t.to(o.device) for t in inputs]
+        copy = {k: t.clone() for k, t in o.cache.items()}
+        if kind == "prefill":
+            want = o.model.prefill_slot(o.params, copy, dev[0], int(inputs[1]),
+                                        int(inputs[2]))[0]
+        else:
+            logits, run = o.model.decode_step(o.params, dev[0],
+                                              {**copy, "index": dev[1]})
+            copy["index"] = run["index"].to(copy["index"].dtype)
+            want = logits if kind == "decode" else (
+                torch.argmax(logits[:, -1, :], dim=-1)[:, None],
+                run["index"])
+        replayed = _replayed(call, o.device)
+        got = call(*inputs)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(*(x if isinstance(x, tuple) else (x,)
+                         for x in (got, want)), strict=True))
+        state = _same_state(copy, o.cache) and (
+            kind != "decode" or torch.equal(copy["index"], o.cache["index"]))
+        self.rows.append((kind, chunk, replayed, same, state))
+        return got
+
+    def undo(self):
+        self.owner._call = self.inner
+
+    def summary(self, label: str) -> dict:
+        rows = self.rows
+        if not rows or not all(r[2] and r[3] and r[4] for r in rows):
+            raise AssertionError(f"{label}: a call was no replay or differs "
+                                 f"from the eager entry point: {rows}")
+        return {"calls": len(rows),
+                "by_kind": dict(Counter(r[0] for r in rows))}
 
 
 def _order_differs(captured: list, replayed: list) -> list:
@@ -3590,13 +3685,15 @@ def _spec_prefill_check(cfg, params, prompts, new_tokens: int,
                       spec=SpecConfig(k=4))
     cb.run(reqs)
     first = [r.output for r in reqs]
-    check = _CallCheck(cb)
+    check, drafts = _CallCheck(cb), _SlotCheck(cb.drafts)
     reqs = _requests(prompts, new_tokens)
     try:
         cb.run(reqs)
     finally:
         check.undo()
+        drafts.undo()
     rec = check.summary("spec")
+    rec["drafts"] = drafts.summary("[graph-prefill] spec draft lanes")
     verify = [r for r in check.rows if r[0] == "verify"]
     calls = _graph_info(cb)["calls"]
     if [r.output for r in reqs] != first or not verify:
@@ -3605,11 +3702,147 @@ def _spec_prefill_check(cfg, params, prompts, new_tokens: int,
                              f"run's {first}, {len(verify)} verify calls")
     rec.update(verify_calls=len(verify), graphs=calls, stats=cb.stats())
     log(f"[graph-prefill] spec k=4 self-draft: {len(verify)} verify and "
-        f"{rec['calls'] - len(verify)} prefill replays, logits, argmax tokens "
-        f"and pool bitwise the eager entry point's, tokens equal to the "
+        f"{rec['calls'] - len(verify)} prefill and accept replays, logits, "
+        f"argmax tokens, accepted tokens and pool bitwise the eager entry "
+        f"point's; draft lanes {rec['drafts']['by_kind']} replays bitwise "
+        f"theirs (draft cache too); tokens equal to the "
         f"first run's; graphs {calls['graphs']}, pool "
         f"{calls['pool_bytes'] / 2 ** 20:.1f} MB, capture "
         f"{calls['capture_s']:.2f}s; stats {cb.stats()}")
+    del cb
+    gc.collect()
+    return rec
+
+
+def _spec_draft_check(cfg, params, prompts, new_tokens: int,
+                      device="cuda") -> dict:
+    """The spec arm under host sync (self-draft, k = 4, hetero-tensor,
+    width 8) at full width: a first run captures the draft lanes' prefill
+    chunks and their one decode step, and the batcher's prefill, verify
+    and accept calls; a second holds each call bitwise to its eager entry
+    point on a copy of the draft cache (``_SlotCheck``) or of the pool
+    (``_CallCheck``), tokens equal to the first run's; then runs
+    alternating captured, eager, eager, captured (every call of the
+    batcher and of its draft lanes eager in ``_EagerCalls``) time the
+    draft lanes' prefill and rounds, tokens equal. Last, one round's
+    acceptance as it runs (staged drafts, the accept call, both results
+    to the host) against the eager ``greedy_verify`` it replaces, on the
+    last round's inputs, 50 calls a turn, turns c, e, e, c."""
+    import torch
+    from repro_torch.core.sync import fence, stage
+    from repro_torch.serving.sampler import greedy_verify
+
+    t_check = time.perf_counter()
+    cb, reqs = _serve(cfg, params, prompts, device=device,
+                      engine_mode="hetero-tensor", sync="host", window=8,
+                      decode_width=8, new_tokens=new_tokens, spec=4)
+    t0 = time.perf_counter()
+    cb.run(reqs)
+    first_s = time.perf_counter() - t0
+    first = [r.output for r in reqs]
+    check, drafts = _CallCheck(cb), _SlotCheck(cb.drafts)
+    reqs = _requests(prompts, new_tokens)
+    try:
+        cb.run(reqs)
+    finally:
+        check.undo()
+        drafts.undo()
+    rec = {"calls": check.summary("spec host"),
+           "drafts": drafts.summary("[graph-dense] spec host draft lanes")}
+    if [r.output for r in reqs] != first:
+        raise AssertionError(f"[graph-dense] spec host: checked tokens "
+                             f"{[r.output for r in reqs]}, first {first}")
+    anchor, times = cb.kv.pool["k"], {"prefill": 0.0, "draft": 0.0}
+    make, last = cb._call, {}
+
+    def timed(fn, key):
+        def run(*a):
+            fence(anchor)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            fence(anchor)
+            times[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def keep_accept(kind, length):
+        call = make(kind, length)
+        if kind != "accept":
+            return call
+
+        def run(staged, logits):
+            last["inputs"] = (staged.numpy().copy(), logits.clone())
+            return call(staged, logits)
+        return run
+
+    prefill, draft = cb.drafts.prefill, cb.drafts.draft
+    cb.drafts.prefill = timed(prefill, "prefill")
+    cb.drafts.draft = timed(draft, "draft")
+    cb._call = keep_accept
+    calls, dcalls = cb._calls, cb.drafts.calls
+    arms = {"captured": [], "eager": []}
+    try:
+        for arm in ("captured", "eager", "eager", "captured"):
+            if arm == "eager":
+                cb._calls, cb.drafts.calls = _EagerCalls(), _EagerCalls()
+            times.update(prefill=0.0, draft=0.0)
+            reqs = _requests(prompts, new_tokens)
+            try:
+                cb.run(reqs)
+            finally:
+                cb._calls, cb.drafts.calls = calls, dcalls
+            if [r.output for r in reqs] != first:
+                raise AssertionError(f"[graph-dense] spec host {arm}: tokens "
+                                     f"{[r.output for r in reqs]}, first "
+                                     f"{first}")
+            arms[arm].append(dict(times))
+    finally:
+        cb.drafts.prefill, cb.drafts.draft, cb._call = prefill, draft, make
+    drafts_np, logits = last["inputs"]
+    accept = cb._calls[cb.loop_key("accept", 5)]
+
+    def captured_accept():
+        e, n = accept(*stage(drafts_np, device=cb.device), logits)
+        return e.cpu(), n.cpu()
+
+    def eager_accept():
+        e, n = greedy_verify(torch.as_tensor(drafts_np, device=cb.device),
+                             logits)
+        return e.cpu(), n.cpu()
+
+    accept_us = {"captured": [], "eager": []}
+    outs = set()
+    for arm in ("captured", "eager", "eager", "captured"):
+        fn = captured_accept if arm == "captured" else eager_accept
+        outs.add(str([t.tolist() for t in fn()]))
+        fence(anchor)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        accept_us[arm].append((time.perf_counter() - t0) / 50 * 1e6)
+    if len(outs) != 1:
+        raise AssertionError(f"[graph-dense] spec host: accept outputs {outs}")
+    info = _graph_info(cb)["calls"]
+    rec.update(first_s=first_s, arms=arms, accept_us=accept_us, graphs=info,
+               stats=cb.stats())
+    log(f"[graph-dense] spec host k=4 self-draft: {rec['calls']['calls']} "
+        f"batcher calls {dict(Counter(k for k, _ in rec['calls']['order']))} "
+        f"and draft lanes {rec['drafts']['by_kind']} replayed bitwise the "
+        f"eager entry point (outputs, pool, draft cache); tokens equal in "
+        f"every run; calls' graphs {info['graphs']}, replays "
+        f"{info['replays']}, pool {info['pool_bytes'] / 2 ** 20:.1f} MB, "
+        f"first calls and captures {info['capture_s']:.2f}s (first run "
+        f"{first_s:.2f}s); runs c, e, e, c: draft prefill s "
+        + ", ".join(f"{a['prefill']:.4f}" for a in
+                    (arms["captured"][0], *arms["eager"],
+                     arms["captured"][1]))
+        + "; draft rounds s " + ", ".join(
+            f"{a['draft']:.4f}" for a in
+            (arms["captured"][0], *arms["eager"], arms["captured"][1]))
+        + "; a round's acceptance us captured / eager "
+        + f"{[round(u, 1) for u in accept_us['captured']]} / "
+        + f"{[round(u, 1) for u in accept_us['eager']]}; stats {cb.stats()}; "
+        + f"check {time.perf_counter() - t_check:.1f}s")
     del cb
     gc.collect()
     return rec
@@ -3743,6 +3976,8 @@ def phase_graph_prefill(cfg, params, paged=None, seed: int = 4) -> dict:
         for label, *_ in FULL_PAIRS:
             out[f"paged {label}"] = paged[label]["graph_prefill"]
         out["spec"] = _spec_prefill_check(
+            cfg, params, paged["fp"]["prompts"], 16)
+        out["spec host"] = _spec_draft_check(
             cfg, params, paged["fp"]["prompts"], 16)
         p428, p300 = (rng.integers(0, cfg.vocab_size, (1, n))
                       for n in (428, 300))
@@ -4116,7 +4351,6 @@ def _split_engine(cfg, params, plan, device="cuda", **kw):
     decode steps also run through its HeteroCtx, so a decode loop captured
     on the card holds splits at M = 1."""
     from dataclasses import replace
-    from functools import partial
     from repro_torch.core.engine import InferenceEngine
 
     eng = InferenceEngine(cfg, params, mode="hetero-tensor",
@@ -4839,8 +5073,9 @@ def _dense_sequential(cfg, params, prompt, n: int, device) -> list:
 
 def _f0_serve(cfg, params, batcher, device, traced: bool = False) -> dict:
     """Phase F0's workload through AsyncServer (open loop, FakeClock) over
-    one batcher: "dense", or paged "host" / "device" (hetero-tensor; host
-    with the prefix cache). Returns the streams and the server's counts."""
+    one batcher: "dense" (or "dense int8" / "dense w4a16": quantized
+    weights), or paged "host" / "device" (hetero-tensor; host with the
+    prefix cache). Returns the streams and the server's counts."""
     import torch
     from repro_torch.serving.ingress import (AsyncServer, arrival_times,
                                              open_loop_workload)
@@ -4849,9 +5084,10 @@ def _f0_serve(cfg, params, batcher, device, traced: bool = False) -> dict:
     from repro_torch.serving.trace import Tracer, counter_reconciliation
     clock = FakeClock()
     tracer = Tracer(clock) if traced else None
-    if batcher == "dense":
+    if batcher.startswith("dense"):
         cb = ContinuousBatcher(cfg, params, max_batch=3, max_len=F0_MAX_LEN,
                                buckets=F0_POOL["buckets"], tracer=tracer,
+                               weight_quant=(batcher.split() + [None])[1],
                                device=device)
     else:
         sync = (dict(sync="host", prefix_cache=True) if batcher == "host"
@@ -4864,7 +5100,7 @@ def _f0_serve(cfg, params, batcher, device, traced: bool = False) -> dict:
     handles = server.run_sync(open_loop_workload(
         prompts, budgets, arrival_times("poisson", 300.0, len(prompts), 0),
         prios))
-    if batcher != "dense":
+    if not batcher.startswith("dense"):
         cb.kv.assert_drained()
     for h, m in zip(handles, budgets):
         if not h.done or h.terminal_events != 1 or len(h.tokens) != m:
@@ -4887,10 +5123,13 @@ def _front_end_smoke(devices=("cuda", "cpu")) -> dict:
     device sync, each through a preemption and its resume, give the port's
     sequential reference's tokens (the dense one-slot run, and the paged
     batcher with one lane); a traced run gives the untraced run's tokens;
-    the card's tokens equal the CPU's."""
+    the card's tokens equal the CPU's; so does the dense batcher with int8
+    and W4A16 weights (its captured calls record the dequantization), held
+    to the sequential reference on the quantized weights."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
+    from repro_torch.models.quant import quantize_params
     from repro_torch.serving.scheduler import PagedBatcher, Request
 
     cfg = get_smoke_config("llama3-8b").with_(param_dtype="float32",
@@ -4904,16 +5143,20 @@ def _front_end_smoke(devices=("cuda", "cpu")) -> dict:
     got = {}
     for device in devices:
         p = params[device]
-        dense_ref = [_dense_sequential(cfg, p, x, m, device)
-                     for x, m in zip(prompts, budgets)]
+        dense_ref = {wq: [_dense_sequential(
+            cfg, quantize_params(p, cfg, wq) if wq else p, x, m, device)
+            for x, m in zip(prompts, budgets)]
+            for wq in (None, "int8", "w4a16")}
         one = PagedBatcher(cfg, p, **{**F0_POOL, "decode_width": 1},
                            cache_dtype=torch.float32, device=device)
         reqs = [Request(rid=i, prompt=x, max_new_tokens=m)
                 for i, (x, m) in enumerate(zip(prompts, budgets))]
         one.run(reqs)
         paged_ref = [r.output for r in reqs]
-        for batcher, want in (("dense", dense_ref), ("host", paged_ref),
-                              ("device", paged_ref)):
+        for batcher, want in (("dense", dense_ref[None]),
+                              ("dense int8", dense_ref["int8"]),
+                              ("dense w4a16", dense_ref["w4a16"]),
+                              ("host", paged_ref), ("device", paged_ref)):
             run = _f0_serve(cfg, p, batcher, device)
             log(f"[front-end] smoke {batcher} on {device}: preemptions "
                 f"{run['preemptions']}, stats {run['stats']}")
@@ -4922,7 +5165,7 @@ def _front_end_smoke(devices=("cuda", "cpu")) -> dict:
                     f"[front-end] smoke {batcher} on {device}: tokens "
                     f"{run['tokens']} differ from the sequential "
                     f"reference's {want}")
-            if batcher != "dense" and run["preemptions"] < 1:
+            if not batcher.startswith("dense") and run["preemptions"] < 1:
                 raise AssertionError(f"[front-end] smoke {batcher} on "
                                      f"{device}: no preemption")
             got[batcher, device] = run["tokens"]
@@ -4933,12 +5176,13 @@ def _front_end_smoke(devices=("cuda", "cpu")) -> dict:
         log(f"[front-end] smoke traced device-sync run on {device}: "
             f"{traced['events']} events, counters reconcile, tokens equal "
             "the untraced run's")
-    for batcher in ("dense", "host", "device"):
+    for batcher in ("dense", "dense int8", "dense w4a16", "host", "device"):
         if len({str(got[batcher, d]) for d in devices}) != 1:
             raise AssertionError(f"[front-end] smoke {batcher}: card and "
                                  "CPU tokens differ")
-    log(f"[front-end] smoke: dense, paged host and device (each preempted "
-        f"and resumed) give the sequential reference's tokens on "
+    log(f"[front-end] smoke: dense (fp, int8 and W4A16 weights), paged host "
+        f"and device (each preempted and resumed) give the sequential "
+        f"reference's tokens on "
         f"{', '.join(devices)}, card equal to CPU")
     return got
 
@@ -5132,9 +5376,15 @@ def _f1_forced_preemption(cb, prompts, prios, new, closed) -> int:
 def _f2_dense(cfg, params, full, device="cuda") -> dict:
     """Phase F2: ContinuousBatcher(max_batch=4) at full width on phase 4's
     prompts, 16 new tokens each, closed loop through AsyncServer on a
-    MonotonicClock; its first-token logits held to the paged engine-less
-    fp arm's (cosine >= 0.999)."""
-    import dataclasses
+    MonotonicClock. A first run captures the batcher's calls (one per
+    chunk length, one decode step); a second holds every replay bitwise to
+    the eager entry point on a copy of the cache (``_SlotCheck``); then
+    timed runs alternate captured, eager, eager, captured (``_EagerCalls``
+    for the eager ones), tokens equal, prefill and decode seconds from
+    fenced timers on the batcher's calls. The first captured timed run's
+    first-token logits are held to the paged engine-less fp arm's (cosine
+    >= 0.999), and its launches (a replay adds its capture's) are the
+    kernels line's."""
     import torch
     from repro_torch.core.sync import fence
     from repro_torch.serving.ingress import AsyncServer, open_loop_workload
@@ -5146,66 +5396,128 @@ def _f2_dense(cfg, params, full, device="cuda") -> dict:
                            device=device)
     anchor = cb.cache["k"]
     rec = {"prefill": 0.0, "decode": 0.0, "first": []}
-    model = cb.model
+    make = cb._call
 
-    def timed(fn, key):
-        def run(*a, **k):
+    def timed_call(kind, chunk=None):
+        call = make(kind, chunk)
+
+        def run(*inputs):
             fence(anchor)
             t0 = time.perf_counter()
-            out = fn(*a, **k)
+            out = call(*inputs)
             fence(anchor)
-            rec[key] += time.perf_counter() - t0
+            rec[kind] += time.perf_counter() - t0
+            if kind == "prefill":     # admissions go in rid order here
+                if int(inputs[2]) == 0:
+                    rec["first"].append(None)
+                rec["first"][-1] = out[0, -1].float().clone()
             return out
         return run
 
-    prefill = timed(model.prefill_slot, "prefill")
+    def serve():
+        clock = MonotonicClock()
+        server = AsyncServer(cb, clock=clock)
+        fence(anchor)
+        t0 = clock.now()
+        handles = server.run_sync(open_loop_workload(
+            prompts, [new] * len(prompts), [t0] * len(prompts)))
+        fence(anchor)
+        wall = clock.now() - t0
+        if any(len(h.tokens) != new for h in handles):
+            raise AssertionError(f"[front-end] F2: streams "
+                                 f"{[len(h.tokens) for h in handles]}")
+        return [h.tokens for h in handles], wall, server.stats()
 
-    def prefill_slot(params, cache, tokens, slot, start):
-        logits, cache = prefill(params, cache, tokens, slot, start)
-        if start == 0:                    # admissions go in rid order here
-            rec["first"].append(None)
-        rec["first"][-1] = logits[0, -1].float()
-        return logits, cache
-
-    cb.model = dataclasses.replace(
-        model, prefill_slot=prefill_slot,
-        decode_step=timed(model.decode_step, "decode"))
-    clock = MonotonicClock()
-    server = AsyncServer(cb, clock=clock)
-    _zero_counts()
-    fence(anchor)
-    t0 = clock.now()
-    handles = server.run_sync(open_loop_workload(
-        prompts, [new] * len(prompts), [t0] * len(prompts)))
-    fence(anchor)
-    wall = clock.now() - t0
-    launches = _read_counts()
-    tok = sum(len(h.tokens) for h in handles)
-    if any(len(h.tokens) != new for h in handles):
-        raise AssertionError(f"[front-end] F2: streams "
-                             f"{[len(h.tokens) for h in handles]}")
+    t0 = time.perf_counter()
+    want, first_wall, _ = serve()            # each call's first use: capture
+    first_s = time.perf_counter() - t0
+    check = _SlotCheck(cb)
+    try:
+        checked_tokens, _, _ = serve()
+    finally:
+        check.undo()
+    checked = check.summary("[graph-dense] F2")
+    runs, tokens, calls = {"captured": [], "eager": []}, [checked_tokens], \
+        cb._calls
+    cb._call = timed_call
+    try:
+        for arm in ("captured", "eager", "eager", "captured"):
+            if arm == "eager":
+                cb._calls = _EagerCalls()
+            rec.update(prefill=0.0, decode=0.0, first=[])
+            counted = arm == "captured" and not runs["captured"]
+            if counted:
+                _zero_counts()
+            try:
+                toks, wall, stats = serve()
+            finally:
+                cb._calls = calls
+            if counted:
+                launches, firsts, first_stats = (_read_counts(),
+                                                 rec["first"], stats)
+            tokens.append(toks)
+            tok = sum(len(t) for t in toks)
+            runs[arm].append({"wall_s": wall, "tok_per_s": tok / wall,
+                              "prefill_s": rec["prefill"],
+                              "decode_s": rec["decode"]})
+    finally:
+        cb._call = make
+    if any(t != want for t in tokens):
+        raise AssertionError(f"[graph-dense] F2: tokens of the checked and "
+                             f"alternating runs differ from the first "
+                             f"run's: {tokens} against {want}")
     plain = full["fp"]["plain_first_logits"]
     cos = []
-    for rid, a in enumerate(rec["first"]):
+    for rid, a in enumerate(firsts):
         b = plain[rid]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"[front-end] F2 request {rid}: non-finite")
         cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
-    same = sum(x == y for h, o in zip(handles, full["fp"]["plain_outputs"])
-               for x, y in zip(h.tokens, o))
-    log(f"[front-end] F2 dense: {tok} tokens in {wall:.3f}s "
-        f"({tok / wall:.2f} tok/s); prefill {rec['prefill']:.3f}s, decode "
-        f"{rec['decode']:.3f}s; stats {server.stats()}; launches {launches};"
-        f" first-token cos vs the paged engine-less arm "
-        f"{[round(c, 6) for c in cos]}; tokens equal to its {same}/{tok}")
+    same = sum(x == y for h, o in zip(want, full["fp"]["plain_outputs"])
+               for x, y in zip(h, o))
+    c0 = runs["captured"][0]
+    tok = sum(len(t) for t in want)
+    log(f"[front-end] F2 dense: {tok} tokens in {c0['wall_s']:.3f}s "
+        f"({c0['tok_per_s']:.2f} tok/s), captured; prefill "
+        f"{c0['prefill_s']:.3f}s, decode {c0['decode_s']:.3f}s; stats "
+        f"{first_stats}; launches {launches}; first-token cos vs the paged "
+        f"engine-less arm {[round(c, 6) for c in cos]}; tokens equal to its "
+        f"{same}/{tok}")
+    info = cb.graph_stats()
+    by_kind = {kind: [c for key, c in cb._calls.items() if key[0] == kind]
+               for kind in ("decode", "prefill")}
+    capture_s = {kind: sum(getattr(c, "capture_s", 0.0) for c in cs)
+                 for kind, cs in by_kind.items()}
+    log(f"[graph-dense] F2: graphs {info['graphs']} decode + "
+        f"{info['calls']['graphs']} prefill (chunk lengths "
+        f"{sorted(key[1] for key in cb._calls if key[0] == 'prefill')}), "
+        f"replays {info['replays']} + {info['calls']['replays']}, pool "
+        f"{info['pool_bytes'] / 2 ** 20:.1f} + "
+        f"{info['calls']['pool_bytes'] / 2 ** 20:.1f} MB, first calls and "
+        f"captures {capture_s['decode']:.2f} + {capture_s['prefill']:.2f}s "
+        f"(first run {first_s:.2f}s, wall {first_wall:.3f}s); "
+        f"{checked['calls']} calls {checked['by_kind']} replayed bitwise the "
+        f"eager entry point (outputs and cache); tokens of the checked and "
+        f"alternating runs equal; runs c, e, e, c: tok/s "
+        + ", ".join(f"{r['tok_per_s']:.2f}" for r in
+                    (runs["captured"][0], *runs["eager"],
+                     runs["captured"][1]))
+        + "; prefill s " + ", ".join(
+            f"{r['prefill_s']:.4f}" for r in
+            (runs["captured"][0], *runs["eager"], runs["captured"][1]))
+        + "; decode s " + ", ".join(
+            f"{r['decode_s']:.4f}" for r in
+            (runs["captured"][0], *runs["eager"], runs["captured"][1])))
     if len(cos) != len(prompts) or min(cos) < 0.999 or \
             (device == "cuda" and (launches["flash_attention"] <= 0
-                                   or launches["decode_attention"] <= 0)):
+                                   or launches["decode_attention"] <= 0
+                                   or info["graphs"] != 1)):
         raise AssertionError(f"[front-end] F2: cosines {cos}, launches "
-                             f"{launches}")
-    return {"launches": launches, "tok_per_s": tok / wall, "wall_s": wall,
-            "prefill_s": rec["prefill"], "decode_s": rec["decode"],
-            "cos": cos}
+                             f"{launches}, graphs {info}")
+    return {"launches": launches, "tok_per_s": c0["tok_per_s"],
+            "wall_s": c0["wall_s"], "prefill_s": c0["prefill_s"],
+            "decode_s": c0["decode_s"], "cos": cos, "runs": runs,
+            "graphs": {**info, "capture_s": capture_s}, "checked": checked}
 
 
 def phase_front_end(cfg, params, full, device="cuda") -> dict:
@@ -6771,7 +7083,8 @@ def main() -> int:
                     if "prefill_only_s" in r else
                     f"{k} {min(r['prefill_s']['captured']):.4f} / "
                     f"{min(r['prefill_s']['eager']):.4f}"
-                    for k, r in prefill_graphs.items() if k != "spec")
+                    for k, r in prefill_graphs.items()
+                    if k not in ("spec", "spec host"))
         + "; measured plan tok/s paged "
         + ", ".join(f"{k} {v['measured']['tok_per_s']:.2f}"
                     for k, v in full.items())

@@ -276,16 +276,32 @@ def decode_step(params, token, cache, cfg, *, hetero_ctx=None):
     return logits, {"k": cache["k"], "v": cache["v"], "index": idx + 1}
 
 
-def prefill_slot(params, cache, tokens, slot: int, start: int, cfg):
+def prefill_slot(params, cache, tokens, slot, start, cfg):
     """Prefill one prompt chunk (tokens ``[C]``) of one request into lane
     ``slot`` of a batched dense cache (``[L, B, S, Hkv, D]``) at position
-    ``start``: :func:`prefill` on the ``[L, 1, S, Hkv, D]`` view of the
-    slot, which it writes in place (so its attention is the flash kernel).
-    ``slot`` and ``start`` are host ints. The draft lanes' prompt prefill
-    (serving/spec.py). Returns (last-token logits [1, 1, V], cache)."""
-    view = {"k": cache["k"][:, slot:slot + 1],
-            "v": cache["v"][:, slot:slot + 1]}
-    logits, _ = prefill(params, tokens[None, :], view, cfg, start_index=start)
+    ``start``, writing the cache in place: the dense batcher's admission
+    and the draft lanes' prompt prefill (serving/spec.py). Its attention is
+    the flash kernel. Returns (last-token logits [1, 1, V], cache).
+
+    ``slot`` and ``start`` are host ints (the eager entry point:
+    :func:`prefill` on the ``[L, 1, S, Hkv, D]`` view of the slot) or
+    0-dim device tensors (a captured call, one graph per chunk length for
+    every slot and start, as the reference's ``dynamic_slice``): the slot
+    is gathered (``index_select``), prefilled at the device start (the
+    flash kernel's device-start entry) and written back whole
+    (``index_copy_``), bitwise the host-int call."""
+    if isinstance(slot, int):
+        view = {"k": cache["k"][:, slot:slot + 1],
+                "v": cache["v"][:, slot:slot + 1]}
+        logits, _ = prefill(params, tokens[None, :], view, cfg,
+                            start_index=start)
+        return logits, cache
+    at = slot.reshape(1).long()
+    sub = {"k": cache["k"].index_select(1, at),
+           "v": cache["v"].index_select(1, at)}
+    logits, _ = prefill(params, tokens[None, :], sub, cfg, start_index=start)
+    cache["k"].index_copy_(1, at, sub["k"])
+    cache["v"].index_copy_(1, at, sub["v"])
     return logits, cache
 
 

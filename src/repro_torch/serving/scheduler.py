@@ -7,8 +7,8 @@ join free slots, prefill runs per request as bucket-chunked pieces
 (``transformer.prefill_slot``, the flash-attention kernel), and decode
 steps run batched across all slots with PER-SLOT cache indices (a ``[B]``
 ``cache["index"]``, ``layers.slot_attention``). Finished slots free at once
-and the queue backfills. Decode is eager, as the reference's is a plain
-jitted step.
+and the queue backfills. On the card each piece's chunk length and the
+decode step are captured calls, as the reference jits each once per shape.
 
 ``PagedBatcher`` gates admission by FREE BLOCKS: a request is admitted
 when ``ceil((len(prompt) + max_new_tokens) / block_size)`` blocks can be
@@ -128,7 +128,16 @@ class ContinuousBatcher:
     prefilled into its slot as ``bucket_chunks`` pieces, then one batched
     decode step a tick over the ``[B]`` cache index. ``weight_quant`` in
     {'int8', 'w4a16'} serves quantized weights (dequantized before each
-    product); ``tracer`` records each dispatch."""
+    product); ``tracer`` records each dispatch.
+
+    On the card a piece is one captured call per chunk length, its slot
+    and start staged as device scalars, and the decode step one captured
+    call (``core/sync.py::make_call``), all in one memory pool; sampling
+    stays outside the graphs. The ``[B]`` positions are mirrored on the
+    host (``index``: a prefilled slot's is its prompt length, and every
+    decode step advances each slot's by one), so a tick stages them and
+    reads nothing from the card but its logits; ``cache["index"]`` holds
+    what the last decode step left."""
 
     def __init__(self, cfg, params=None, *, max_batch: int = 4,
                  max_len: int = 512, buckets=PREFILL_BUCKETS,
@@ -158,6 +167,10 @@ class ContinuousBatcher:
                                            device=self.device)
         self.cache["index"] = torch.zeros((max_batch,), dtype=torch.int32,
                                           device=self.device)
+        self.index = np.zeros((max_batch,), np.int64)  # the [B] positions
+        # ("prefill", chunk length) / ("decode",) -> captured call, one pool
+        self._calls: dict[tuple, object] = {}
+        self._pool = graph_pool(self.device)
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.queue: list[Request] = []
         self.budget: list[int] = [0] * max_batch
@@ -176,6 +189,35 @@ class ContinuousBatcher:
         return traced_dispatch(self.tracer, kind, self.cache["k"],
                                track=track, args=args)
 
+    def _call(self, kind: str, chunk: int | None = None):
+        """The captured call of ``kind`` over the cache, returning its
+        logits: 'prefill' per ``chunk`` length, on staged (piece [C], slot,
+        start), the two 0-dim; 'decode', on staged (last tokens [B, 1],
+        positions [B])."""
+        key = (kind,) if chunk is None else (kind, chunk)
+        if key not in self._calls:
+            if kind == "prefill":
+                def body(piece, slot, start):
+                    return self.model.prefill_slot(self.params, self.cache,
+                                                   piece, slot, start)[0]
+            else:
+                def body(last, index):
+                    logits, run = self.model.decode_step(
+                        self.params, last, {**self.cache, "index": index})
+                    self.cache["index"].copy_(run["index"])
+                    return logits
+            self._calls[key] = make_call(body, self.device, pool=self._pool)
+        return self._calls[key]
+
+    def graph_stats(self) -> dict:
+        """The decode step's graph, its replays and pool bytes, and under
+        ``calls`` the same of the prefill pieces' graphs (pool bytes: the
+        shared pool's, split by capture); none on the CPU."""
+        return {**loop_stats(c for key, c in self._calls.items()
+                             if key[0] == "decode"),
+                "calls": loop_stats(c for key, c in self._calls.items()
+                                    if key[0] == "prefill")}
+
     def submit(self, req: Request):
         _validate_submit(req, {r.rid for r in self.queue}
                          | {s.rid for s in self.slots if s is not None})
@@ -190,17 +232,15 @@ class ContinuousBatcher:
             S = len(req.prompt)
             logits, idx = None, 0
             for c in bucket_chunks(S, self.buckets):
-                piece = torch.as_tensor(np.asarray(req.prompt[idx: idx + c],
-                                                   np.int64),
-                                        device=self.device)
                 with self._span("prefill_chunk", "prefill", rid=req.rid,
                                 chunk=c, start=idx):
-                    logits, self.cache = self.model.prefill_slot(
-                        self.params, self.cache, piece, b, idx)
+                    logits = self._call("prefill", c)(*stage(
+                        req.prompt[idx: idx + c], b, idx,
+                        device=self.device))
                 self.prefill_dispatches += 1
                 self.tracer.count("prefill_dispatches")
                 idx += c
-            self.cache["index"][b] = S
+            self.index[b] = S
             self.lengths[b] = S
             req.output.append(int(sample(logits[:, -1, :], self.generator,
                                          self.sampler)[0]))
@@ -223,9 +263,9 @@ class ContinuousBatcher:
         for b in active:
             last[b, 0] = self.slots[b].output[-1]
         with self._span("decode_step", "decode", active=len(active)):
-            logits, self.cache = self.model.decode_step(
-                self.params, torch.as_tensor(last, device=self.device),
-                self.cache)
+            logits = self._call("decode")(*stage(last, self.index,
+                                                 device=self.device))
+        self.index += 1                # the step advances every slot's
         self.decode_dispatches += 1
         self.tracer.count("decode_dispatches")
         toks = sample(logits[:, -1, :], self.generator, self.sampler).cpu()
@@ -343,10 +383,11 @@ class PagedBatcher:
     (``stats()["captured"]``).
 
     On the card a standalone prefill chunk is one captured call per chunk
-    length and a spec round's verify one for the round's (W, K + 1)
-    (``core/sync.py::make_call``; their starts, tables and tokens staged
-    as the loops' inputs), all sharing one memory pool: one replay is one
-    dispatch of ``stats()``.
+    length and a spec round's verify and acceptance one each for the
+    round's (W, K + 1) (``core/sync.py::make_call``; their starts, tables
+    and tokens staged as the loops' inputs), all sharing one memory pool
+    with the draft lanes' calls: one replay of a prefill or a verify is
+    one dispatch of ``stats()``.
     """
 
     def __init__(self, cfg, params=None, *, num_blocks: int = 65,
@@ -502,7 +543,7 @@ class PagedBatcher:
                 draft_cfg, spec_draft_params, lanes=decode_width,
                 max_len=self.kv.max_blocks_per_seq * block_size + spec.k + 1,
                 buckets=self.buckets, sync=sync, dtype=fp_dtype,
-                device=self.device, tracer=self.tracer)
+                device=self.device, tracer=self.tracer, pool=self._pool)
             vctx = (self.ctx.for_verify(spec.k, decode_width)
                     if self.ctx is not None else None)
             self._verify = partial(self.steps.paged_verify, hetero_ctx=vctx)
@@ -573,23 +614,25 @@ class PagedBatcher:
         return s
 
     def graph_stats(self) -> dict:
-        """Decode graphs captured (the draft lanes' included), their
-        replays and pool bytes, and under ``calls`` the same of the prefill
-        and verify graphs (pool bytes: their one shared pool's); none on
-        the CPU, where all run eagerly."""
-        loops = list(self._loops.values())
+        """Decode graphs captured (the draft lanes' loops included), their
+        replays and pool bytes, and under ``calls`` the same of the
+        prefill, verify and accept graphs and the draft lanes' calls (pool
+        bytes: their one shared pool's); none on the CPU, where all run
+        eagerly."""
+        loops, calls = list(self._loops.values()), list(self._calls.values())
         if self.drafts is not None:
             loops += list(self.drafts.loops.values())
-        return {**loop_stats(loops), "calls": loop_stats(self._calls.values())}
+            calls += list(self.drafts.calls.values())
+        return {**loop_stats(loops), "calls": loop_stats(calls)}
 
     def loop_key(self, kind: str, chunk: int | None = None) -> tuple:
         """The key of this batcher's decode loop or captured call of
         ``kind`` ('window', 'tick', 'mixed-window' or 'mixed-tick';
-        'prefill' or 'verify'; the mixed ones and 'prefill' per ``chunk``
-        length, 'verify' per K + 1): all that its graph bakes in beyond
-        this instance's weights and pool — the lanes' shapes, the pool's and
-        the weights' formats and, for a window, its steps, sampler and
-        EOS."""
+        'prefill', 'verify' or 'accept'; the mixed ones and 'prefill' per
+        ``chunk`` length, 'verify' and 'accept' per K + 1): all that its
+        graph bakes in beyond this instance's weights and pool — the lanes'
+        shapes, the pool's and the weights' formats and, for a window, its
+        steps, sampler and EOS."""
         key = (kind, self.W, self.kv.max_blocks_per_seq,
                self.kv.pool["k"].dtype, self.kv_quant, self.weight_quant)
         if kind in ("window", "mixed-window"):
@@ -620,16 +663,21 @@ class PagedBatcher:
         return self._loops[key]
 
     def _call(self, kind: str, chunk: int):
-        """The captured call of ``kind`` ('prefill' or 'verify') and
-        ``chunk`` over the pool: this batcher's paged prefill or verify on
-        staged (tokens, block table, start) inputs, returning its logits."""
+        """The captured call of ``kind`` and ``chunk``: 'prefill' or
+        'verify', this batcher's paged prefill or verify over the pool on
+        staged (tokens, block table, start) inputs, returning its logits;
+        'accept', ``greedy_verify`` on staged drafts [W, K] and the
+        verify's logits."""
         key = self.loop_key(kind, chunk)
         if key not in self._calls:
-            fn = self._prefill if kind == "prefill" else self._verify
+            if kind == "accept":
+                body = greedy_verify
+            else:
+                fn = self._prefill if kind == "prefill" else self._verify
 
-            def body(tokens, table, start):
-                return fn(self.params, tokens, self.kv.pool,
-                          block_table=table, start_index=start)[0]
+                def body(tokens, table, start):
+                    return fn(self.params, tokens, self.kv.pool,
+                              block_table=table, start_index=start)[0]
 
             self._calls[key] = make_call(body, self.device, pool=self._pool,
                                          capture=self.layout.capturable)
@@ -650,9 +698,6 @@ class PagedBatcher:
                     or any(lane is not None for lane in self.lanes))
 
     # ------------------------------------------------------------ plumbing --
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
-
     def submit(self, req: Request):
         live = {r.rid for r in self.queue}
         live.update(lane.req.rid for lane in self.lanes if lane is not None)
@@ -914,7 +959,8 @@ class PagedBatcher:
         self.decode_dispatches += 1      # the round's one TARGET dispatch
         self.tracer.count("verify_dispatches")
         self.tracer.count("decode_dispatches")
-        emitted, n_emit = greedy_verify(self._tensor(drafts), logits)
+        emitted, n_emit = self._call("accept", k + 1)(
+            *stage(drafts, device=self.device), logits)
         emitted, n_emit = emitted.cpu().numpy(), n_emit.cpu().numpy()
         for i in active:
             st = self.lanes[i]

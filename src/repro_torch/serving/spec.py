@@ -8,10 +8,11 @@ the accepted prefix.
     cache, per-lane write cursors); its K+1 steps are one captured loop on
     the card under ``sync='device'`` (``core/sync.py::slot_decode_loop``,
     the counterpart of the reference's ``generate_on_device`` scan) and
-    K+1 eager steps under ``sync='host'``. Its per-lane decode attends
-    through plain torch (``layers.slot_attention``): kernel 2.5 takes one
-    length for the whole batch; its prompt prefill goes through the flash
-    kernel (``transformer.prefill_slot``).
+    K+1 replays of one captured step under ``sync='host'``. Its per-lane
+    decode attends through plain torch (``layers.slot_attention``): kernel
+    2.5 takes one length for the whole batch; its prompt prefill goes
+    through the flash kernel (``transformer.prefill_slot``), one captured
+    call per chunk length.
   * **Verify** — ONE target dispatch (``transformer.paged_verify``) scores
     the K+1 positions through a ``HeteroCtx`` resolving the solver's
     VERIFY decisions; ``sampler.greedy_verify`` accepts losslessly. In a
@@ -86,11 +87,18 @@ class DraftLanes:
     is a cursor reset (stale slots past it are masked and rewritten before
     a later query reads them). ``dispatches`` counts every draft-model
     dispatch, prefill chunks included; a live ``tracer`` records each
-    (``draft_prefill_chunk``, ``spec_draft``)."""
+    (``draft_prefill_chunk``, ``spec_draft``).
+
+    On the card a prefill chunk is one captured call per chunk length (its
+    lane and start staged as device scalars) and a ``sync='host'`` round
+    replays one captured decode step k+1 times, each replay fed the last
+    one's token and positions on the card. The calls capture into
+    ``pool``, the owner's (``graph_pool``), so their outputs hold only
+    until the owner's next call; ``calls`` keeps them."""
 
     def __init__(self, cfg, params, *, lanes: int, max_len: int,
                  buckets=(64, 128, 256), sync: str = "host", dtype=None,
-                 device="cuda", tracer=None):
+                 device="cuda", tracer=None, pool=None):
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg = cfg
@@ -108,20 +116,42 @@ class DraftLanes:
         self.idx = np.zeros((lanes,), np.int32)   # per-lane write cursors
         self.dispatches = 0
         self.loops: dict[int, object] = {}        # steps -> captured round
+        # ("prefill", chunk length) / ("step",) -> captured call in ``pool``
+        self.calls: dict[tuple, object] = {}
+        self.pool = pool
+
+    def _call(self, kind: str, chunk: int | None = None):
+        """The captured call of ``kind`` over the draft cache: 'prefill'
+        per ``chunk`` length, on staged (piece [C], lane, start), the two
+        0-dim, returning its logits; 'step', one greedy decode step on
+        (tokens [W, 1], positions [W]), returning (next tokens [W, 1],
+        positions + 1)."""
+        key = (kind,) if chunk is None else (kind, chunk)
+        if key not in self.calls:
+            if kind == "prefill":
+                def body(piece, lane, start):
+                    return self.model.prefill_slot(self.params, self.cache,
+                                                   piece, lane, start)[0]
+            else:
+                def body(tok, index):
+                    logits, run = self.model.decode_step(
+                        self.params, tok, {**self.cache, "index": index})
+                    return (torch.argmax(logits[:, -1, :], dim=-1)[:, None],
+                            run["index"])
+            self.calls[key] = make_call(body, self.device, pool=self.pool)
+        return self.calls[key]
 
     def prefill(self, lane: int, prompt: np.ndarray) -> None:
         """Bucket-chunked prompt prefill into ``lane``'s slot."""
         from .scheduler import bucket_chunks   # deferred: avoids a cycle
         idx = 0
         for c in bucket_chunks(len(prompt), self.buckets):
-            piece = torch.as_tensor(np.asarray(prompt[idx: idx + c],
-                                               np.int64), device=self.device)
             with traced_dispatch(self.tracer, "draft_prefill_chunk",
                                  self.cache["k"], track="draft",
                                  args={"lane": lane, "chunk": c,
                                        "start": idx}):
-                self.model.prefill_slot(self.params, self.cache, piece, lane,
-                                        idx)
+                self._call("prefill", c)(*stage(prompt[idx: idx + c], lane,
+                                                idx, device=self.device))
             self.dispatches += 1
             self.tracer.count("draft_dispatches")
             idx += c
@@ -144,13 +174,10 @@ class DraftLanes:
                 self.dispatches += 1
                 self.tracer.count("draft_dispatches")
             else:
-                cache = {**self.cache, "index": index.to(self.device)}
-                tok, outs = tok.to(self.device), []
+                step, outs = self._call("step"), []
                 for _ in range(k + 1):
-                    logits, cache = self.model.decode_step(self.params, tok,
-                                                           cache)
-                    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-                    outs.append(tok[:, 0])
+                    tok, index = step(tok, index)
+                    outs.append(tok[:, 0].clone())
                     self.dispatches += 1
                     self.tracer.count("draft_dispatches")
                 toks = torch.stack(outs, dim=1)
@@ -208,12 +235,16 @@ class SpecDecoder:
                                 torch.Generator(device=self.device
                                                 ).manual_seed(seed + 1),
                                 device=self.device))
+        # (kind, length) -> captured prefill, verify or accept call; the
+        # draft lanes' calls share the pool
+        self._calls: dict[tuple, object] = {}
+        self._pool = graph_pool(self.device)
         self.drafts = DraftLanes(draft_cfg, draft_params, lanes=1,
                                  max_len=max_len + spec.k + 1,
                                  buckets=self.buckets, sync=sync,
                                  dtype=(torch.float32
                                         if dtype == torch.float32 else None),
-                                 device=self.device)
+                                 device=self.device, pool=self._pool)
         if engine_mode is not None:
             from ..core.engine import build_hetero_ctx
             self.ctx = build_hetero_ctx(
@@ -225,9 +256,6 @@ class SpecDecoder:
             self.ctx = vctx = None
         self._prefill = partial(self.model.paged_prefill, hetero_ctx=self.ctx)
         self._verify = partial(self.model.paged_verify, hetero_ctx=vctx)
-        # (kind, length) -> captured prefill or verify call, one shared pool
-        self._calls: dict[tuple, object] = {}
-        self._pool = graph_pool(self.device)
         self.rounds = 0
         self.drafted_tokens = 0
         self.accepted_tokens = 0
@@ -253,28 +281,31 @@ class SpecDecoder:
             "emitted_tokens": self.emitted_tokens,
         }
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
-
     def graph_stats(self) -> dict:
-        """The draft lanes' decode graphs, and under ``calls`` the prefill
-        and verify graphs (pool bytes: their one shared pool's); none on
-        the CPU."""
+        """The draft lanes' decode loops, and under ``calls`` the prefill,
+        verify and accept graphs and the draft lanes' calls (pool bytes:
+        their one shared pool's); none on the CPU."""
         return {**loop_stats(self.drafts.loops.values()),
-                "calls": loop_stats(self._calls.values())}
+                "calls": loop_stats([*self._calls.values(),
+                                     *self.drafts.calls.values()])}
 
     def _call(self, kind: str, length: int):
-        """``kind``'s ('prefill' per chunk length, 'verify' per K + 1)
-        captured call over the pool, on staged tokens [1, length], block
-        table [1, NBmax] and start (a 0-dim one, or [1] for verify); its
-        logits hold until the next call."""
+        """``kind``'s ('prefill' per chunk length, 'verify' and 'accept'
+        per K + 1) captured call: prefill and verify over the pool, on
+        staged tokens [1, length], block table [1, NBmax] and start (a
+        0-dim one, or [1] for verify), returning logits; accept
+        (``greedy_verify``) on staged drafts [1, K] and the verify's
+        logits. Its outputs hold until the next call of the pool."""
         key = (kind, length)
         if key not in self._calls:
-            fn = self._prefill if kind == "prefill" else self._verify
+            if kind == "accept":
+                body = greedy_verify
+            else:
+                fn = self._prefill if kind == "prefill" else self._verify
 
-            def body(tokens, table, start):
-                return fn(self.params, tokens, self.kv.pool,
-                          block_table=table, start_index=start)[0]
+                def body(tokens, table, start):
+                    return fn(self.params, tokens, self.kv.pool,
+                              block_table=table, start_index=start)[0]
 
             self._calls[key] = make_call(body, self.device, pool=self._pool)
         return self._calls[key]
@@ -294,7 +325,7 @@ class SpecDecoder:
         for c in bucket_chunks(S, self.buckets):
             logits = self._call("prefill", c)(*stage(
                 np.asarray(prompt[idx: idx + c])[None], seq.table[None], idx,
-                device=self.device))
+                device=self.device)).clone()     # the draft prefill follows
             self.prefill_dispatches += 1
             idx += c
         seq.length = S
@@ -316,7 +347,8 @@ class SpecDecoder:
             logits = self._call("verify", k + 1)(*stage(
                 tokens, seq.table[None], [seq.length], device=self.device))
             self.verify_dispatches += 1
-            emitted, n_emit = greedy_verify(self._tensor(drafts), logits)
+            emitted, n_emit = self._call("accept", k + 1)(
+                *stage(drafts, device=self.device), logits)
             n = int(n_emit[0])
             round_budget = budget
             toks = [int(t) for t in emitted[0, :min(n, budget)].tolist()]

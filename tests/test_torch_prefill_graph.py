@@ -263,8 +263,9 @@ def llama(smoke_model):
 
 @pytest.mark.parametrize("arm", sorted(ARMS))
 def test_paged_batcher_calls_match_reference(llama, arm):
-    """The batcher's standalone prefill chunks and verify rounds through
-    their calls (one per chunk length, one per K + 1), the chunk length 16
+    """The batcher's standalone prefill chunks, verify rounds and their
+    acceptance through their calls (one per chunk length, one verify and
+    one accept per K + 1), the chunk length 16
     at starts 0 and 16: the reference batcher's tokens and dispatch
     counts."""
     ref_cfg, ref_params, cfg, params = llama
@@ -286,7 +287,7 @@ def test_paged_batcher_calls_match_reference(llama, arm):
                 "verify_dispatches"):
         assert stats.get(key) == ref_stats.get(key), key
     kinds = {key[0] for key in pb._calls}
-    assert kinds == ({"prefill", "verify"} if arm == "spec" else
+    assert kinds == ({"prefill", "verify", "accept"} if arm == "spec" else
                      {"prefill"} if stats["prefill_dispatches"] else set())
     if arm != "mixed":
         lengths = {key[-1] for key in pb._calls if key[0] == "prefill"}
@@ -297,8 +298,9 @@ def test_paged_batcher_calls_match_reference(llama, arm):
 
 @pytest.mark.parametrize("sync", ["host", "device"])
 def test_spec_decoder_calls_match_reference(llama, sync):
-    """SpecDecoder's prefill chunks (16 at 0 and 16, then 8) and verify
-    rounds through its calls: the reference's tokens and stats."""
+    """SpecDecoder's prefill chunks (16 at 0 and 16, then 8), verify
+    rounds and their acceptance through its calls: the reference's tokens
+    and stats."""
     ref_cfg, ref_params, cfg, params = llama
     prompt = _batch_prompts()[1]
     ref = RefSpecDecoder(ref_cfg, ref_params, spec=RefSpecConfig(k=K),
@@ -314,7 +316,7 @@ def test_spec_decoder_calls_match_reference(llama, sync):
     assert {k: v for k, v in stats.items() if k not in skip} == \
         {k: v for k, v in ref_stats.items() if k not in skip}
     assert set(dec._calls) == {("prefill", 16), ("prefill", 8),
-                               ("verify", K + 1)}
+                               ("verify", K + 1), ("accept", K + 1)}
 
 
 # -------------------------------------------------------- the captured call --
