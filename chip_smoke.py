@@ -417,11 +417,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # kernels whose -Xptxas -v report must show no spill: the tensor-core
 # kernels (gemm_tc, qgemm_tc in int8 and int4, flash_tc, the SSD chunk's
-# ssd_cb_tc and ssd_chunk_tc, the flash backward's two), split-KV decode
-# attention and the SSD backward's main kernel
+# ssd_cb_tc and ssd_chunk_tc, the flash backward's two wgmma kernels and
+# the SSD backward's ssd_bwd_tc) and split-KV decode attention
 SPILL_FREE = ("gemm_tc", "flash_tc", "decode_split", "decode_combine",
-              "ssd_cb_tc", "ssd_chunk_tc", "flash_bwd_dkdv_tc",
-              "flash_bwd_dq_tc", "ssd_bwd_fma")
+              "ssd_cb_tc", "ssd_chunk_tc", "flash_bwd_dkdv_wg",
+              "flash_bwd_dq_wg", "ssd_bwd_tc")
 
 
 def phase_card_and_build() -> str:
@@ -2007,6 +2007,8 @@ def _flash_bwd_case(g, B, Sq, Sk, Hkv, G, D, dt, causal, *, label: str,
            "lse_rel_err": e_lse,
            "max_abs_err": max(float((a.double() - b.double()).abs().max())
                               for a, b in zip(got, want))}
+    if label.startswith("path"):
+        row["plan"] = ops.bwd_plan(q, k, v, do, causal=causal)
     if dt == torch.float32 and Sq >= 1024:
         # the fp32 plain version's own distance from fp64, for scale
         plain = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
@@ -2062,9 +2064,10 @@ def phase_flash_bwd() -> dict:
     path's shape at qwen3-1.7b ([2, 4096, 16 / 8, 128], causal) in fp32 and
     bf16, the bf16 one timed against the plain version and SDPA's backward,
     and zamba2-2.7b's shared block ([2, 4096, 32 / 32, 80], causal, bf16:
-    the kernel's DP = 96 instantiation), timed the same way. Every case
-    also holds the forward's log-sum-exp to ``lse_ref`` and two backward
-    launches to each other, bitwise."""
+    D taken at its own 80), timed the same way; the path rows carry the
+    launch plan the C entry reports for their operands (``ops.bwd_plan``).
+    Every case also holds the forward's log-sum-exp to ``lse_ref`` and two
+    backward launches to each other, bitwise."""
     import torch
     from repro_torch.configs import dtype_of
 
@@ -2161,7 +2164,8 @@ def phase_ssd_bwd() -> dict:
     whose upper exponents overflow fp32; rel_err <= SSD_TOL on every output,
     every output finite, a second launch bitwise equal. Then the training
     path's shape (B 2, L 256, nh 80, hd = N = 64): CUDA events, the plain
-    version's time and both bounds; no PyTorch call computes it."""
+    version's time and both bounds, and the launch plan the C entry reports
+    (``ops.ssd_bwd_plan``); no PyTorch call computes it."""
     import torch
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssd_chunk_bwd_ref
@@ -2205,7 +2209,7 @@ def phase_ssd_bwd() -> dict:
     plain = ssd_chunk_bwd_ref(*ins, dy, dS)
     torch.cuda.synchronize()
     row = {"case": "path zamba2-2.7b", "shape": [Bb, L, nh, d, d],
-           "dtype": "float32",
+           "dtype": "float32", "plan": ops.ssd_bwd_plan(Bb, L, nh, d, d),
            "rel_err": dict(zip(names, (rel_err(a, b)
                                        for a, b in zip(got, want)))),
            "plain_fp32_rel_err": max(rel_err(a, b)

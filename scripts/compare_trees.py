@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card, in the order given.
 
-    python3 scripts/compare_trees.py [--host-only] TREE [TREE ...]
+    python3 scripts/compare_trees.py [--host-only | --backwards] TREE ...
 
 Each TREE is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory, and ``.``);
@@ -29,12 +29,21 @@ With ``--host-only``, each tree measures the host's cost per wrapper
 call and llama3-8b's single-request engine (hetero-tensor and xla, fast
 sync) only (a few minutes for four trees).
 
+With ``--backwards``, each tree measures the two training backwards at
+their path shapes: the flash backward (bf16, causal) at qwen3-1.7b's
+[2, 4096, 16 / 8, 128] and zamba2-2.7b's [2, 4096, 32 / 32, 80], the SSD
+chunk backward at [2, 256, 80, 64, 64]; each kernel's device time by
+name (torch.profiler) and the call's CUDA-events time; then H2 and H3's
+training steps (``chip_smoke.phase_train_full`` without the parity step):
+step seconds and busy share (about 2.5 minutes a tree).
+
 Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +63,72 @@ def _host_us(fn, iters: int = 2000) -> float:
         best = min(best, (t1 - t0) / iters * 1e6)
         torch.cuda.synchronize()
     return best
+
+
+def _by_kernel(fn, iters: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn()`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if us:
+            # the kernel's own name: the first identifier that a template
+            # or parameter list follows, namespaces dropped
+            key = e.key.replace("(anonymous namespace)::", "")
+            m = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
+            name = m.group(1) if m else key
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
+def backwards(tree: str) -> dict:
+    """The flash and SSD backwards at their path shapes, then H2 / H3."""
+    import torch
+    import chip_smoke as c
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
+
+    assert c.__file__.startswith(tree), c.__file__
+    c.phase_card_and_build()
+    out = {"tree": tree}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for label, (Hkv, G, D) in (("flash_qwen3", (8, 2, 128)),
+                               ("flash_zamba2", (32, 1, 80))):
+        def r(*shape):
+            return torch.randn(shape, generator=g, device="cuda").bfloat16()
+        q, k, v, do = (r(2, 4096, Hkv * G, D), r(2, 4096, Hkv, D),
+                       r(2, 4096, Hkv, D), r(2, 4096, Hkv * G, D))
+        lse = torch.empty((2, Hkv * G, 4096), dtype=torch.float32,
+                          device="cuda")
+        o = fops._launch(q, k, v, True, lse)
+
+        def run():
+            return fops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        out[label] = {"ms": c.cuda_time_ms(run, iters=10),
+                      "device_ms": _by_kernel(run, iters=3)}
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    ins, dy, dS = c._ssd_bwd_inputs(g, 2, 256, 80, 64, 64, state=True,
+                                    steep=False)
+
+    def ssd():
+        return sops.ssd_chunk_bwd(*ins, dy, dS)
+    out["ssd"] = {"ms": c.cuda_time_ms(ssd, iters=50),
+                  "device_ms": _by_kernel(ssd, iters=10)}
+    del ins, dy, dS
+    torch.cuda.empty_cache()
+    for label, arch in (("H2", "qwen3-1.7b"), ("H3", "zamba2-2.7b")):
+        row = c.phase_train_full(arch, label=label, parity=False)
+        out[label] = {k: row[k] for k in ("step_s", "mean_step_s",
+                                          "busy_share")}
+    return out
 
 
 def one(tree: str, host_only: bool = False) -> dict:
@@ -124,11 +199,17 @@ def one(tree: str, host_only: bool = False) -> dict:
 
 def main() -> int:
     if sys.argv[1:2] == ["--one"]:
-        print("[compare] " + json.dumps(one(sys.argv[2], sys.argv[3:] == [
-            "--host-only"])), flush=True)
+        tree = os.path.abspath(sys.argv[2])
+        if sys.argv[3:] == ["--backwards"]:
+            sys.path[:0] = [tree, os.path.join(tree, "src")]
+            result = backwards(tree)
+        else:
+            result = one(tree, sys.argv[3:] == ["--host-only"])
+        print("[compare] " + json.dumps(result), flush=True)
         return 0
-    flags = [a for a in sys.argv[1:] if a == "--host-only"]
-    trees = [a for a in sys.argv[1:] if a != "--host-only"]
+    modes = ("--host-only", "--backwards")
+    flags = [a for a in sys.argv[1:] if a in modes]
+    trees = [a for a in sys.argv[1:] if a not in modes]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2

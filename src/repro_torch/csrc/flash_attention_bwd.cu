@@ -16,39 +16,63 @@
 //   P     = exp(S * scale - lse), S = Q K^T
 //   dV    = P^T dO,  dP = dO V^T,  dS = P * (dP - delta)
 //   dK    = scale * dS^T Q,  dQ = scale * dS K
-// Two kernels after the pre-pass, neither with atomics, so a gradient is
-// bitwise the same run to run:
-//   dk/dv: one block per (batch * kv head, 64 keys); the loop inside the
-//     block walks the packed query rows (row = position * G + group, as the
-//     forward packs them) of all G query heads of the kv head, from the
-//     first row that can see the block's first key, so the GQA sum over G
-//     happens in registers;
-//   dq:    one block per (batch * kv head, 64 packed rows), looping over the
-//     key tiles up to the last one any of its rows sees, as the forward.
-// Tiles wholly in the causal future are never visited. Rows past the end,
-// keys past Sk and the padding of D (to a multiple of 32 in 16 bits, to
-// 32 / 64 / 128 in fp32) are staged as zeros; P is masked to 0 there.
+// Two kernels after the pre-pass, one for dk and dv, one for dq. Tiles
+// wholly in the causal future are never visited. Rows past the end, keys
+// past Sk and the padding of D are staged as zeros; P is masked to 0 there.
 //
 // What bounds it on the H100: at the training shape (qwen3-1.7b: B 2,
 // S 4096, 16 / 8 heads of 128, causal) the five products over the visible
 // pairs are 0.34 TFLOP a call against 202 MB of q, k, v, o, dO, lse and
 // gradients: 0.35 ms at the bf16 tensor-core rate against 0.06 ms of bytes,
 // so it is bound by operations. This design computes S and dP twice (in
-// both kernels), seven products where five would do.
+// both kernels): seven products where five would do, 0.49 ms at that rate.
+// The separate dq kernel is what keeps every sum in one fixed order without
+// a semaphore between blocks; its cost is those two products.
 //
-// bf16 / fp16: the tensor cores through mma.sync m16n8k16 (fp32
-// accumulate), four warps; every operand is read from shared memory by
-// ldmatrix (q / dO / k / v tiles in the input type, 16-byte cp.async where
-// rows are 16-byte aligned, double-buffered along the loop), and the score
-// tiles stay in registers: P and dS become A fragments of the next product
-// in registers, rounded to the input type first (the forward rounds P
-// before P V the same way). In the dk/dv kernel a warp owns 16 keys and
-// computes the transposed tiles S^T = K Q^T and dP^T = V dO^T directly, so
-// P^T and dS^T feed dV += P^T dO and dK += dS^T Q without a transpose.
-// mma.sync, not wgmma: a simple kernel first (wgmma and TMA come later).
+// bf16 / fp16: warpgroup MMA (wgmma) fed by TMA, warp-specialised. A block
+// is three warpgroups: two consumers (64 keys or positions each) and a
+// producer whose first warp keeps the loads in flight (setmaxnreg gives the
+// consumers 232 registers, the producer 40). Every 64-row tile of q, k, v or
+// dO arrives as 64 x 64 boxes of a 4-D tensor map ([B, S, H, D]: the rows
+// of one head), 128-byte swizzled, with zeros past S and D (an operand
+// whose rows or base are not 16-byte aligned is copied into the same
+// swizzled layout by the producer warp's lanes instead). D is taken at 64,
+// 80 (zamba2's own width) or 128.
+//   dk/dv: one block per (batch * kv head, 128 keys). K and V of the keys
+//     are loaded once; a ring of 3 stages (4 at D <= 64), each with a full
+//     and an empty mbarrier, brings (query head, 64-position) tiles of Q,
+//     dO and the rows' lse and delta, from the first tile that can see the
+//     block's first key, over all G query heads of the kv head, so the GQA
+//     sum is taken in the accumulators. Each consumer: S^T = K Q^T and
+//     dP^T = V dO^T as wgmma with both operands in shared memory (K-major),
+//     P^T and dS^T formed in registers (exp2 of the scaled score minus lse,
+//     the causal select, rounding to the input type), then dV += P^T dO and
+//     dK += dS^T Q as wgmma with A from registers and B the same Q / dO tile
+//     read MN-major through wgmma's transpose bit: no second copy of Q or
+//     dO. dK and dV stay in fp32 registers until the end.
+//   dq: one block per (batch * query head, 128 positions), last positions
+//     (the longest) first; Q and dO resident, a ring of 2 stages (4 at
+//     D <= 64) of 64-key K and V tiles up to the last key any row sees
+//     (dk/dv gains from a third stage, dq does not); S = Q K^T and dP = dO V^T
+//     from shared memory, dS in registers, dQ += dS K with A from
+//     registers and K read MN-major.
+// A consumer skips a tile wholly in its rows' causal future; the ring still
+// walks it (a key or position tile that some other warpgroup of the block
+// needs). In dk/dv the two consumers take turns to issue their products
+// (named barriers), so one's softmax runs under the other's products; the
+// dq kernel ran slower that way on the H100 and issues freely. Neither
+// kernel has atomics: a gradient is bitwise the same run to run.
 //
-// fp32 keeps true fp32 operands, no TF32 (the reference's 2e-6): the same
-// blocks on the CUDA cores, 256 threads as 16 x 16, tiles staged in shared
+// What holds it back (H100, qwen3's shape): dk/dv runs its four products at
+// ~475 TFLOP/s, dq its three at ~540. S^T and dP^T read both operands from
+// shared memory; at m64n64k16 that is 128 bytes a clock a warpgroup, the
+// SM's whole shared-memory rate, so two consumers' score products together
+// run at most at half the tensor rate. At zamba2's D = 80 the products are
+// shorter against the same softmax and barriers (~310 and ~385 TFLOP/s).
+//
+// fp32 keeps true fp32 operands, no TF32 (the reference's 2e-6): one block
+// per (batch * kv head, 64 keys) for dk/dv and per 64 packed rows for dq,
+// on the CUDA cores, 256 threads as 16 x 16, tiles staged in shared
 // memory transposed with a pitch of 65 so that both the row and the column
 // walks are free of bank conflicts, P^T and dS through shared memory. The
 // score and dP dot products over D are carried in fp64 (each product of two
@@ -397,13 +421,90 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------ bf16 / fp16 tensor cores --
+// ---------------------------------- bf16 / fp16: wgmma, fed by TMA --
 
-constexpr int BKV = 64;        // keys per dk/dv block (4 warps x 16)
-constexpr int BQ = 32;         // packed query rows per dk/dv tile
-constexpr int QR = 64;         // packed query rows per dq block (4 x 16)
-constexpr int BK = 64;         // keys per dq tile
-constexpr int TC_THREADS = 128;
+constexpr int TR = 64;                  // rows (keys or positions) a tile
+constexpr int CWG = 2;                  // consumer warpgroups a block
+constexpr int WG_THREADS = (CWG + 1) * 128;
+constexpr int BOX = SW128_BOX;          // one 64 x 64 16-bit swizzled box
+constexpr int PRODUCER_REGS = 40;       // setmaxnreg: 128 * 40 + 256 * 232
+constexpr int CONSUMER_REGS = 232;      //   <= 65,536
+
+// The shared-memory plan of a kernel for D taken as DN (64, 80 or 128): a
+// 64-row tile of one operand is ND boxes of 64 D-values; resident, two
+// operands for each consumer warpgroup's 64 rows (K and V of the dk/dv
+// block, Q and dO of the dq block); a ring of STAGES stages, each two
+// operand tiles (Q and dO, or K and V) and, for dk/dv, the tile's 64 rows'
+// lse * log2(e) and delta. Four stages at D <= 64; above, dk/dv takes
+// three and dq two, the fastest of two to four on the H100.
+template <int DN, bool DKDV>
+struct Plan {
+  static constexpr int ND = (DN + 63) / 64;
+  static constexpr int KS = DN / 16;    // k-steps of S and dP over D
+  static constexpr int TILE = ND * BOX;
+  static constexpr int STAGES = ND == 1 ? 4 : DKDV ? 3 : 2;
+  static constexpr int RESIDENT = 2 * CWG * TILE;
+  static constexpr int RING = STAGES * 2 * TILE;
+  static constexpr int STATS = STAGES * 2 * TR * 4;
+  static constexpr int BARS = (2 * STAGES + 1) * 8;
+  static constexpr int SMEM = 1024 + RESIDENT + RING + STATS + BARS;
+  static_assert(SMEM <= 232448, "one block an SM");
+};
+
+struct WgArgs {
+  const void *q, *k, *v, *dout;         // the untiled path's sources
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int Sq, Sk, Hkv, G, D, causal, tma;
+  float scale;
+};
+
+// A 64-row tile of a [B, S, H, D] operand (rows s0 .. s0 + 63 of head h)
+// into ND swizzled boxes at dst, as TMA lays it out (zeros past S and D),
+// by the producer warp's 32 lanes: where TMA cannot take the operand (D * 2
+// or a base not a multiple of 16 bytes). The writes are fenced for wgmma's
+// async proxy.
+template <typename T, int ND>
+__device__ void copy_tile(uint8_t* dst, const T* src, int b, int s0, int S,
+                          int H, int h, int D) {
+  const int lane = threadIdx.x % 32;
+  for (int idx = lane; idx < TR * ND * 64; idx += 32) {
+    const int r = idx / (ND * 64), d = idx % (ND * 64), s = s0 + r, c = d % 64;
+    T val = from_f32<T>(0.f);
+    if (s < S && d < D) val = src[(((long long)b * S + s) * H + h) * D + d];
+    *reinterpret_cast<T*>(dst + (d / 64) * BOX + r * 128 +
+                          (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2) = val;
+  }
+  fence_proxy_async_smem();
+}
+
+// One 64-row tile into dst: TMA boxes counted on `bar` (lane 0), or the
+// lanes' copies.
+template <typename T, int ND>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, const WgArgs& a,
+                                          const void* src, int b, int s0,
+                                          int S, int H, int h) {
+  if (a.tma) {
+    if (threadIdx.x % 32 == 0)
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        tma_load_4d(dst + i * BOX, map, bar, 64 * i, h, s0, b);
+  } else {
+    copy_tile<T, ND>(dst, static_cast<const T*>(src), b, s0, S, H, h, a.D);
+  }
+}
+
+// wgmma descriptors of k-step ks of a 64-row tile: K-major (the tile's rows
+// are the product's M or N, D its depth: S = Q K^T and the like), or
+// MN-major (the tile's 64 rows are the depth, D the N: dV += P^T dO), read
+// through wgmma's transpose bit from the same boxes.
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int ks) {
+  return sw128_desc(tile + (ks / 4) * BOX + (ks % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int ks) {
+  return sw128_desc(tile + ks * 2048, BOX, 1024);
+}
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16*, float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -414,372 +515,371 @@ __device__ __forceinline__ uint32_t pack2(__half*, float a, float b) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// ROWS rows of a tile into shared memory (pitch DP + 8): row r's source is
-// src(r) (null: zeros), D values, zeros from D to DP.
-template <typename T, int DP, int ROWS, typename Src>
-__device__ __forceinline__ void stage_rows(T* dst, int D, bool vec, Src src) {
-  constexpr int LDS = DP + 8;
-  if (vec) {
-    constexpr int chunks = DP / 8;
-    for (int idx = threadIdx.x; idx < ROWS * chunks; idx += TC_THREADS) {
-      const int r = idx / chunks, d = (idx % chunks) * 8;
-      const T* p = src(r);
-      T* t = dst + r * LDS + d;
-      if (p != nullptr && d < D) cp_async_16(t, p + d);
-      else *reinterpret_cast<uint4*>(t) = make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * DP; idx += TC_THREADS) {
-      const int r = idx / DP, d = idx % DP;
-      const T* p = src(r);
-      dst[r * LDS + d] = (p != nullptr && d < D) ? p[d] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// Fragments of m16n8k16 from a tile X in shared memory (row pitch LDS):
-// the A operand, rows m0..m0+15 x columns k0..k0+15 of X [m][k];
-template <int LDS, typename T>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const T* X, int m0,
-                                       int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(a, X + (m0 + lane % 16) * LDS + k0 + (lane / 16) * 8);
-}
-// the B operand of the n-tiles n0..n0+7 ({b[0], b[1]}) and n0+8..n0+15
-// ({b[2], b[3]}) over k0..k0+15, from X [n][k] (B = X^T) ...
-template <int LDS, typename T>
-__device__ __forceinline__ void b_frag_nk(uint32_t (&b)[4], const T* X,
-                                          int n0, int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(b, X + (n0 + lane % 8 + (lane / 16) * 8) * LDS + k0 +
-                     ((lane / 8) % 2) * 8);
-}
-// ... or from X [k][n] (B = X)
-template <int LDS, typename T>
-__device__ __forceinline__ void b_frag_kn(uint32_t (&b)[4], const T* X,
-                                          int k0, int n0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4_trans(b, X + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LDS +
-                           n0 + (lane / 16) * 8);
-}
-
-// c[2 kk], c[2 kk + 1] (C fragments of 16 rows x 16 columns) as the A
-// fragment of the next product, rounded to T.
+// Columns 16 kk .. 16 kk + 15 of a 64 x 64 wgmma accumulator as the A
+// fragment of the next product (k-step kk), rounded to T.
 template <typename T>
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack2((T*)nullptr, c0[0], c0[1]);
-  a[1] = pack2((T*)nullptr, c0[2], c0[3]);
-  a[2] = pack2((T*)nullptr, c1[0], c1[1]);
-  a[3] = pack2((T*)nullptr, c1[2], c1[3]);
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[32],
+                                         int kk) {
+  a[0] = pack2((T*)nullptr, c[8 * kk], c[8 * kk + 1]);
+  a[1] = pack2((T*)nullptr, c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack2((T*)nullptr, c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack2((T*)nullptr, c[8 * kk + 6], c[8 * kk + 7]);
 }
 
-template <int DP>
-constexpr size_t dkdv_smem_bytes() {
-  return 2 * (size_t)(DP + 8) * (2 * BKV + 4 * BQ) + sizeof(float) * 4 * BQ;
+// The consumer warpgroups take turns to issue their products: warpgroup w
+// waits at named barrier 1 + w for its turn and, its products issued,
+// hands the turn over at 2 - w, so that one warpgroup's softmax overlaps
+// the other's products.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dkdv_tc(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int Sq, int Sk, int Hkv, int G, int D,
-                  int causal, float scale, int vec) {
-  constexpr int LDS = DP + 8;
-  constexpr int KD = DP / 16;
-  constexpr int NT = BQ / 8;   // n-tiles of a score tile
-  constexpr bool HALF = std::is_same<T, __half>::value;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);     // [BKV][LDS]
-  T* Vs = Ks + BKV * LDS;                     // [BKV][LDS]
-  T* Qs = Vs + BKV * LDS;                     // [2][BQ][LDS]
-  T* dOs = Qs + 2 * BQ * LDS;                 // [2][BQ][LDS]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LDS);   // [2][BQ]
-  float* Dl = Ls + 2 * BQ;                                     // [2][BQ]
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(d[i]);
+}
 
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int k0 = blockIdx.y * BKV;
-  const int Hq = Hkv * G, n_rows = Sq * G, shift = Sk - Sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale_log2 = scale * LOG2E;
+// S = A_s B_s^T (64 x 64, depth KS k-steps) into d; A and B K-major tiles.
+template <bool HALF, int KS>
+__device__ __forceinline__ void scores(float (&d)[32], const uint8_t* A,
+                                       const uint8_t* Bt) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_m64n64k16<HALF, 0, 0>(d, kmajor(A, ks), kmajor(Bt, ks));
+}
 
-  stage_rows<T, DP, BKV>(Ks, D, vec, [&](int c) -> const T* {
-    return k0 + c < Sk ? k + row_off(b, k0 + c, Sk, Hkv, h, D) : nullptr;
-  });
-  stage_rows<T, DP, BKV>(Vs, D, vec, [&](int c) -> const T* {
-    return k0 + c < Sk ? v + row_off(b, k0 + c, Sk, Hkv, h, D) : nullptr;
-  });
-  const int first = (causal ? max(0, k0 - shift) * G : 0) / BQ * BQ;
-  const int n_tiles = (n_rows - first + BQ - 1) / BQ;
-  auto stage_q = [&](int buf, int r0) {
-    auto qrow = [&](const T* base, int r) -> const T* {
-      const int row = r0 + r;
-      if (row >= n_rows) return nullptr;
-      return base + row_off(b, row / G, Sq, Hq, h * G + row % G, D);
-    };
-    stage_rows<T, DP, BQ>(Qs + buf * BQ * LDS, D, vec,
-                          [&](int r) { return qrow(q, r); });
-    stage_rows<T, DP, BQ>(dOs + buf * BQ * LDS, D, vec,
-                          [&](int r) { return qrow(dout, r); });
-    for (int r = threadIdx.x; r < BQ; r += TC_THREADS) {
-      const int row = r0 + r;
-      const long long at = row < n_rows
-          ? ((long long)b * Hq + h * G + row % G) * Sq + row / G : -1;
-      Ls[buf * BQ + r] = at >= 0 ? lse[at] * LOG2E : 0.f;
-      Dl[buf * BQ + r] = at >= 0 ? delta[at] : 0.f;
-    }
-  };
-  if (n_tiles > 0) stage_q(0, first);
-  cp_async_commit();
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int r0 = first + t * BQ;
-    if (t + 1 < n_tiles) {
-      stage_q((t + 1) & 1, r0 + BQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Qt = Qs + (t & 1) * BQ * LDS;
-    const T* dOt = dOs + (t & 1) * BQ * LDS;
-    const float* Lt = Ls + (t & 1) * BQ;
-    const float* Dt = Dl + (t & 1) * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x BQ rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t ka[4], va[4];
-      a_frag<LDS>(ka, Ks, warp * 16, kd * 16);
-      a_frag<LDS>(va, Vs, warp * 16, kd * 16);
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        uint32_t bq[4], bo[4];
-        b_frag_nk<LDS>(bq, Qt, jp * 16, kd * 16);
-        b_frag_nk<LDS>(bo, dOt, jp * 16, kd * 16);
-        const uint32_t q0[2] = {bq[0], bq[1]}, q1[2] = {bq[2], bq[3]};
-        const uint32_t o0[2] = {bo[0], bo[1]}, o1[2] = {bo[2], bo[3]};
-        mma_16816<HALF>(s[2 * jp], ka, q0);
-        mma_16816<HALF>(s[2 * jp + 1], ka, q1);
-        mma_16816<HALF>(dp[2 * jp], va, o0);
-        mma_16816<HALF>(dp[2 * jp + 1], va, o1);
-      }
-    }
-
-    // P^T and dS^T = P^T * (dP^T - delta), element (key, row)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + lane / 4 + 8 * (e >> 1);
-        const int r = 8 * j + 2 * (lane % 4) + (e & 1), row = r0 + r;
-        const bool ok = row < n_rows && key < Sk &&
-                        (!causal || key <= row / G + shift);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - Lt[r]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - Dt[r]);
-      }
-
-    // dV += P^T dO and dK += dS^T Q, 16 rows per k-step
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t pa[4], da[4];
-      c_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
-      c_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int jp = 0; jp < KD; ++jp) {
-        uint32_t bo[4], bq[4];
-        b_frag_kn<LDS>(bo, dOt, kk * 16, jp * 16);
-        b_frag_kn<LDS>(bq, Qt, kk * 16, jp * 16);
-        const uint32_t o0[2] = {bo[0], bo[1]}, o1[2] = {bo[2], bo[3]};
-        const uint32_t q0[2] = {bq[0], bq[1]}, q1[2] = {bq[2], bq[3]};
-        mma_16816<HALF>(dva[2 * jp], pa, o0);
-        mma_16816<HALF>(dva[2 * jp + 1], pa, o1);
-        mma_16816<HALF>(dka[2 * jp], da, q0);
-        mma_16816<HALF>(dka[2 * jp + 1], da, q1);
-      }
-    }
-    __syncthreads();   // this buffer is refilled two tiles on
-  }
-
+// A warpgroup's 64 x DN accumulator (warp w: rows 16 w + lane / 4 and + 8,
+// columns 8 j + 2 (lane % 4) + {0, 1}) times `mul` into a [B, S, H, D]
+// output at rows s0 .., head h; rows past S and columns past D dropped.
+template <typename T, int DN>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DN / 2],
+                                           float mul, int b, int s0, int S,
+                                           int H, int h, int D) {
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = k0 + warp * 16 + lane / 4 + 8 * i;
-    if (key >= Sk) continue;
-    const long long at = row_off(b, key, Sk, Hkv, h, D);
+    const int s = s0 + 16 * w + lane / 4 + 8 * i;
+    if (s >= S) continue;
+    T* row = out + (((long long)b * S + s) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * j + 2 * (lane % 4) + e;
-        if (d < D) {
-          dk[at + d] = from_f32<T>(dka[j][2 * i + e] * scale);
-          dv[at + d] = from_f32<T>(dva[j][2 * i + e]);
-        }
+    for (int j = 0; j < DN / 8; ++j) {
+      const int d = 8 * j + 2 * (lane % 4);
+      const float x = acc[4 * j + 2 * i] * mul, y = acc[4 * j + 2 * i + 1] * mul;
+      if (d + 1 < D && D % 2 == 0) {
+        store2(row + d, x, y);
+      } else {
+        if (d < D) row[d] = from_f32<T>(x);
+        if (d + 1 < D) row[d + 1] = from_f32<T>(y);
       }
+    }
   }
 }
 
-template <int DP>
-constexpr size_t dq_smem_bytes() {
-  return 2 * (size_t)(DP + 8) * (2 * QR + 4 * BK);
+// dK and dV of 128 keys: one block per (batch * kv head, 128 keys), each
+// consumer warpgroup 64 keys. The ring walks the (query head g, 64-position
+// tile) pairs of the kv head from the first tile any of the block's keys
+// can see; a warpgroup skips a tile wholly in its keys' causal future.
+template <typename T, int DN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mo,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const WgArgs a) {
+  using P = Plan<DN, true>;
+  constexpr bool HALF = std::is_same<T, __half>::value;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Vs = Ks + CWG * P::TILE;
+  uint8_t* ring = Vs + CWG * P::TILE;       // [STAGES][Q, dO]
+  float* stats = reinterpret_cast<float*>(ring + P::RING);   // [STAGES][2][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(stats) + P::STATS);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* kv_bar = empty + P::STAGES;
+
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const int k0 = blockIdx.y * CWG * TR;
+  const int Sq = a.Sq, Sk = a.Sk, G = a.G, Hq = a.Hkv * G;
+  const int shift = Sk - Sq;
+  const int pt0 = a.causal ? max(0, k0 - shift) / TR : 0;
+  const int per_g = max(0, (Sq + TR - 1) / TR - pt0);
+  const int n_tiles = G * per_g;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 32);              // the producer warp's lanes
+      mbar_init(&empty[s], CWG * 4);        // one arrival a consumer warp
+    }
+    mbar_init(kv_bar, 32);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CWG) {                          // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (a.tma && lane == 0) mbar_expect_tx(kv_bar, 2 * CWG * P::TILE);
+#pragma unroll
+    for (int i = 0; i < CWG; ++i) {
+      load_tile<T, P::ND>(Ks + i * P::TILE, &mk, kv_bar, a, a.k, b,
+                          k0 + TR * i, Sk, a.Hkv, h);
+      load_tile<T, P::ND>(Vs + i * P::TILE, &mv, kv_bar, a, a.v, b,
+                          k0 + TR * i, Sk, a.Hkv, h);
+    }
+    mbar_arrive(kv_bar);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % P::STAGES;
+      if (it >= P::STAGES) mbar_wait(&empty[s], (it / P::STAGES - 1) & 1);
+      const int hq = h * G + it / per_g, p0 = (pt0 + it % per_g) * TR;
+      uint8_t* qt = ring + s * 2 * P::TILE;
+      if (a.tma && lane == 0) mbar_expect_tx(&full[s], 2 * P::TILE);
+      load_tile<T, P::ND>(qt, &mq, &full[s], a, a.q, b, p0, Sq, Hq, hq);
+      load_tile<T, P::ND>(qt + P::TILE, &mo, &full[s], a, a.dout, b, p0, Sq,
+                          Hq, hq);
+      float* st = stats + s * 2 * TR;
+      for (int r = lane; r < TR; r += 32) {
+        const int p = p0 + r;
+        const long long at = ((long long)b * Hq + hq) * Sq + p;
+        st[r] = p < Sq ? a.lse[at] * LOG2E : 0.f;
+        st[TR + r] = p < Sq ? a.delta[at] : 0.f;
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int kw = k0 + TR * wg;              // the warpgroup's first key
+  const float scale_log2 = a.scale * LOG2E;
+  const uint8_t* Kw = Ks + wg * P::TILE;
+  const uint8_t* Vw = Vs + wg * P::TILE;
+  float dk[DN / 2], dv[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_bar, 0);
+  if (wg == 1) turn_pass(wg);   // warpgroup 0 issues first
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % P::STAGES;
+    const int p0 = (pt0 + it % per_g) * TR;
+    mbar_wait(&full[s], (it / P::STAGES) & 1);
+    // the tile's last position sees the warpgroup's first key
+    if (kw >= Sk || (a.causal && kw > min(p0 + TR, Sq) - 1 + shift)) {
+      turn_wait(wg);            // two turns, nothing issued
+      turn_pass(wg);
+      turn_wait(wg);
+      turn_pass(wg);
+    } else {
+      const uint8_t* Qt = ring + s * 2 * P::TILE;
+      const uint8_t* Ot = Qt + P::TILE;
+      const float* L2 = stats + s * 2 * TR;
+      const float* Dl = L2 + TR;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 positions
+      float st[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.f;
+      fence_acc(st);
+      fence_acc(dp);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<HALF, P::KS>(st, Kw, Qt);
+      scores<HALF, P::KS>(dp, Vw, Ot);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dp);
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta), masked
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + 16 * w + lane / 4 + 8 * (e >> 1);
+          const int r = 8 * j + 2 * (lane % 4) + (e & 1), p = p0 + r;
+          const bool ok = p < Sq && key < Sk && (!a.causal || key <= p + shift);
+          const float pv = ok ? exp2f(st[4 * j + e] * scale_log2 - L2[r]) : 0.f;
+          st[4 * j + e] = pv;
+          dp[4 * j + e] = pv * (dp[4 * j + e] - Dl[r]);
+        }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a<T>(pa[kk], st, kk);
+        acc_to_a<T>(da[kk], dp, kk);
+      }
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 positions
+      fence_acc(dv);
+      fence_acc(dk);
+      turn_wait(wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_mn<HALF, DN>(dv, pa[kk], mnmajor(Ot, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_mn<HALF, DN>(dk, da[kk], mnmajor(Qt, kk));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  store_rows<T, DN>(static_cast<T*>(a.dk), dk, a.scale, b, kw, Sk, a.Hkv, h,
+                    a.D);
+  store_rows<T, DN>(static_cast<T*>(a.dv), dv, 1.f, b, kw, Sk, a.Hkv, h, a.D);
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int Sq, int Sk, int Hkv, int G, int D,
-                int causal, float scale, int vec) {
-  constexpr int LDS = DP + 8;
-  constexpr int KD = DP / 16;
+// dQ of 128 positions of one query head: one block per (batch * query head,
+// 128 positions), each consumer warpgroup 64 positions; the ring walks the
+// 64-key tiles up to the last one any of the block's rows sees, and a
+// warpgroup skips a tile wholly in its rows' causal future. Blocks of the
+// last positions (the longest) launch first.
+template <typename T, int DN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mo,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const WgArgs a) {
+  using P = Plan<DN, false>;
   constexpr bool HALF = std::is_same<T, __half>::value;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);     // [QR][LDS]
-  T* dOs = Qs + QR * LDS;                     // [QR][LDS]
-  T* Ks = dOs + QR * LDS;                     // [2][BK][LDS]
-  T* Vs = Ks + 2 * BK * LDS;                  // [2][BK][LDS]
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Os = Qs + CWG * P::TILE;
+  uint8_t* ring = Os + CWG * P::TILE;       // [STAGES][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::RING + P::STATS);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* q_bar = empty + P::STAGES;
 
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int row0 = blockIdx.y * QR;
-  const int Hq = Hkv * G, n_rows = Sq * G, shift = Sk - Sq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale_log2 = scale * LOG2E;
+  const int Sq = a.Sq, Sk = a.Sk, G = a.G, Hq = a.Hkv * G;
+  const int b = blockIdx.x / Hq, hq = blockIdx.x % Hq, h = hq / G;
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * CWG * TR;
+  const int shift = Sk - Sq;
+  const int last = min(p0 + CWG * TR, Sq) - 1;
+  const int kv_end = a.causal ? min(Sk, last + shift + 1) : Sk;
+  const int n_tiles = (kv_end + TR - 1) / TR;
 
-  const int last_row = min(row0 + QR, n_rows) - 1;
-  const int kv_end = causal ? min(Sk, last_row / G + shift + 1) : Sk;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], CWG * 4);
+    }
+    mbar_init(q_bar, 32);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  auto qrow = [&](const T* base, int r) -> const T* {
-    const int row = row0 + r;
-    if (row >= n_rows) return nullptr;
-    return base + row_off(b, row / G, Sq, Hq, h * G + row % G, D);
-  };
-  stage_rows<T, DP, QR>(Qs, D, vec, [&](int r) { return qrow(q, r); });
-  stage_rows<T, DP, QR>(dOs, D, vec, [&](int r) { return qrow(dout, r); });
-  auto stage_kv = [&](int buf, int c0) {
-    stage_rows<T, DP, BK>(Ks + buf * BK * LDS, D, vec, [&](int c) -> const T* {
-      return c0 + c < Sk ? k + row_off(b, c0 + c, Sk, Hkv, h, D) : nullptr;
-    });
-    stage_rows<T, DP, BK>(Vs + buf * BK * LDS, D, vec, [&](int c) -> const T* {
-      return c0 + c < Sk ? v + row_off(b, c0 + c, Sk, Hkv, h, D) : nullptr;
-    });
-  };
-  if (n_tiles > 0) stage_kv(0, 0);
-  cp_async_commit();
+  const int wg = threadIdx.x / 128;
+  if (wg == CWG) {                          // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    if (a.tma && lane == 0) mbar_expect_tx(q_bar, 2 * CWG * P::TILE);
+#pragma unroll
+    for (int i = 0; i < CWG; ++i) {
+      load_tile<T, P::ND>(Qs + i * P::TILE, &mq, q_bar, a, a.q, b,
+                          p0 + TR * i, Sq, Hq, hq);
+      load_tile<T, P::ND>(Os + i * P::TILE, &mo, q_bar, a, a.dout, b,
+                          p0 + TR * i, Sq, Hq, hq);
+    }
+    mbar_arrive(q_bar);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % P::STAGES;
+      if (it >= P::STAGES) mbar_wait(&empty[s], (it / P::STAGES - 1) & 1);
+      uint8_t* kt = ring + s * 2 * P::TILE;
+      if (a.tma && lane == 0) mbar_expect_tx(&full[s], 2 * P::TILE);
+      load_tile<T, P::ND>(kt, &mk, &full[s], a, a.k, b, it * TR, Sk, a.Hkv,
+                          h);
+      load_tile<T, P::ND>(kt + P::TILE, &mv, &full[s], a, a.v, b, it * TR,
+                          Sk, a.Hkv, h);
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
 
-  // this thread's two rows of the warp's 16: lane / 4 and lane / 4 + 8
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int pw = p0 + TR * wg;              // the warpgroup's first position
+  const float scale_log2 = a.scale * LOG2E;
+  const uint8_t* Qw = Qs + wg * P::TILE;
+  const uint8_t* Ow = Os + wg * P::TILE;
+  // this thread's two rows: lim, the last key each sees (-1: none)
   int lim[2];
   float l2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + warp * 16 + lane / 4 + 8 * i;
-    lim[i] = row >= n_rows ? -1 : (causal ? row / G + shift : Sk - 1);
-    const long long at = row < n_rows
-        ? ((long long)b * Hq + h * G + row % G) * Sq + row / G : -1;
-    l2[i] = at >= 0 ? lse[at] * LOG2E : 0.f;
-    dl[i] = at >= 0 ? delta[at] : 0.f;
+    const int p = pw + 16 * w + lane / 4 + 8 * i;
+    lim[i] = p >= Sq ? -1 : (a.causal ? min(p + shift, Sk - 1) : Sk - 1);
+    const long long at = ((long long)b * Hq + hq) * Sq + p;
+    l2[i] = p < Sq ? a.lse[at] * LOG2E : 0.f;
+    dl[i] = p < Sq ? a.delta[at] : 0.f;
   }
-  float acc[DP / 8][4];
+  // the end of the keys that any of the warpgroup's rows sees
+  const int w_end = pw >= Sq ? 0
+                  : a.causal ? min(Sk, min(pw + TR, Sq) + shift) : Sk;
+  float dq[DN / 2];
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < DN / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_bar, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * BK;
-    if (t + 1 < n_tiles) {
-      stage_kv((t + 1) & 1, c0 + BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % P::STAGES, c0 = it * TR;
+    mbar_wait(&full[s], (it / P::STAGES) & 1);
+    if (c0 < w_end) {
+      const uint8_t* Kt = ring + s * 2 * P::TILE;
+      const uint8_t* Vt = Kt + P::TILE;
+      // S = Q K^T and dP = dO V^T: 64 positions x 64 keys
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      fence_acc(sc);
+      fence_acc(dp);
+      wgmma_fence();
+      scores<HALF, P::KS>(sc, Qw, Kt);
+      scores<HALF, P::KS>(dp, Ow, Vt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      // dS = P (dP - delta), P = exp(S scale - lse), masked
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, key = c0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          const float pv =
+              key <= lim[i] ? exp2f(sc[4 * j + e] * scale_log2 - l2[i]) : 0.f;
+          dp[4 * j + e] = pv * (dp[4 * j + e] - dl[i]);
+        }
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(da[kk], dp, kk);
+      // dQ += dS K over the tile's 64 keys
+      fence_acc(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_mn<HALF, DN>(dq, da[kk], mnmajor(Kt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
     }
-    __syncthreads();
-    const T* Kt = Ks + (t & 1) * BK * LDS;
-    const T* Vt = Vs + (t & 1) * BK * LDS;
-
-    // S = Q K^T and dP = dO V^T: the warp's 16 rows x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t qa[4], oa[4];
-      a_frag<LDS>(qa, Qs, warp * 16, kd * 16);
-      a_frag<LDS>(oa, dOs, warp * 16, kd * 16);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bk[4], bv[4];
-        b_frag_nk<LDS>(bk, Kt, jp * 16, kd * 16);
-        b_frag_nk<LDS>(bv, Vt, jp * 16, kd * 16);
-        const uint32_t k0f[2] = {bk[0], bk[1]}, k1f[2] = {bk[2], bk[3]};
-        const uint32_t v0f[2] = {bv[0], bv[1]}, v1f[2] = {bv[2], bv[3]};
-        mma_16816<HALF>(s[2 * jp], qa, k0f);
-        mma_16816<HALF>(s[2 * jp + 1], qa, k1f);
-        mma_16816<HALF>(dp[2 * jp], oa, v0f);
-        mma_16816<HALF>(dp[2 * jp + 1], oa, v1f);
-      }
-    }
-
-    // dS = P * (dP - delta), P = exp(S * scale - lse)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, key = c0 + 8 * j + 2 * (lane % 4) + (e & 1);
-        const float p =
-            key <= lim[i] ? exp2f(s[j][e] * scale_log2 - l2[i]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[i]);
-      }
-
-    // dQ += dS K, 16 keys per k-step
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t da[4];
-      c_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int jp = 0; jp < KD; ++jp) {
-        uint32_t bk[4];
-        b_frag_kn<LDS>(bk, Kt, kk * 16, jp * 16);
-        const uint32_t k0f[2] = {bk[0], bk[1]}, k1f[2] = {bk[2], bk[3]};
-        mma_16816<HALF>(acc[2 * jp], da, k0f);
-        mma_16816<HALF>(acc[2 * jp + 1], da, k1f);
-      }
-    }
-    __syncthreads();   // this buffer is refilled two tiles on
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + warp * 16 + lane / 4 + 8 * i;
-    if (row >= n_rows) continue;
-    T* out = dq + row_off(b, row / G, Sq, Hq, h * G + row % G, D);
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * j + 2 * (lane % 4) + e;
-        if (d < D) out[d] = from_f32<T>(acc[j][2 * i + e] * scale);
-      }
-  }
+  store_rows<T, DN>(static_cast<T*>(a.dq), dq, a.scale, b, pw, Sq, Hq, hq,
+                    a.D);
 }
 
 // ------------------------------------------------------------ launches --
@@ -789,7 +889,8 @@ struct Args {
   const float* lse;
   float* delta;
   void *dq, *dk, *dv;
-  int B, Sq, Sk, Hkv, G, D, causal, vec;
+  int B, Sq, Sk, Hkv, G, D, causal;
+  int vec;     // TMA takes q, k, v, dO (D * 2, bases: multiples of 16 B)
   float scale;
 };
 
@@ -810,14 +911,52 @@ int launch_delta(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// What a call launches, as its entry decides it and the launch uses it:
+// the path (0 fp32 on the CUDA cores, 1 wgmma), D as the kernels take it,
+// threads a block, the grids of the dk/dv and dq kernels, their ring stages
+// (0 on the fp32 path) and dynamic shared memory, and whether TMA loads the
+// operands (1) or the producer warp copies them (0).
+struct Launch {
+  int wgmma, dn, threads, tma;
+  int dkdv_grid[2], dq_grid[2], stages[2], smem[2];
+};
+
 template <int DMAX>
-int launch_fma(const Args& a, cudaStream_t s) {
+Launch fma_launch(const Args& a) {
+  const int smem = (int)fma_smem_bytes<DMAX>();
+  return {0, DMAX, F_THREADS, 0,
+          {a.B * a.Hkv, (a.Sk + FR - 1) / FR},
+          {a.B * a.Hkv, (a.Sq * a.G + FR - 1) / FR}, {0, 0}, {smem, smem}};
+}
+
+template <int DN>
+Launch wg_launch(const Args& a) {
+  using PK = Plan<DN, true>;
+  using PQ = Plan<DN, false>;
+  constexpr int ROWS = CWG * TR;
+  return {1, DN, WG_THREADS, a.vec,
+          {a.B * a.Hkv, (a.Sk + ROWS - 1) / ROWS},
+          {a.B * a.Hkv * a.G, (a.Sq + ROWS - 1) / ROWS},
+          {PK::STAGES, PQ::STAGES}, {PK::SMEM, PQ::SMEM}};
+}
+
+// fp32: D taken as 32, 64 or 128; bf16 / fp16: at its own width where it is
+// zamba2's 80, else 64 or 128 (the pad is zero-filled by the loads)
+Launch plan(const Args& a, int dtype) {
+  if (dtype == 0)
+    return a.D <= 32 ? fma_launch<32>(a)
+         : a.D <= 64 ? fma_launch<64>(a) : fma_launch<128>(a);
+  return a.D <= 64 ? wg_launch<64>(a)
+       : a.D <= 80 ? wg_launch<80>(a) : wg_launch<128>(a);
+}
+
+template <int DMAX>
+int launch_fma(const Args& a, const Launch& p, cudaStream_t s) {
   static bool sized = false;   // the attributes once per instantiation
-  const size_t smem = fma_smem_bytes<DMAX>();
   cudaError_t e;
   if (!sized) {
-    if ((e = set_smem(flash_bwd_dkdv_fma<DMAX>, smem)) != cudaSuccess ||
-        (e = set_smem(flash_bwd_dq_fma<DMAX>, smem)) != cudaSuccess)
+    if ((e = set_smem(flash_bwd_dkdv_fma<DMAX>, p.smem[0])) != cudaSuccess ||
+        (e = set_smem(flash_bwd_dq_fma<DMAX>, p.smem[1])) != cudaSuccess)
       return (int)e;
     sized = true;
   }
@@ -825,69 +964,89 @@ int launch_fma(const Args& a, cudaStream_t s) {
               *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v),
               *dout = static_cast<const float*>(a.dout);
-  flash_bwd_dkdv_fma<DMAX><<<dim3(a.B * a.Hkv, (a.Sk + FR - 1) / FR),
-                              F_THREADS, smem, s>>>(
+  flash_bwd_dkdv_fma<DMAX><<<dim3(p.dkdv_grid[0], p.dkdv_grid[1]),
+                              p.threads, p.smem[0], s>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.Sq, a.Sk, a.Hkv, a.G, a.D, a.causal,
       a.scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  flash_bwd_dq_fma<DMAX><<<dim3(a.B * a.Hkv, (a.Sq * a.G + FR - 1) / FR),
-                            F_THREADS, smem, s>>>(
+  flash_bwd_dq_fma<DMAX><<<dim3(p.dq_grid[0], p.dq_grid[1]), p.threads,
+                            p.smem[1], s>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.Sq, a.Sk,
       a.Hkv, a.G, a.D, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int launch_tc(const Args& a, cudaStream_t s) {
+template <typename T, int DN>
+int launch_wg(const Args& a, const Launch& p, cudaStream_t s) {
   static bool sized = false;   // the attributes once per instantiation
   cudaError_t e;
   if (!sized) {
-    if ((e = set_smem(flash_bwd_dkdv_tc<T, DP>, dkdv_smem_bytes<DP>())) !=
-            cudaSuccess ||
-        (e = set_smem(flash_bwd_dq_tc<T, DP>, dq_smem_bytes<DP>())) !=
-            cudaSuccess)
+    if ((e = set_smem(flash_bwd_dkdv_wg<T, DN>, p.smem[0])) != cudaSuccess ||
+        (e = set_smem(flash_bwd_dq_wg<T, DN>, p.smem[1])) != cudaSuccess)
       return (int)e;
     sized = true;
   }
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v),
-          *dout = static_cast<const T*>(a.dout);
-  flash_bwd_dkdv_tc<T, DP><<<dim3(a.B * a.Hkv, (a.Sk + BKV - 1) / BKV),
-                             TC_THREADS, dkdv_smem_bytes<DP>(), s>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hkv, a.G, a.D, a.causal, a.scale,
-      a.vec);
+  constexpr bool HALF = std::is_same<T, __half>::value;
+  const int Hq = a.Hkv * a.G;
+  CUtensorMap mq{}, mo{}, mk{}, mv{};
+  if (p.tma) {
+    int r;
+    if ((r = encode_map_bshd(&mq, a.q, HALF, a.B, a.Sq, Hq, a.D)) != 0 ||
+        (r = encode_map_bshd(&mo, a.dout, HALF, a.B, a.Sq, Hq, a.D)) != 0 ||
+        (r = encode_map_bshd(&mk, a.k, HALF, a.B, a.Sk, a.Hkv, a.D)) != 0 ||
+        (r = encode_map_bshd(&mv, a.v, HALF, a.B, a.Sk, a.Hkv, a.D)) != 0)
+      return r;
+  }
+  const WgArgs w{a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.dk, a.dv,
+                 a.Sq, a.Sk, a.Hkv, a.G, a.D, a.causal, p.tma, a.scale};
+  flash_bwd_dkdv_wg<T, DN><<<dim3(p.dkdv_grid[0], p.dkdv_grid[1]),
+                             p.threads, p.smem[0], s>>>(mq, mo, mk, mv, w);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  flash_bwd_dq_tc<T, DP><<<dim3(a.B * a.Hkv, (a.Sq * a.G + QR - 1) / QR),
-                           TC_THREADS, dq_smem_bytes<DP>(), s>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk,
-      a.Hkv, a.G, a.D, a.causal, a.scale, a.vec);
+  flash_bwd_dq_wg<T, DN><<<dim3(p.dq_grid[0], p.dq_grid[1]), p.threads,
+                           p.smem[1], s>>>(mq, mo, mk, mv, w);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_tc(const Args& a, cudaStream_t s) {
+int dispatch_wg(const Args& a, const Launch& p, cudaStream_t s) {
   int e = launch_delta<T>(a, s);
   if (e != 0) return e;
-  // D padded to a multiple of 32 (the staging zero-fills the pad): half
-  // the instantiations of the forward's multiples of 16, which keeps this
-  // source's build, the longest of the port's, near the others'
-  switch ((a.D + 31) / 32) {
-    case 1: return launch_tc<T, 32>(a, s);
-    case 2: return launch_tc<T, 64>(a, s);
-    case 3: return launch_tc<T, 96>(a, s);
-    case 4: return launch_tc<T, 128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
+  switch (p.dn) {
+    case 64: return launch_wg<T, 64>(a, p, s);
+    case 80: return launch_wg<T, 80>(a, p, s);
+    default: return launch_wg<T, 128>(a, p, s);
   }
 }
 
-int dispatch_fma(const Args& a, cudaStream_t s) {
+int dispatch_fma(const Args& a, const Launch& p, cudaStream_t s) {
   int e = launch_delta<float>(a, s);
   if (e != 0) return e;
-  if (a.D <= 32) return launch_fma<32>(a, s);
-  if (a.D <= 64) return launch_fma<64>(a, s);
-  return launch_fma<128>(a, s);
+  switch (p.dn) {
+    case 32: return launch_fma<32>(a, p, s);
+    case 64: return launch_fma<64>(a, p, s);
+    default: return launch_fma<128>(a, p, s);
+  }
+}
+
+// The entry's checks and arguments, shared by the launch and its plan;
+// false where the entry refuses the shapes.
+bool make_args(Args* a, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, const void* lse, void* delta,
+               void* dq, void* dk, void* dv, int B, int Sq, int Sk, int Hkv,
+               int G, int D, int causal, int dtype) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || G <= 0 || D <= 0 ||
+      D > 128 || (causal && Sq > Sk) || (long long)Sq * G > 65535LL * FR ||
+      Sk > 65535LL * FR || dtype < 0 || dtype > 2)
+    return false;
+  const bool vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  *a = Args{q, k, v, o, dout, static_cast<const float*>(lse),
+            static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, Hkv, G, D,
+            causal, (int)vec, 1.0f / sqrtf((float)D)};
+  return true;
 }
 
 }  // namespace
@@ -906,22 +1065,38 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int Sq, int Sk, int Hkv, int G,
                                    int D, int causal, int dtype,
                                    void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || G <= 0 || D <= 0 ||
-      D > 128 || (causal && Sq > Sk) || (long long)Sq * G > 65535LL * QR ||
-      Sk > 65535LL * BKV)
+  Args a;
+  if (!make_args(&a, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hkv,
+                 G, D, causal, dtype))
     return (int)cudaErrorInvalidValue;
+  const Launch p = plan(a, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
-  const Args a{q, k, v, o, dout, static_cast<const float*>(lse),
-               static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, Hkv, G, D,
-               causal, (int)vec, 1.0f / sqrtf((float)D)};
   switch (dtype) {
-    case 0: return dispatch_fma(a, s);
-    case 1: return dispatch_tc<__nv_bfloat16>(a, s);
-    case 2: return dispatch_tc<__half>(a, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return dispatch_fma(a, p, s);
+    case 1: return dispatch_wg<__nv_bfloat16>(a, p, s);
+    default: return dispatch_wg<__half>(a, p, s);
   }
+}
+
+// What flash_attention_bwd launches for these operands (q, k, v and dout as
+// it would take them; nothing is read through them), into out[12]: path,
+// D as taken, threads, tma, the dk/dv grid (2), the dq grid (2), stages
+// (dk/dv, dq), dynamic shared memory (dk/dv, dq), as Launch holds them.
+// Returns cudaErrorInvalidValue where the entry would refuse the shapes.
+extern "C" int flash_attention_bwd_plan(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        int B, int Sq, int Sk, int Hkv, int G,
+                                        int D, int causal, int dtype,
+                                        int* out) {
+  Args a;
+  if (!make_args(&a, q, k, v, nullptr, dout, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, B, Sq, Sk, Hkv, G, D, causal, dtype))
+    return (int)cudaErrorInvalidValue;
+  const Launch p = plan(a, dtype);
+  const int v12[12] = {p.wgmma, p.dn, p.threads, p.tma,
+                       p.dkdv_grid[0], p.dkdv_grid[1], p.dq_grid[0],
+                       p.dq_grid[1], p.stages[0], p.stages[1], p.smem[0],
+                       p.smem[1]};
+  for (int i = 0; i < 12; ++i) out[i] = v12[i];
+  return 0;
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile loads and tensor maps, wgmma shared-memory descriptors
-// and the wgmma fence / commit / wait discipline, and the mma.sync / ldmatrix
+// mbarriers, TMA tile loads and tensor maps, wgmma shared-memory descriptors,
+// wgmma with both operands in shared memory or A in registers, the wgmma
+// fence / commit / wait discipline, setmaxnreg, and the mma.sync / ldmatrix
 // / cp.async instructions of the warp-level kernels (bf16 / fp16, and TF32
 // with the split of an fp32 operand into two TF32 parts). Inline PTX only; the
 // tensor maps are encoded on the host through cudaGetDriverEntryPoint, so no
@@ -42,6 +43,15 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                : "memory");
 }
 
+// Expects `bytes` more of TMA traffic on the barrier without arriving (the
+// arrival comes later, with the thread's other stores).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 // Waits until the barrier's phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -67,6 +77,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 4-D box of `map` at (c0, c1, c2, c3), innermost first, into shared
+// memory at dst; the completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -134,6 +157,29 @@ inline int encode_map_2d_u8(CUtensorMap* map, const void* base, uint64_t inner,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
                   dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 4-D map of a contiguous [B, S, H, D] tensor of 16-bit elements, dims
+// innermost first (D, H, S, B), boxes of 64 x 1 x 64 x 1 (64 rows s of one
+// head h, 64 values of D each: one 128-byte row a row), 128-byte swizzle.
+// Reads past D, S or B fill with zeros. D * 2 and the base must be multiples
+// of 16 bytes. Returns a cudaError_t.
+inline int encode_map_bshd(CUtensorMap* map, const void* base, bool is_half,
+                           uint64_t B, uint64_t S, uint64_t H, uint64_t D) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {D, H, S, B};
+  const cuuint64_t strides[3] = {D * 2, H * D * 2, S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map,
+                  is_half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  4, const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -262,6 +308,72 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 }
+
+// Warp specialisation's register split: a warpgroup gives registers back
+// (dec) or takes them (inc); every warp of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+#define WGMMA_N80_REGS \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39" \
+  "}"
+#define WGMMA_N80_OUTS \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+
+// d[N / 2] += A (64 x 16 from registers: warp w of the warpgroup holds rows
+// 16 w .. 16 w + 15 as mma.sync m16n8k16 holds its A fragment) * B (16 x N
+// from shared memory through a descriptor, MN-major: trans-b 1), for N = 64,
+// 80 or 128. The operands after the outputs: a[0..3], the descriptor,
+// the scale-d flag.
+#define WGMMA_RS(SHAPE, REGS, OUTS, A, DESC, FLAG)                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " FLAG ", 0;\n"         \
+               "wgmma.mma_async.sync.aligned." SHAPE " " REGS ", {" A "}, " \
+               DESC ", p, 1, 1, 1;\n}\n"                                  \
+               : OUTS                                                    \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <bool HALF, int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs_mn's N");
+  if constexpr (N == 64) {
+    if constexpr (HALF)
+      WGMMA_RS("m64n64k16.f32.f16.f16", WGMMA_N64_REGS, WGMMA_N64_OUTS,
+               "%32, %33, %34, %35", "%36", "%37");
+    else
+      WGMMA_RS("m64n64k16.f32.bf16.bf16", WGMMA_N64_REGS, WGMMA_N64_OUTS,
+               "%32, %33, %34, %35", "%36", "%37");
+  } else if constexpr (N == 80) {
+    if constexpr (HALF)
+      WGMMA_RS("m64n80k16.f32.f16.f16", WGMMA_N80_REGS, WGMMA_N80_OUTS,
+               "%40, %41, %42, %43", "%44", "%45");
+    else
+      WGMMA_RS("m64n80k16.f32.bf16.bf16", WGMMA_N80_REGS, WGMMA_N80_OUTS,
+               "%40, %41, %42, %43", "%44", "%45");
+  } else {
+    if constexpr (HALF)
+      WGMMA_RS("m64n128k16.f32.f16.f16", WGMMA_N128_REGS, WGMMA_N128_OUTS,
+               "%64, %65, %66, %67", "%68", "%69");
+    else
+      WGMMA_RS("m64n128k16.f32.bf16.bf16", WGMMA_N128_REGS, WGMMA_N128_OUTS,
+               "%64, %65, %66, %67", "%68", "%69");
+  }
+}
+#undef WGMMA_RS
 
 // -------------------------------------------- warp-level tensor-core MMA --
 

@@ -627,35 +627,62 @@ extern "C" int ssd_chunk_fwd(const void* xb, const void* b, const void* c,
 // What bounds it on the H100. At the zamba2-2.7b training shape (B = 2,
 // L = 256, nh = 80, hd = N = 64) the products over the causal tile pairs
 // are ~5.9 GFLOP a call as this kernel runs them (the diagonal tiles
-// whole, dM formed twice), ~88 us at the 67 TFLOP/s of fp32 outside the
-// tensor cores; the bytes (the inputs read once, the outputs written once)
-// take ~13 us. chip_smoke.py computes the exact bound of the call.
+// whole, dM formed twice): ~88 us at the 67 TFLOP/s of fp32 outside the
+// tensor cores, ~36 us as three TF32 products each at 495 TFLOP/s; the
+// bytes (the inputs read once, the outputs written once) take ~13 us.
+// chip_smoke.py computes the exact bounds of the call.
 //
-// Design: fp32 FMA on the CUDA cores, no atomics, every sum in a fixed
-// order (a gradient repeats bitwise). C.B^T comes from ssd_cb_tc into the
-// forward's scratch. ssd_bwd_fma takes grid (nh, 2T + 1, B), T = ceil(L /
-// 64), and 256 threads, each a 4 x 4 micro tile of a 64 x 64 product; the
-// jobs of a (b, h), longest first:
+// Design: split fp32 on the tensor cores, as the forward. No atomics, every
+// sum in a fixed order (a gradient repeats bitwise). C.B^T comes from
+// ssd_cb_tc into the forward's scratch. ssd_bwd_tc takes grid (nh, 2T + 1,
+// B), T = ceil(L / 64), eight warps and two blocks an SM; the jobs of a
+// (b, h), longest first:
 //  - key tile u (T of them): dX and dB_h of its 64 keys, over the row
 //    tiles t >= u (dM recomputed, M and dA through shared memory), the
 //    column sums of dMM and the key-side state terms;
 //  - row tile t (T of them): dC_h of its rows over the key tiles u <= t,
 //    the row sums of dMM and the row-side state terms;
 //  - the state: dS_prev, and exp(seg_{L-1}) sum S_prev * dS.
+// Every 64 x 64 product (dM = G X^T, M^T G, dA^T C, dA B, B dS^T, X dS,
+// C S_prev^T, G S_prev, (e^seg G)^T C) runs on mma.sync m16n8k8 TF32, each
+// fp32 operand split as it is read into hi = tf32(x) and lo = tf32(x - hi)
+// and summed as lo.hi + hi.lo + hi.hi into fp32 (one pass of TF32 misses
+// the 1e-4); warp w owns a 16 x 32 slab of the output (rows 16 (w % 4),
+// columns 32 (w / 4)). The decay is formed where the masked entries are
+// (a select above the diagonal, never exp of a positive exponent), and the
+// diagonal tile's masked entries are zeros, never multiplied by inf. Tiles
+// arrive by cp.async (16-byte copies where the operands allow), two stages
+// of the streamed operand (G in a key job, X and B in a row job) so the
+// next pair's copies run under this pair's products; they sit with a row
+// stride of 68 words and are zero past L, hd and N. Row and column sums
+// reduce by shuffles, then over the warps in order; results leave two
+// adjacent columns a store.
 // Per-head dB_h and dC_h, dseg's row and column parts and the partials of
-// d seg_{L-1} go to scratch the wrapper allocates; ssd_bwd_reduce sums them
-// over the heads and parts in a fixed order. Tiles sit in shared memory
-// with a row stride of 65 words, so that any 16 consecutive rows or columns
-// meet 16 banks, and are zero past L, hd and N.
+// d seg_{L-1} go to scratch the wrapper allocates; ssd_bwd_reduce sums dB_h
+// and dC_h over the heads with eight warps each summing a run of heads for
+// 32 consecutive elements (contiguous reads, many in flight) and warp 0
+// adding the eight runs in order.
+// What holds it back (H100, the training shape): the jobs take ~0.19 ms
+// where the split products would take ~0.04 ms at mma.sync's TF32 rate
+// (315-323 TFLOP/s, scripts/mma_rate_probe.py): the pairs run one after
+// another within a block, each a chain of dependent products, a select and
+// barriers, and two blocks an SM do not hide it. Two things this design
+// does not do: it forms the decay from dM's accumulators but passes M and
+// dA to the next products through shared tiles (they take them transposed,
+// or across both warps of a row, and m16n8k8's A layout is not its
+// accumulator's); and a diagonal pair's products run whole over the upper
+// triangle's zeros (a warp's slab is fixed and a pair ends at a barrier, so
+// the warps above the diagonal would idle, not shorten it).
 
 namespace {
 
-constexpr int BT = 256;          // threads: 16 x 16, a 4 x 4 micro tile each
-constexpr int TS = R + 1;        // the tiles' row stride (65 words)
+constexpr int BT = 256;          // threads: 8 warps, a 16 x 32 slab each
+constexpr int TS = R + 4;        // the tiles' row stride (68 words)
 constexpr int TILE = R * TS;
-constexpr int RED = R * 17;      // a [64][17] reduction scratch
-// key job: X_u, B_u, G_t, C_t, M, dA; seg of keys and rows; two scratches
-constexpr int BWD_SMEM = (int)sizeof(float) * (6 * TILE + 2 * R + 2 * RED);
+constexpr int RED = 4 * R;       // a reduction scratch: 4 partials a row
+// six tiles (the key job: X_u, two G, C_t, M, dA), three runs of seg, two
+// reduction scratches
+constexpr int BWD_SMEM = (int)sizeof(float) * (6 * TILE + 3 * R + 2 * RED);
 static_assert(2 * (BWD_SMEM + 1024) <= 233472, "two blocks an SM");
 
 struct BwdArgs {
@@ -679,142 +706,208 @@ struct BwdArgs {
   float* dtot;                   // [B, nh, T + 1] scratch: d seg_{L-1}
   int L, Lp, nh, hd, N, T;
   long long xb_b, xb_s, b_b, b_s, c_b, c_s, seg_b, seg_s, dy_b, dy_s;
+  bool vec;                      // 16-byte copies of xb, B, C, dy, S_prev, dS
 };
 
-// Rows [row0, row0 + 64) x columns [0, 64) of a row-strided fp32 matrix
-// into a [64][TS] tile: 0 past `rows` and `cols`. With `scale`, row i is
-// multiplied by exp(scale[i * scale_ld]).
-__device__ __forceinline__ void load_t(float* dst, const float* src,
-                                       long long ld, int row0, int rows,
-                                       int cols,
-                                       const float* scale = nullptr,
-                                       long long scale_ld = 0) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < R * R; e += BT) {
-    const int r = e / R, k = e % R, i = row0 + r;
-    float v = 0.f;
-    if (i < rows && k < cols) {
-      v = src[i * ld + k];
-      if (scale) v *= expf(scale[i * scale_ld]);
-    }
-    dst[r * TS + k] = v;
+// A thread's place in a 64 x 64 product: warp w owns rows rw .. rw + 15
+// (rw = 16 (w % 4)) and columns cw .. cw + 31 (cw = 32 (w / 4)); as PTX lays
+// out m16n8k8, lane 4 g + t holds acc[j][e] at row rw + g + 8 (e >> 1) and
+// column cw + 8 j + 2 t + (e & 1).
+struct Frag {
+  int rw, cw, g, t;
+  __device__ Frag() {
+    const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+    rw = 16 * (w % 4);
+    cw = 32 * (w / 4);
+    g = lane / 4;
+    t = lane % 4;
   }
-}
+  __device__ int row(int e) const { return rw + g + 8 * (e >> 1); }
+  __device__ int col(int j, int e) const { return cw + 8 * j + 2 * t + (e & 1); }
+};
 
-// 64 values of seg (one head) at rows row0 ..: 0 past L.
-__device__ __forceinline__ void load_s(float* dst, const BwdArgs& a,
-                                       const float* seg, int row0) {
-  if (threadIdx.x < R) {
-    const int i = row0 + threadIdx.x;
-    dst[threadIdx.x] = i < a.L ? seg[i * a.seg_s] : 0.f;
-  }
-}
-
-// acc[r][c] += sum_{k < K} a(16 r + ty, k) b(k, 16 c + tx) from [64][TS]
-// tiles, a(m, k) = AT ? A[k][m] : A[m][k], b(k, n) = BTR ? Bm[n][k] :
-// Bm[k][n]; k ascending.
+// acc += a(m, k) b(k, n) over k < K (rounded up to 8: the tiles are 0
+// past their extent) in split fp32 on the tensor cores, from [64][TS]
+// tiles: a(m, k) = AT ? A[k][m] : A[m][k], b(k, n) = BTR ? Bm[n][k] :
+// Bm[k][n]; each operand split into hi and lo as it is read, the slices in
+// ascending k.
 template <bool AT, bool BTR>
 __device__ __forceinline__ void mm(float (&acc)[4][4], const float* A,
                                    const float* Bm, int K) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
+  const Frag f;
+  const int m0 = f.rw + f.g;
+  for (int k = 0; k < K; k += 8) {
+    const int k0 = k + f.t;
+    const float av[4] = {
+        AT ? A[k0 * TS + m0] : A[m0 * TS + k0],
+        AT ? A[k0 * TS + m0 + 8] : A[(m0 + 8) * TS + k0],
+        AT ? A[(k0 + 4) * TS + m0] : A[m0 * TS + k0 + 4],
+        AT ? A[(k0 + 4) * TS + m0 + 8] : A[(m0 + 8) * TS + k0 + 4]};
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = AT ? A[k * TS + 16 * r + ty] : A[(16 * r + ty) * TS + k];
+    for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bv[c] = BTR ? Bm[(16 * c + tx) * TS + k] : Bm[k * TS + 16 * c + tx];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    for (int j = 0; j < 4; ++j) {
+      const int n = f.cw + 8 * j + f.g;
+      split_tf32(BTR ? Bm[n * TS + k0] : Bm[k0 * TS + n], bh[j][0], bl[j][0]);
+      split_tf32(BTR ? Bm[n * TS + k0 + 4] : Bm[(k0 + 4) * TS + n], bh[j][1],
+                 bl[j][1]);
+    }
+    mma3_frag<4>(acc, ah, al, bh, bl);
   }
+}
+
+// Rows [row0, row0 + 64) x columns [0, cols) of a row-strided fp32 matrix
+// into a [64][TS] tile, 0 past `rows` and `cols`: cp.async copies, started
+// (the caller commits and waits).
+__device__ __forceinline__ void load_t(float* dst, const float* src,
+                                       long long ld, int row0, int rows,
+                                       int cols, bool vec) {
+  load_tile<R, TS>(dst, src, ld, row0, rows, cols, vec);
+}
+
+// The sums over each row's 64 columns of the threads' partials part[i]
+// (row rw + g + 8 i, over the thread's columns), in a fixed order: the
+// quad's four lanes by shuffles, then the two column halves. Row m's sum is
+// returned in thread m (m < 64), 0 elsewhere. Callers meet at a barrier
+// first if red is reused.
+__device__ __forceinline__ float row_sum(float (&part)[2], float* red) {
+  const Frag f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
+    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
+    if (f.t == 0) red[(f.cw / 32) * R + f.rw + f.g + 8 * i] = part[i];
+  }
+  __syncthreads();
+  return threadIdx.x < R ? red[threadIdx.x] + red[R + threadIdx.x] : 0.f;
+}
+
+// The sums over each column's 64 rows of the threads' partials part[j][c]
+// (column cw + 8 j + 2 t + c, over the thread's two rows): the eight g by
+// shuffles, then the four row slabs in order; column n's in thread n.
+__device__ __forceinline__ float col_sum(float (&part)[4][2], float* red) {
+  const Frag f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = part[j][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (f.g == 0) red[(f.rw / 16) * R + f.cw + 8 * j + 2 * f.t + c] = v;
+    }
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < R)
+    for (int q = 0; q < 4; ++q) s += red[q * R + threadIdx.x];
+  return s;
 }
 
 __device__ __forceinline__ void zero4(float (&acc)[4][4]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// out[m] = sum over tx = 0 .. 15 of part[r] (m = 16 r + ty), in order, for
-// m < 64 in threads 0 .. 63 (the result is returned there, 0 elsewhere).
-// Callers meet at a barrier first if red is reused.
-__device__ __forceinline__ float sum_over_tx(const float (&part)[4],
-                                             float* red) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) red[(16 * r + ty) * 17 + tx] = part[r];
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < R)
-    for (int q = 0; q < 16; ++q) s += red[threadIdx.x * 17 + q];
-  return s;
+// A 64 x 64 tile of the C.B^T scratch (rows i0 .., columns j0 ..) into a
+// [64][TS] tile: cp.async copies, started.
+__device__ __forceinline__ void load_cb(float* dst, const float* cb, int Lp,
+                                        int i0, int j0) {
+  for (int e = threadIdx.x; e < R * R / 4; e += BT) {
+    const int r = e / (R / 4), c = (e % (R / 4)) * 4;
+    cp_async_16(&dst[r * TS + c], &cb[(size_t)(i0 + r) * Lp + j0 + c]);
+  }
 }
 
-// The same over ty: out[n] = sum over ty of part[c] (n = 16 c + tx).
-__device__ __forceinline__ float sum_over_ty(const float (&part)[4],
-                                             float* red) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// A 64 x 64 result (the thread's acc[j][e] at row row0 + f.row(e), column
+// f.col(j, e)) into out[row * ld + col] for rows < rows and columns <
+// cols, two adjacent columns a store where the row and column allow it.
+__device__ __forceinline__ void store_tile(float* out, long long ld,
+                                           const float (&acc)[4][4], int row0,
+                                           int rows, int cols) {
+  const Frag f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) red[(16 * c + tx) * 17 + ty] = part[c];
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < R)
-    for (int q = 0; q < 16; ++q) s += red[threadIdx.x * 17 + q];
-  return s;
-}
-
-// One (row tile, key tile) pair's masked entries from dM: dA = dM * dec
-// (into dA_s), M = C.B^T * dec (into M_s unless null); part[] gains the
-// thread's entries of dMM below the diagonal, by row (ROWS) or by column
-// (a diagonal entry's row and column terms cancel: it is left out of both).
-template <bool ROWS>
-__device__ __forceinline__ void pair_entries(const BwdArgs& a,
-                                             const float* cb, int i0, int j0,
-                                             const float* sr,
-                                             const float* sk,
-                                             const float (&dM)[4][4],
-                                             float* M_s, float* dA_s,
-                                             float (&part)[4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  for (int e = 0; e < 4; e += 2) {
+    const int row = row0 + f.row(e);
+    if (row >= rows) continue;
+    float* o = out + row * ld;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = 16 * r + ty, i = i0 + m;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = 16 * c + tx, j = j0 + n;
-      float mv = 0.f, da = 0.f;
-      if (i < a.L && j <= i) {
-        const float dec = expf(fminf(sr[m] - sk[n], 0.f));
-        const float cbv = cb[(size_t)i * a.Lp + j];
-        mv = cbv * dec;
-        da = dM[r][c] * dec;
-        if (j < i) part[ROWS ? r : c] += da * cbv;
+    for (int j = 0; j < 4; ++j) {
+      const int c = f.col(j, e);
+      if (c + 1 < cols && ld % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 8 == 0) {
+        *reinterpret_cast<float2*>(o + c) = make_float2(acc[j][e], acc[j][e + 1]);
+      } else {
+        if (c < cols) o[c] = acc[j][e];
+        if (c + 1 < cols) o[c + 1] = acc[j][e + 1];
       }
-      if (M_s) M_s[m * TS + n] = mv;
-      dA_s[m * TS + n] = da;
     }
   }
 }
 
+// The thread's entries of a [64][TS] tile, in acc's layout.
+__device__ __forceinline__ void read_frag(float (&v)[4][4], const float* t) {
+  const Frag f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[j][e] = t[f.row(e) * TS + f.col(j, e)];
+}
+
+// One (row tile, key tile) pair's masked entries from dM and C.B^T (cbv,
+// the thread's entries): dA = dM * dec (into dA_s), M = C.B^T * dec (into
+// M_s unless null); the thread's entries of dMM below the diagonal go into
+// rowp (by row) and colp (by column): a diagonal entry's row and column
+// terms cancel, so it is left out of both. dec is a select above the
+// diagonal, never exp of a positive exponent.
+__device__ __forceinline__ void pair_entries(const BwdArgs& a, int i0, int j0,
+                                             const float* sr, const float* sk,
+                                             const float (&dM)[4][4],
+                                             const float (&cbv)[4][4],
+                                             float* M_s, float* dA_s,
+                                             float (&rowp)[2],
+                                             float (&colp)[4][2]) {
+  const Frag f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = f.row(e), n = f.col(j, e), i = i0 + m, jj = j0 + n;
+      float mv = 0.f, da = 0.f;
+      if (i < a.L && jj <= i) {
+        const float dec = expf(fminf(sr[m] - sk[n], 0.f));
+        mv = cbv[j][e] * dec;
+        da = dM[j][e] * dec;
+        if (jj < i) {
+          rowp[e >> 1] += da * cbv[j][e];
+          colp[j][e & 1] += da * cbv[j][e];
+        }
+      }
+      if (M_s) M_s[m * TS + n] = mv;
+      dA_s[m * TS + n] = da;
+    }
+}
+
 // Key tile u of (b, h): dX and dB_h of keys j in [64 u, 64 u + 64), dseg's
-// column part there, and d seg_{L-1}'s partial sum_j w_j dw_j.
+// column part there, and d seg_{L-1}'s partial sum_j w_j dw_j. The row
+// tiles t = u .. T - 1 stream through two G buffers: G of tile t + 1 is
+// copied in while tile t's products run, C and C.B^T of t + 1 as soon as
+// the dB product has read tile t's (C.B^T lands in the dA tile, which the
+// entries overwrite in place), during the dX product; the last pair brings
+// B_u and dS for the state terms the same way.
 __device__ void bwd_keys(const BwdArgs& a, int bb, int h, int u, float* sm) {
   float* Xu = sm;
-  float* Bu = Xu + TILE;
-  float* Gt = Bu + TILE;
-  float* Ct = Gt + TILE;
+  float* Gb = Xu + TILE;         // two G buffers
+  float* Ct = Gb + 2 * TILE;
   float* Ms = Ct + TILE;
-  float* As = Ms + TILE;
+  float* As = Ms + TILE;         // C.B^T of the pair as it lands, then dA
   float* sk = As + TILE;
-  float* sr = sk + R;
-  float* red = sr + R;
+  float* srb = sk + R;           // seg of the rows, two buffers
+  float* red = srb + 2 * R;
+  const Frag f;
   const int L = a.L, hd = a.hd, N = a.N, j0 = u * R;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* xb = a.xb + bb * a.xb_b + (long long)h * hd;
   const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
   const float* B = a.b + bb * a.b_b;
@@ -822,55 +915,73 @@ __device__ void bwd_keys(const BwdArgs& a, int bb, int h, int u, float* sm) {
   const float* seg = a.seg + bb * a.seg_b + h;
   const float* cb = a.cb + (size_t)bb * a.Lp * a.Lp;
   const long long bh = (long long)bb * a.nh + h;
+  const auto load_g = [&](int t) {
+    load_t(Gb + (t & 1) * TILE, dy, a.dy_s, t * R, L, hd, a.vec);
+    load_seg(srb + (t & 1) * R, seg, a.seg_s, t * R, L);
+  };
+  const auto load_c = [&](int t) {
+    load_t(Ct, C, a.c_s, t * R, L, N, a.vec);
+    load_cb(As, cb, a.Lp, t * R, j0);
+  };
 
-  load_t(Xu, xb, a.xb_s, j0, L, hd);
-  load_t(Bu, B, a.b_s, j0, L, N);
-  load_s(sk, a, seg, j0);
-  float dX[4][4], dB[4][4], colp[4] = {0.f, 0.f, 0.f, 0.f};
+  load_t(Xu, xb, a.xb_s, j0, L, hd, a.vec);
+  load_seg(sk, seg, a.seg_s, j0, L);
+  load_g(u);
+  load_c(u);
+  cp_async_commit();
+  float dX[4][4], dB[4][4], rowp[2] = {0.f, 0.f}, colp[4][2] = {};
   zero4(dX);
   zero4(dB);
   for (int t = u; t < a.T; ++t) {
-    const int i0 = t * R;
-    __syncthreads();             // the last pair's tiles are read
-    load_t(Gt, dy, a.dy_s, i0, L, hd);
-    load_t(Ct, C, a.c_s, i0, L, N);
-    load_s(sr, a, seg, i0);
-    __syncthreads();
-    float dM[4][4];
+    const int i0 = t * R, K = min(R, L - i0);
+    const float* Gt = Gb + (t & 1) * TILE;
+    cp_async_wait<0>();
+    __syncthreads();             // pair t is in; pair t - 1's reads are done
+    if (t + 1 < a.T) load_g(t + 1);
+    else load_t(Gb + ((t + 1) & 1) * TILE, B, a.b_s, j0, L, N, a.vec);
+    cp_async_commit();
+    float dM[4][4], cbv[4][4];
     zero4(dM);
     mm<false, true>(dM, Gt, Xu, hd);          // dM(i, j) = G_i . X_j
-    pair_entries<false>(a, cb, i0, j0, sr, sk, dM, Ms, As, colp);
+    read_frag(cbv, As);
+    pair_entries(a, i0, j0, srb + (t & 1) * R, sk, dM, cbv, Ms, As, rowp,
+                 colp);
     __syncthreads();
-    const int K = min(R, L - i0);
-    mm<true, false>(dX, Ms, Gt, K);           // dX(j, p) += M(i, j) G(i, p)
     mm<true, false>(dB, As, Ct, K);           // dB(j, n) += dA(i, j) C(i, n)
+    __syncthreads();             // C and dA are read: the next pair's land
+    if (t + 1 < a.T) load_c(t + 1);
+    else load_t(Ct, a.ds + bh * hd * N, N, 0, hd, N, a.vec);
+    cp_async_commit();
+    mm<true, false>(dX, Ms, Gt, K);           // dX(j, p) += M(i, j) G(i, p)
   }
 
-  // the state's terms: dS [hd][N] into G's tile
+  // the state's terms: B_u in the free G buffer, dS [hd][N] in C's tile
+  cp_async_wait<0>();
   __syncthreads();
-  float* Ds = Gt;
-  load_t(Ds, a.ds + bh * hd * N, N, 0, hd, N);
-  __syncthreads();
+  const float* Bu = Gb + (a.T & 1) * TILE;
+  const float* Ds = Ct;
   float bd[4][4], xds[4][4];
   zero4(bd);
   zero4(xds);
   mm<false, true>(bd, Bu, Ds, N);             // (B dS^T)(j, p)
   mm<false, false>(xds, Xu, Ds, hd);          // (X dS)(j, n)
   const float tot = seg[(L - 1) * a.seg_s];
-  float dwp[4] = {0.f, 0.f, 0.f, 0.f}, wr[4];
+  float dwp[2] = {0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = 16 * r + ty;
-    wr[r] = j0 + m < L ? expf(tot - sk[m]) : 0.f;
+  for (int e = 0; e < 4; e += 2) {
+    const int m = f.row(e);
+    const float wr = j0 + m < L ? expf(tot - sk[m]) : 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      dwp[r] += Xu[m * TS + 16 * c + tx] * bd[r][c];
-      dX[r][c] += wr[r] * bd[r][c];
-      dB[r][c] += wr[r] * xds[r][c];
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dwp[e >> 1] += Xu[m * TS + f.col(j, e + c)] * bd[j][e + c];
+        dX[j][e + c] += wr * bd[j][e + c];
+        dB[j][e + c] += wr * xds[j][e + c];
+      }
   }
-  const float dw = sum_over_tx(dwp, red);
-  const float cs = sum_over_ty(colp, red + RED);
+  const float dw = row_sum(dwp, red);
+  const float cs = col_sum(colp, red + RED);
   __syncthreads();               // red is free again below
   // key L - 1 (w = 1) would add -dw to dseg_{L-1} here and +dw through
   // d seg_{L-1}: it is left out of both, so the two cancel exactly
@@ -891,32 +1002,26 @@ __device__ void bwd_keys(const BwdArgs& a, int bb, int h, int u, float* sm) {
   }
 
   // dX into dxb; dB_h into its scratch
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + 16 * r + ty;
-    if (j >= L) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = 16 * c + tx;
-      if (k < hd) a.dxb[(((long long)bb * L + j) * a.nh + h) * hd + k] = dX[r][c];
-      if (k < N) a.dbh[(bh * L + j) * N + k] = dB[r][c];
-    }
-  }
+  store_tile(a.dxb + ((long long)bb * L * a.nh + h) * hd, (long long)a.nh * hd,
+             dX, j0, L, hd);
+  store_tile(a.dbh + bh * L * N, N, dB, j0, L, N);
 }
 
 // Row tile t of (b, h): dC_h of rows i in [64 t, 64 t + 64) and dseg's row
-// part there.
+// part there. The key tiles u = 0 .. t stream through two X and two B
+// buffers (tile u + 1 copied in while tile u's products run; the pair's
+// C.B^T read into registers before the tiles land); the last pair brings
+// S_prev and C_t for the state terms the same way.
 __device__ void bwd_rows(const BwdArgs& a, int bb, int h, int t, float* sm) {
   float* Gt = sm;
-  float* Ct = Gt + TILE;
-  float* Xu = Ct + TILE;
-  float* Bu = Xu + TILE;
-  float* As = Bu + TILE;
-  float* sk = sm + 6 * TILE;     // where the key job keeps them
-  float* sr = sk + R;
-  float* red = sr + R;
+  float* Xb = Gt + TILE;         // two X buffers
+  float* Bb = Xb + 2 * TILE;     // two B buffers
+  float* As = Bb + 2 * TILE;
+  float* sr = sm + 6 * TILE;
+  float* skb = sr + R;           // seg of the keys, two buffers
+  float* red = skb + 2 * R;
+  const Frag f;
   const int L = a.L, hd = a.hd, N = a.N, i0 = t * R;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* xb = a.xb + bb * a.xb_b + (long long)h * hd;
   const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
   const float* B = a.b + bb * a.b_b;
@@ -924,104 +1029,134 @@ __device__ void bwd_rows(const BwdArgs& a, int bb, int h, int t, float* sm) {
   const float* seg = a.seg + bb * a.seg_b + h;
   const float* cb = a.cb + (size_t)bb * a.Lp * a.Lp;
   const long long bh = (long long)bb * a.nh + h;
+  const auto load_k = [&](int u) {
+    load_t(Xb + (u & 1) * TILE, xb, a.xb_s, u * R, L, hd, a.vec);
+    load_t(Bb + (u & 1) * TILE, B, a.b_s, u * R, L, N, a.vec);
+    load_seg(skb + (u & 1) * R, seg, a.seg_s, u * R, L);
+  };
 
-  load_t(Gt, dy, a.dy_s, i0, L, hd);
-  load_t(Ct, C, a.c_s, i0, L, N);
-  load_s(sr, a, seg, i0);
-  float dC[4][4], rowp[4] = {0.f, 0.f, 0.f, 0.f};
+  load_t(Gt, dy, a.dy_s, i0, L, hd, a.vec);
+  load_seg(sr, seg, a.seg_s, i0, L);
+  load_k(0);
+  cp_async_commit();
+  float dC[4][4], rowp[2] = {0.f, 0.f}, colp[4][2] = {};
   zero4(dC);
   for (int u = 0; u <= t; ++u) {
     const int j0 = u * R;
-    __syncthreads();             // the last pair's tiles are read
-    load_t(Xu, xb, a.xb_s, j0, L, hd);
-    load_t(Bu, B, a.b_s, j0, L, N);
-    load_s(sk, a, seg, j0);
-    __syncthreads();
+    float cbv[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cbv[j][e] = cb[(size_t)(i0 + f.row(e)) * a.Lp + j0 + f.col(j, e)];
+    cp_async_wait<0>();
+    __syncthreads();             // pair u is in; pair u - 1's reads are done
+    if (u < t) {
+      load_k(u + 1);
+    } else {
+      load_t(Xb + ((u + 1) & 1) * TILE, a.s_prev + bh * hd * N, N, 0, hd, N,
+             a.vec);
+      load_t(Bb + ((u + 1) & 1) * TILE, C, a.c_s, i0, L, N, a.vec);
+    }
+    cp_async_commit();
     float dM[4][4];
     zero4(dM);
-    mm<false, true>(dM, Gt, Xu, hd);
-    pair_entries<true>(a, cb, i0, j0, sr, sk, dM, nullptr, As, rowp);
+    mm<false, true>(dM, Gt, Xb + (u & 1) * TILE, hd);
+    pair_entries(a, i0, j0, sr, skb + (u & 1) * R, dM, cbv, nullptr, As,
+                 rowp, colp);
     __syncthreads();
-    mm<false, false>(dC, As, Bu, min(R, L - j0));   // dC(i, n) += dA(i, j) B(j, n)
+    // dC(i, n) += dA(i, j) B(j, n)
+    mm<false, false>(dC, As, Bb + (u & 1) * TILE, min(R, L - j0));
   }
 
-  // the state's terms: S_prev [hd][N] into X's tile
+  // the state's terms: S_prev [hd][N] and C_t in the free buffers
+  cp_async_wait<0>();
   __syncthreads();
-  float* Ps = Xu;
-  load_t(Ps, a.s_prev + bh * hd * N, N, 0, hd, N);
-  __syncthreads();
+  const float* Ps = Xb + ((t + 1) & 1) * TILE;
+  const float* Ct = Bb + ((t + 1) & 1) * TILE;
   float y0[4][4], gp[4][4];
   zero4(y0);
   zero4(gp);
   mm<false, true>(y0, Ct, Ps, N);             // (C S_prev^T)(i, p)
   mm<false, false>(gp, Gt, Ps, hd);           // (G S_prev)(i, n)
-  float yp[4] = {0.f, 0.f, 0.f, 0.f};
+  float yp[2] = {0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = 16 * r + ty;
+  for (int e = 0; e < 4; e += 2) {
+    const int m = f.row(e);
     const float es = i0 + m < L ? expf(sr[m]) : 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      yp[r] += Gt[m * TS + 16 * c + tx] * y0[r][c];
-      dC[r][c] += es * gp[r][c];
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        yp[e >> 1] += Gt[m * TS + f.col(j, e + c)] * y0[j][e + c];
+        dC[j][e + c] += es * gp[j][e + c];
+      }
   }
-  const float rs = sum_over_tx(rowp, red);
-  const float gy = sum_over_tx(yp, red + RED);
+  const float rs = row_sum(rowp, red);
+  const float gy = row_sum(yp, red + RED);
   if (threadIdx.x < R && i0 + threadIdx.x < L)
     a.dsr[bh * L + i0 + threadIdx.x] = rs + expf(sr[threadIdx.x]) * gy;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 16 * r + ty;
-    if (i >= L) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = 16 * c + tx;
-      if (n < N) a.dch[(bh * L + i) * N + n] = dC[r][c];
-    }
-  }
+  store_tile(a.dch + bh * L * N, N, dC, i0, L, N);
 }
 
 // The state of (b, h): dS_prev = exp(tot) dS + (exp(seg) G)^T C, and
-// d seg_{L-1}'s partial exp(tot) sum S_prev * dS.
+// d seg_{L-1}'s partial exp(tot) sum S_prev * dS. The row tiles stream
+// through two G and two C buffers.
 __device__ void bwd_state(const BwdArgs& a, int bb, int h, float* sm) {
-  float* Ge = sm;
-  float* Ct = Ge + TILE;
-  float* red = sm + 6 * TILE + 2 * R;
+  float* Gb = sm;                // two G buffers (scaled in place)
+  float* Cb = sm + 2 * TILE;     // two C buffers
+  float* srb = sm + 6 * TILE;    // seg of the rows, two buffers
+  float* red = srb + 3 * R;
+  const Frag f;
   const int L = a.L, hd = a.hd, N = a.N;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* dy = a.dy + bb * a.dy_b + (long long)h * hd;
   const float* C = a.c + bb * a.c_b;
   const float* seg = a.seg + bb * a.seg_b + h;
   const long long bh = (long long)bb * a.nh + h;
+  const auto load_r = [&](int t) {
+    load_t(Gb + (t & 1) * TILE, dy, a.dy_s, t * R, L, hd, a.vec);
+    load_t(Cb + (t & 1) * TILE, C, a.c_s, t * R, L, N, a.vec);
+    load_seg(srb + (t & 1) * R, seg, a.seg_s, t * R, L);
+  };
+  load_r(0);
+  cp_async_commit();
   float acc[4][4];
   zero4(acc);
   for (int t = 0; t < a.T; ++t) {
     const int i0 = t * R;
+    float* Ge = Gb + (t & 1) * TILE;
+    const float* sr = srb + (t & 1) * R;
+    cp_async_wait<0>();
+    __syncthreads();             // tile t is in; tile t - 1's reads are done
+    if (t + 1 < a.T) load_r(t + 1);
+    cp_async_commit();
+    for (int e = threadIdx.x; e < R * R; e += BT) {   // exp(seg_i) G_i
+      const int r = e / R, k = e % R;
+      if (i0 + r < L) Ge[r * TS + k] *= expf(sr[r]);
+    }
     __syncthreads();
-    load_t(Ge, dy, a.dy_s, i0, L, hd, seg, a.seg_s);   // exp(seg_i) G_i
-    load_t(Ct, C, a.c_s, i0, L, N);
-    __syncthreads();
-    mm<true, false>(acc, Ge, Ct, min(R, L - i0));     // (p, n) += Ge(i, p) C(i, n)
+    // (p, n) += Ge(i, p) C(i, n)
+    mm<true, false>(acc, Ge, Cb + (t & 1) * TILE, min(R, L - i0));
   }
   const float e_tot = expf(seg[(L - 1) * a.seg_s]);
   const float* ds = a.ds + bh * hd * N;
   const float* sp = a.s_prev + bh * hd * N;
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  float part[2] = {0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = 16 * r + ty;
+  for (int e = 0; e < 4; ++e) {
+    const int p = f.row(e);
     if (p >= hd) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = 16 * c + tx;
+    for (int j = 0; j < 4; ++j) {
+      const int n = f.col(j, e);
       if (n >= N) continue;
       const long long at = (long long)p * N + n;
-      a.dsp[bh * hd * N + at] = e_tot * ds[at] + acc[r][c];
-      part[r] += sp[at] * ds[at];
+      acc[j][e] += e_tot * ds[at];
+      part[e >> 1] += sp[at] * ds[at];
     }
   }
-  const float s = sum_over_tx(part, red);
+  store_tile(a.dsp + bh * hd * N, N, acc, 0, hd, N);
+  const float s = row_sum(part, red);
   __syncthreads();
   if (threadIdx.x < R) red[RED + threadIdx.x] = s;
   __syncthreads();
@@ -1032,7 +1167,7 @@ __device__ void bwd_state(const BwdArgs& a, int bb, int h, float* sm) {
   }
 }
 
-__global__ void __launch_bounds__(BT, 2) ssd_bwd_fma(BwdArgs a) {
+__global__ void __launch_bounds__(BT, 2) ssd_bwd_tc(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, job = blockIdx.y, bb = blockIdx.z;
   // the longest first: key tiles 0 .. T - 1, row tiles T - 1 .. 0, state
@@ -1044,23 +1179,45 @@ __global__ void __launch_bounds__(BT, 2) ssd_bwd_fma(BwdArgs a) {
     bwd_state(a, bb, h, smem);
 }
 
-// dB and dC summed over the heads, dseg = row part + column part (+ the
-// partials of d seg_{L-1} at L - 1), each in a fixed order: element e of
-// batch blockIdx.y.
-__global__ void __launch_bounds__(BT) ssd_bwd_reduce(BwdArgs a) {
+// The sums over the heads, each in a fixed order. Blocks x < red_blocks:
+// dB and dC at 32 consecutive elements of batch blockIdx.y, the eight warps
+// summing eight runs of heads, then warp 0 the eight partials in order;
+// the rest: dseg = row part + column part (+ the partials of d seg_{L-1}
+// at L - 1), an element a thread.
+constexpr int RED_HEADS = BT / 32;
+__global__ void __launch_bounds__(BT) ssd_bwd_reduce(BwdArgs a, int red_blocks) {
+  __shared__ float part[2][RED_HEADS][32];
   const int bb = blockIdx.y, L = a.L, N = a.N, nh = a.nh;
-  const long long e = (long long)blockIdx.x * BT + threadIdx.x;
-  if (e < (long long)L * N) {
-    const long long i = e / N, n = e % N;
+  if ((int)blockIdx.x < red_blocks) {
+    const int lane = threadIdx.x % 32, run = threadIdx.x / 32;
+    const long long e = (long long)blockIdx.x * 32 + lane, LN = (long long)L * N;
+    const int per = (nh + RED_HEADS - 1) / RED_HEADS;
+    const int h0 = run * per, h1 = min(nh, h0 + per);
     float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < nh; ++h) {
-      const long long at = (((long long)bb * nh + h) * L + i) * N + n;
-      sb += a.dbh[at];
-      sc += a.dch[at];
+    if (e < LN) {
+      const long long at = (long long)bb * nh * LN + e;
+#pragma unroll 8
+      for (int h = h0; h < h1; ++h) {
+        sb += a.dbh[at + h * LN];
+        sc += a.dch[at + h * LN];
+      }
     }
-    a.db[((long long)bb * L + i) * N + n] = sb;
-    a.dc[((long long)bb * L + i) * N + n] = sc;
+    part[0][run][lane] = sb;
+    part[1][run][lane] = sc;
+    __syncthreads();
+    if (run == 0 && e < LN) {
+      float tb = 0.f, tc = 0.f;
+#pragma unroll
+      for (int q = 0; q < RED_HEADS; ++q) {
+        tb += part[0][q][lane];
+        tc += part[1][q][lane];
+      }
+      a.db[(long long)bb * LN + e] = tb;
+      a.dc[(long long)bb * LN + e] = tc;
+    }
+    return;
   }
+  const long long e = (long long)(blockIdx.x - red_blocks) * BT + threadIdx.x;
   if (e < (long long)L * nh) {
     const long long i = e / nh, h = e % nh, bh = (long long)bb * nh + h;
     float v = a.dsr[bh * L + i] + a.dsc[bh * L + i];
@@ -1071,6 +1228,33 @@ __global__ void __launch_bounds__(BT) ssd_bwd_reduce(BwdArgs a) {
     }
     a.dseg[((long long)bb * L + i) * nh + h] = v;
   }
+}
+
+// What ssd_chunk_bwd launches at these sizes, as its entry uses it: the
+// grids of C.B^T, the jobs and the sums over heads; threads a block of each;
+// C.B^T's K (N taken as 16, 32 or 64) and its shared memory; the jobs'
+// dynamic shared memory; and the reduce's blocks of dB / dC (the rest sum
+// dseg). ok is false where the entry refuses the sizes.
+struct BwdLaunch {
+  int ok, cb_grid[2], jobs_grid[3], reduce_grid[2];
+  int cb_threads, jobs_threads, reduce_threads, cb_k, cb_bytes, jobs_smem,
+      red_blocks;
+};
+
+BwdLaunch bwd_launch(int B, int L, int nh, int hd, int N) {
+  BwdLaunch p{};
+  const int T = (L + R - 1) / R;
+  if (B <= 0 || L <= 0 || nh <= 0 || hd <= 0 || N <= 0 || hd > 64 || N > 64 ||
+      B > 65535 || 2 * T + 1 > 65535)
+    return p;
+  const int red_blocks = (int)(((long long)L * N + 31) / 32);
+  const int seg_blocks = (int)(((long long)L * nh + BT - 1) / BT);
+  const int cb_k = N <= 16 ? 16 : N <= 32 ? 32 : 64;
+  const int cb_bytes =
+      cb_k == 16 ? cb_smem<16>() : cb_k == 32 ? cb_smem<32>() : cb_smem<64>();
+  return {1, {T * (T + 1) / 2, B}, {nh, 2 * T + 1, B},
+          {red_blocks + seg_blocks, B}, CB_THREADS, BT, BT, cb_k, cb_bytes,
+          BWD_SMEM, red_blocks};
 }
 
 }  // namespace
@@ -1094,14 +1278,18 @@ extern "C" int ssd_chunk_bwd(const void* xb, const void* b, const void* c,
                              long long c_ss, long long seg_bs,
                              long long seg_ss, long long dy_bs,
                              long long dy_ss, void* stream) {
-  const int T = (L + R - 1) / R;
-  if (B <= 0 || L <= 0 || nh <= 0 || hd <= 0 || N <= 0 || hd > 64 || N > 64 ||
-      B > 65535 || 2 * T + 1 > 65535 ||
-      reinterpret_cast<uintptr_t>(cb) % 16)
+  const BwdLaunch p = bwd_launch(B, L, nh, hd, N);
+  if (!p.ok || reinterpret_cast<uintptr_t>(cb) % 16)
     return (int)cudaErrorInvalidValue;
+  const int T = (L + R - 1) / R;
   const bool vec =
       N % 4 == 0 && (b_bs | b_ss | c_bs | c_ss) % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+  const bool vec_all =
+      vec && hd % 4 == 0 && (xb_bs | xb_ss | dy_bs | dy_ss) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(xb) | reinterpret_cast<uintptr_t>(dy) |
+       reinterpret_cast<uintptr_t>(s_prev) | reinterpret_cast<uintptr_t>(ds)) %
+              16 == 0;
   // C.B^T as the forward forms it (ssd_cb_tc reads only b, c and cb)
   const Args f{static_cast<const float*>(xb), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<const float*>(seg),
@@ -1119,31 +1307,49 @@ extern "C" int ssd_chunk_bwd(const void* xb, const void* b, const void* c,
                   static_cast<float*>(dsr), static_cast<float*>(dsc),
                   static_cast<float*>(dtot), L, T * R, nh, hd, N, T,
                   xb_bs, xb_ss, b_bs, b_ss, c_bs, c_ss, seg_bs, seg_ss,
-                  dy_bs, dy_ss};
+                  dy_bs, dy_ss, vec_all};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool sized = false;     // the attribute once
   cudaError_t e;
   if (!sized) {
-    e = cudaFuncSetAttribute(ssd_bwd_fma,
+    e = cudaFuncSetAttribute(ssd_bwd_tc,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             BWD_SMEM);
+                             p.jobs_smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  const dim3 cb_grid(T * (T + 1) / 2, B);
-  const int d = N;               // ssd_cb_tc's K is N
-  if (d <= 16)
-    ssd_cb_tc<16><<<cb_grid, CB_THREADS, cb_smem<16>(), s>>>(f);
-  else if (d <= 32)
-    ssd_cb_tc<32><<<cb_grid, CB_THREADS, cb_smem<32>(), s>>>(f);
+  const dim3 cb_grid(p.cb_grid[0], p.cb_grid[1]);
+  if (p.cb_k == 16)
+    ssd_cb_tc<16><<<cb_grid, p.cb_threads, p.cb_bytes, s>>>(f);
+  else if (p.cb_k == 32)
+    ssd_cb_tc<32><<<cb_grid, p.cb_threads, p.cb_bytes, s>>>(f);
   else
-    ssd_cb_tc<64><<<cb_grid, CB_THREADS, cb_smem<64>(), s>>>(f);
+    ssd_cb_tc<64><<<cb_grid, p.cb_threads, p.cb_bytes, s>>>(f);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_bwd_fma<<<dim3(nh, 2 * T + 1, B), BT, BWD_SMEM, s>>>(a);
+  ssd_bwd_tc<<<dim3(p.jobs_grid[0], p.jobs_grid[1], p.jobs_grid[2]),
+               p.jobs_threads, p.jobs_smem, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long work = (long long)L * (N > nh ? N : nh);
-  ssd_bwd_reduce<<<dim3((unsigned)((work + BT - 1) / BT), B), BT, 0, s>>>(a);
+  ssd_bwd_reduce<<<dim3(p.reduce_grid[0], p.reduce_grid[1]),
+                   p.reduce_threads, 0, s>>>(a, p.red_blocks);
   return (int)cudaGetLastError();
+}
+
+// What ssd_chunk_bwd launches at these sizes, into out[14]: the C.B^T grid
+// (2), the jobs' grid (3), the reduce's grid (2), threads of the three, C.B^T's
+// K and shared memory, the jobs' dynamic shared memory and the reduce's
+// blocks of dB / dC, as BwdLaunch holds them. Returns cudaErrorInvalidValue
+// where the entry would refuse the sizes.
+extern "C" int ssd_chunk_bwd_plan(int B, int L, int nh, int hd, int N,
+                                  int* out) {
+  const BwdLaunch p = bwd_launch(B, L, nh, hd, N);
+  if (!p.ok) return (int)cudaErrorInvalidValue;
+  const int v14[14] = {p.cb_grid[0], p.cb_grid[1], p.jobs_grid[0],
+                       p.jobs_grid[1], p.jobs_grid[2], p.reduce_grid[0],
+                       p.reduce_grid[1], p.cb_threads, p.jobs_threads,
+                       p.reduce_threads, p.cb_k, p.cb_bytes, p.jobs_smem,
+                       p.red_blocks};
+  for (int i = 0; i < 14; ++i) out[i] = v14[i];
+  return 0;
 }

@@ -41,11 +41,14 @@ import ctypes
 import torch
 
 from .. import work
-from ..build import counted, entry
+from ..build import counted, entry, load
 from ..library import kernel_op, routed
 from .ref import attention_at_ref, attention_bwd_ref, attention_ref, lse_ref
 
 MAX_D = 128                    # both attention kernels' largest head dim
+# the backward's grid along keys and packed query rows (its fp32 kernels'
+# 64-row tiles, at most 65,535 of them): the entry refuses longer ones
+BWD_MAX_ROWS = 65535 * 64
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -229,6 +232,36 @@ _flash_bwd = kernel_op(
     work=_bwd_work)
 
 
+def bwd_plan(q, k, v, do, *, causal: bool = True) -> dict:
+    """What ``flash_attention_bwd`` launches for these CUDA operands, as
+    the C entry decides it (``flash_attention_bwd_plan`` in
+    ``csrc/flash_attention_bwd.cu``, the code the launch itself runs): the
+    path (bf16 / fp16 on wgmma, fp32 on the CUDA cores), D as the kernels
+    take it, threads a block, the dk/dv and dq grids and their dynamic
+    shared memory; on wgmma also the ring's stages and whether TMA or the
+    producer warp loads the operands."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    fn = load("flash_attention_bwd").flash_attention_bwd_plan
+    fn.argtypes = [*[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 12)()
+    err = fn(*(t.contiguous().data_ptr() for t in (q, k, v, do)), B, Sq, Sk,
+             Hkv, Hq // Hkv, D, int(causal), DTYPE_CODE[q.dtype], out)
+    if err != 0:
+        raise ValueError(f"flash_attention_bwd refuses {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} ({err})")
+    wgmma, dn, threads, tma, *grids, st_kv, st_q, sm_kv, sm_q = out
+    plan = {"path": "wgmma" if wgmma else "fp32 fma", "D_as": dn,
+            "threads": threads, "dkdv_grid": grids[:2],
+            "dq_grid": grids[2:], "smem_bytes": {"dkdv": sm_kv, "dq": sm_q}}
+    if wgmma:
+        plan["stages"] = {"dkdv": st_kv, "dq": st_q}
+        plan["loads"] = "tma" if tma else "producer copies"
+    return plan
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=)`` given its
     output ``o``, its rows' log-sum-exp ``lse`` (fp32 ``[B, Hq, Sq]``) and
@@ -245,6 +278,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
             lse.dtype != torch.float32:
         raise TypeError(f"o {o.dtype}, do {do.dtype}, lse {lse.dtype}: o "
                         "and do in q's type, lse float32")
+    Sk, G = k.shape[1], Hq // k.shape[2]
+    if Sq * G > BWD_MAX_ROWS or Sk > BWD_MAX_ROWS:
+        raise ValueError(f"Sq * G = {Sq * G} packed rows or Sk = {Sk} keys: "
+                         f"the backward takes at most {BWD_MAX_ROWS} each")
     if not routed(q):
         raise ValueError(f"unsupported device {q.device}")
     return _flash_bwd(q, k, v, o, lse, do, causal)

@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from .. import work
-from ..build import counted, entry
+from ..build import counted, entry, load
 from ..library import kernel_op, routed
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
@@ -174,6 +174,27 @@ _ssd_bwd = kernel_op(
         t.new_empty(t.shape, dtype=torch.float32)
         for t in (xb, B_, C_, seg, S_prev)),
     work=lambda xb, B_, *args: work.ssd_chunk_bwd(*xb.shape, B_.shape[-1]))
+
+
+def ssd_bwd_plan(Bb: int, L: int, nh: int, hd: int, N: int) -> dict:
+    """What ``ssd_chunk_bwd`` launches at these sizes, as the C entry
+    decides it (``ssd_chunk_bwd_plan`` in ``csrc/ssd_chunk.cu``, the code
+    the launch itself runs): the grids and threads of C.B^T's causal
+    tiles, the per-head jobs and the sums over heads, C.B^T's K and the
+    kernels' shared memory."""
+    fn = load("ssd_chunk").ssd_chunk_bwd_plan
+    fn.argtypes = [*[ctypes.c_int] * 5, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 14)()
+    err = fn(Bb, L, nh, hd, N, out)
+    if err != 0:
+        raise ValueError(f"ssd_chunk_bwd refuses (B, L, nh, hd, N) = "
+                         f"{(Bb, L, nh, hd, N)} ({err})")
+    v = list(out)
+    return {"cb_grid": v[0:2], "jobs_grid": v[2:5], "reduce_grid": v[5:7],
+            "threads": {"cb": v[7], "jobs": v[8], "reduce": v[9]},
+            "cb_k": v[10], "smem_bytes": {"cb": v[11], "jobs": v[12]},
+            "reduce_dbc_blocks": v[13]}
 
 
 def ssd_chunk_bwd(xb, B_, C_, seg, S_prev, dy, dS_new):

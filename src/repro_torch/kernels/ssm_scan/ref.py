@@ -17,7 +17,9 @@ fp32.
 
 ``ssd_chunk_bwd_ref`` is the chunk step's gradient written out term by
 term (not through autograd): the backward kernel's plain version and its
-oracle on the card.
+oracle on the card. ``ssd_chunk_bwd_split_ref`` repeats the backward
+kernel's arithmetic (every product in split fp32 on TF32, per head, then
+the sums over heads) for the same check off the card.
 """
 from __future__ import annotations
 
@@ -137,3 +139,42 @@ def ssd_chunk_split_ref(xb, B_, C_, seg, S_prev, *, lo: bool = True):
     S_new = (torch.exp(tot)[:, :, None, None] * S_prev
              + split_mm("bjhp,bjn->bhpn", xw, B_, lo=lo))
     return y, S_new
+
+
+def ssd_chunk_bwd_split_ref(xb, B_, C_, seg, S_prev, dy, dS_new, *,
+                            lo: bool = True):
+    """``ssd_chunk_bwd_ref`` in the backward kernel's arithmetic: C.B^T once
+    per batch and every per-head product (dM = dy xb^T, M^T dy, dA B,
+    dA^T C, B dS^T, xb dS, C S_prev^T, dy S_prev and (e^seg dy)^T C)
+    through :func:`split_mm`; the decay, the masks (selects), the scalings
+    and the row and column sums in fp32; dB_ and dC_ per head first, then
+    summed over the heads. ``lo=False`` is one pass of TF32."""
+    xb, B_, C_, seg, S_prev, dy, dS = (
+        t.float() for t in (xb, B_, C_, seg, S_prev, dy, dS_new))
+    mm = lambda eq, a, b: split_mm(eq, a, b, lo=lo)        # noqa: E731
+    CB = mm("bin,bjn->bij", C_, B_)
+    dec, tri = _decay(seg)
+    dec = torch.where(tri, dec, 0.0)                            # [B,i,j,nh]
+    M = CB[..., None] * dec
+    dA = mm("bihp,bjhp->bijh", dy, xb) * dec
+    strict = torch.ones(seg.shape[1], seg.shape[1], dtype=torch.bool,
+                        device=seg.device).tril(-1)[None, :, :, None]
+    dMM = torch.where(strict, dA * CB[..., None], 0.0)
+    e_s = torch.exp(seg)
+    tot = seg[:, -1, :]
+    w = torch.exp(tot[:, None, :] - seg)
+    BdS = mm("bjn,bhpn->bjhp", B_, dS)
+    dxb = mm("bijh,bihp->bjhp", M, dy) + w[..., None] * BdS
+    dC = (mm("bijh,bjn->bihn", dA, B_)
+          + e_s[..., None] * mm("bihp,bhpn->bihn", dy, S_prev)).sum(2)
+    dB = (mm("bijh,bin->bjhn", dA, C_)
+          + w[..., None] * mm("bjhp,bhpn->bjhn", xb, dS)).sum(2)
+    dS_prev = (torch.exp(tot)[:, :, None, None] * dS
+               + mm("bihp,bin->bhpn", e_s[..., None] * dy, C_))
+    wdw = w * (xb * BdS).sum(-1)
+    wdw = torch.cat([wdw[:, :-1], torch.zeros_like(wdw[:, -1:])], dim=1)
+    gy = (dy * mm("bin,bhpn->bihp", C_, S_prev)).sum(-1)
+    dseg = dMM.sum(2) - dMM.sum(1) - wdw + e_s * gy
+    dtot = wdw.sum(1) + torch.exp(tot) * (S_prev * dS).sum((2, 3))
+    dseg = torch.cat([dseg[:, :-1], dseg[:, -1:] + dtot[:, None]], dim=1)
+    return dxb, dB, dC, dseg, dS_prev

@@ -161,3 +161,27 @@ def test_cpu_tensors_take_the_plain_versions():
     with pytest.raises(TypeError):
         ops.flash_attention_bwd(qt, kt, vt, o.detach(), lse.double(), dot,
                                 causal=True)
+
+
+@pytest.mark.parametrize("past", ["packed_rows", "keys"])
+def test_bwd_wrapper_refuses_shapes_past_the_entrys_grid(past):
+    """More than ``BWD_MAX_ROWS`` packed query rows (Sq * G) or keys raise
+    in the wrapper, before any launch or plain computation, as the C entry
+    would refuse them (cudaErrorInvalidValue). The operands are stride-0
+    views: nothing of their size is allocated."""
+    over = ops.BWD_MAX_ROWS + 1
+    Sq, Sk, G = ((-(-over // 2), -(-over // 2), 2) if past == "packed_rows"
+                 else (8, over, 1))
+    D = 16
+
+    def view(*shape, dtype=torch.float32):
+        return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
+
+    q, do, o = (view(1, Sq, G, D) for _ in range(3))
+    k, v = view(1, Sk, 1, D), view(1, Sk, 1, D)
+    lse = view(1, G, Sq)
+    before = ops.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="the backward takes at most"):
+        ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert ops.flash_attention_bwd.launches == before
+

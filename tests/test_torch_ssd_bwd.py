@@ -189,3 +189,4 @@ def test_wrapper_rejects_bad_gradients():
         ops.ssd_chunk_bwd(*ins, dy.double(), dS)
     with pytest.raises(TypeError, match="float32"):
         ops.ssd_chunk_bwd(*(t.double() for t in ins), dy, dS)
+
